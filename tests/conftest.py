@@ -43,6 +43,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (extra golden solves, multi-process); "
                    "skipped unless --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc (the port's CUDA "
+                   "kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
