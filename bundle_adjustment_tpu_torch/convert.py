@@ -23,9 +23,10 @@ _UNSUPPORTED = ("point2obs", "img2obs", "sb_a", "datum_mask_d",
                 "defect_flags_d", "dp_w", "de_w", "dg_w", "dpg_idx")
 
 
-def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
-    """The port's RCSProblem with tensors on ``device``."""
-    if np.asarray(problem.r0).shape != (1,):
+def refuse_unsupported(problem) -> None:
+    """Raise NotImplementedError for a problem with more than one camera,
+    scale bars, a Helmert datum or direct observations."""
+    if tuple(problem.r0.shape) != (1,):
         raise NotImplementedError("the port takes single-camera problems")
     for name in _UNSUPPORTED:
         val = getattr(problem, name, None)
@@ -33,6 +34,11 @@ def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
                                     and not any(val)):
             raise NotImplementedError(
                 f"RCSProblem.{name} is not supported by the port yet")
+
+
+def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
+    """The port's RCSProblem with tensors on ``device``."""
+    refuse_unsupported(problem)
 
     def idx(a):
         return torch.as_tensor(np.array(a, np.int32), device=device)

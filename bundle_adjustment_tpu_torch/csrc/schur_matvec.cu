@@ -31,6 +31,32 @@
 //    164 B of rows it reads;
 //  * the G global terms: a fixed shuffle tree per warp, warps summed in
 //    order per CTA into a partials buffer, then partial_reduce_kernel.
+//
+// Stage probes (`ba_matvec_stage`, parallel/kernels.py `matvec_stage`) replace
+// the Pallas K1 ablations of the TPU measurement scripts: `make_variant`
+// (tools/exp_tpu1.py:168), `make_matvec2` (tools/exp_tpu2.py:158),
+// `make_floor` (tools/exp_tpu2.py:238) and `make_stage` (tools/exp_tpu3.py:137,
+// tools/exp_tpu4.py:116).  The per-observation kernel below is a template on
+// the stage; kFull is K1's production instantiation, and the cut ones add
+// one piece of K1 at a time on K1's lean layout, grid and CTA shape:
+//   kRowmath  reads every lean row, obs_img and hppinv and does all the
+//             per-observation row math; lane-local stand-ins replace the
+//             xc gather (x = xc[0] + obs_img), the point reduction (each lane
+//             applies its point's Hpp^{-1} to its own Jp^T t) and the
+//             per-image sum (a global sum of the six Jc^T tv rows, through
+//             the same warp/partials path as the G global terms);
+//   kPointred + the sum over views in shared memory and the Hpp^{-1} apply
+//             by the pb point threads;
+//   kGather   + the real xc[obs_img] load;
+//   kFull     + the obs-major scratch and the per-image pass: K1.
+// The read floor (csrc/read_floor.cu) is the TPU scripts' `dma` stage.  Each
+// stand-in output depends on every value its stage reads, so no load can be
+// dropped by the compiler.  The TPU scripts' `onehot` stage and `bf16` /
+// `bf16all` modes measured how the TPU gathered through its matrix unit and
+// at what precision; here the gather is the indexed load of kGather, and K1
+// stays exact f32.  `make_matvec2`'s pb/H sweep has one point on this card:
+// at V = 12, kernels.choose_pb admits only pb = 32 (384 threads), which is
+// K1's own block size.
 #include "common.cuh"
 
 namespace {
@@ -38,15 +64,22 @@ namespace {
 using ba::kMaxBlockThreads;
 using ba::kMaxG;
 
+enum Stage { kRowmath = 0, kPointred = 1, kGather = 2, kFull = 3 };
+
+// partial_g: [P / pb, G] for kFull; [P / pb, G + 6] (G global terms, then
+// the six Jc^T tv sums) for the cut stages, which write no scratch.
+template <int kStage>
 __global__ void __launch_bounds__(kMaxBlockThreads)
 matvec_obs_kernel(const float* __restrict__ pk, long long N, int P, int pb,
                   int G, const int* __restrict__ obs_img,
                   const float* __restrict__ hppinv,
                   const float* __restrict__ xc, const float* __restrict__ xg,
                   float* __restrict__ scratch, float* __restrict__ partial_g) {
+  constexpr bool kImageSum = kStage == kFull;
+  constexpr int kSlots = kImageSum ? kMaxG : kMaxG + 6;
   __shared__ float sh_jt[3 * kMaxBlockThreads];
   __shared__ float sh_z[3 * kMaxBlockThreads];
-  __shared__ float sh_g[kMaxBlockThreads / 32][kMaxG];
+  __shared__ float sh_g[kMaxBlockThreads / 32][kSlots];
   const ba::Offsets off(G);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;  // V * pb
@@ -68,7 +101,8 @@ matvec_obs_kernel(const float* __restrict__ pk, long long N, int P, int pb,
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
-    const float x = xc[img * 6 + a];
+    const float x =
+        kStage >= kGather ? xc[img * 6 + a] : xc[a] + (float)img;
     s0 += jc[a] * x;
     s1 += jc[6 + a] * x;
   }
@@ -83,38 +117,54 @@ matvec_obs_kernel(const float* __restrict__ pk, long long N, int P, int pb,
   }
   const float t0 = wxx * s0 + wxy * s1;
   const float t1 = wxy * s0 + wyy * s1;
+  float z0, z1, z2;
+  if constexpr (kStage >= kPointred) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-    sh_jt[a * nthr + tid] = jp[a] * t0 + jp[3 + a] * t1;
-  __syncthreads();
+    for (int a = 0; a < 3; ++a)
+      sh_jt[a * nthr + tid] = jp[a] * t0 + jp[3 + a] * t1;
+    __syncthreads();
 
-  if (tid < pb) {
-    const long long pt = (long long)blockIdx.x * pb + tid;
-    float y[3], h[6], z[3];
+    if (tid < pb) {
+      const long long pt = (long long)blockIdx.x * pb + tid;
+      float y[3], h[6], z[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float s = 0.f;
-      for (int v = 0; v < V; ++v) s += sh_jt[a * nthr + v * pb + tid];
-      y[a] = s;
+      for (int a = 0; a < 3; ++a) {
+        float s = 0.f;
+        for (int v = 0; v < V; ++v) s += sh_jt[a * nthr + v * pb + tid];
+        y[a] = s;
+      }
+#pragma unroll
+      for (int r = 0; r < 6; ++r) h[r] = hppinv[(long long)r * P + pt];
+      ba::sym3_apply(h, y[0], y[1], y[2], z);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) sh_z[a * pb + tid] = z[a];
     }
+    __syncthreads();
+    z0 = sh_z[p];
+    z1 = sh_z[pb + p];
+    z2 = sh_z[2 * pb + p];
+  } else {
+    const long long pt = (long long)blockIdx.x * pb + p;
+    float h[6], z[3];
 #pragma unroll
     for (int r = 0; r < 6; ++r) h[r] = hppinv[(long long)r * P + pt];
-    ba::sym3_apply(h, y[0], y[1], y[2], z);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) sh_z[a * pb + tid] = z[a];
+    ba::sym3_apply(h, jp[0] * t0 + jp[3] * t1, jp[1] * t0 + jp[4] * t1,
+                   jp[2] * t0 + jp[5] * t1, z);
+    z0 = z[0];
+    z1 = z[1];
+    z2 = z[2];
   }
-  __syncthreads();
-
-  const float z0 = sh_z[p], z1 = sh_z[pb + p], z2 = sh_z[2 * pb + p];
   const float r0 = jp[0] * z0 + jp[1] * z1 + jp[2] * z2;
   const float r1 = jp[3] * z0 + jp[4] * z1 + jp[5] * z2;
   const float tv0 = t0 - (wxx * r0 + wxy * r1);
   const float tv1 = t1 - (wxy * r0 + wyy * r1);
-  float4* out = reinterpret_cast<float4*>(scratch + n * 8);
-  out[0] = make_float4(jc[0] * tv0 + jc[6] * tv1, jc[1] * tv0 + jc[7] * tv1,
-                       jc[2] * tv0 + jc[8] * tv1, jc[3] * tv0 + jc[9] * tv1);
-  out[1] = make_float4(jc[4] * tv0 + jc[10] * tv1,
-                       jc[5] * tv0 + jc[11] * tv1, 0.f, 0.f);
+  if constexpr (kImageSum) {
+    float4* out = reinterpret_cast<float4*>(scratch + n * 8);
+    out[0] = make_float4(jc[0] * tv0 + jc[6] * tv1, jc[1] * tv0 + jc[7] * tv1,
+                         jc[2] * tv0 + jc[8] * tv1, jc[3] * tv0 + jc[9] * tv1);
+    out[1] = make_float4(jc[4] * tv0 + jc[10] * tv1,
+                         jc[5] * tv0 + jc[11] * tv1, 0.f, 0.f);
+  }
 
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
@@ -126,11 +176,22 @@ matvec_obs_kernel(const float* __restrict__ pk, long long N, int P, int pb,
       if (lane == 0) sh_g[warp][g] = q;
     }
   }
+  if constexpr (!kImageSum) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      float q = jc[a] * tv0 + jc[6 + a] * tv1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) q += __shfl_down_sync(0xffffffffu, q, o);
+      if (lane == 0) sh_g[warp][kMaxG + a] = q;
+    }
+  }
   __syncthreads();
-  if (tid < G) {
+  const int nslots = kImageSum ? G : G + 6;
+  if (tid < nslots) {
+    const int slot = tid < G ? tid : kMaxG + tid - G;
     float s = 0.f;
-    for (int w = 0; w < nthr / 32; ++w) s += sh_g[w][tid];
-    partial_g[(long long)blockIdx.x * G + tid] = s;
+    for (int w = 0; w < nthr / 32; ++w) s += sh_g[w][slot];
+    partial_g[(long long)blockIdx.x * nslots + tid] = s;
   }
 }
 
@@ -148,9 +209,8 @@ extern "C" int ba_schur_matvec(
       G < 1 || G > ba::kMaxG || (long long)P * V != N || M <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = P / pb;
-  matvec_obs_kernel<<<nblk, nthr, 0, stream>>>(packed, N, P, pb, G, obs_img,
-                                               hppinv, xc, xg, scratch,
-                                               partial_g);
+  matvec_obs_kernel<kFull><<<nblk, nthr, 0, stream>>>(
+      packed, N, P, pb, G, obs_img, hppinv, xc, xg, scratch, partial_g);
   BA_CHECK_LAUNCH();
   ba::image_reduce_kernel<<<dim3(M, 1), dim3(8, ba::kReduceThreads / 8), 0,
                             stream>>>(scratch, 8, 6, img_perm,
@@ -159,6 +219,43 @@ extern "C" int ba_schur_matvec(
   BA_CHECK_LAUNCH();
   ba::partial_reduce_kernel<<<G, ba::kReduceThreads, 0, stream>>>(
       partial_g, nblk, G, extra_g, xg, out_g);
+  BA_CHECK_LAUNCH();
+  return 0;
+}
+
+// One cut stage of K1 (stage 0 rowmath, 1 pointred, 2 gather; see the head
+// of this file).  partial: [P / pb, G + 6] f32; out: [G + 6] f32, the G
+// global sums of Jg^T tv, then the six sums of Jc^T tv.
+extern "C" int ba_matvec_stage(int stage, const float* packed, long long N,
+                               int P, int V, int pb, int G,
+                               const int* obs_img, const float* hppinv,
+                               const float* xc, const float* xg,
+                               float* partial, float* out,
+                               cudaStream_t stream) {
+  const int nthr = V * pb;
+  if (pb <= 0 || pb % 32 != 0 || nthr > ba::kMaxBlockThreads || P % pb != 0 ||
+      G < 1 || G > ba::kMaxG || (long long)P * V != N)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = P / pb;
+  switch (stage) {
+    case kRowmath:
+      matvec_obs_kernel<kRowmath><<<nblk, nthr, 0, stream>>>(
+          packed, N, P, pb, G, obs_img, hppinv, xc, xg, nullptr, partial);
+      break;
+    case kPointred:
+      matvec_obs_kernel<kPointred><<<nblk, nthr, 0, stream>>>(
+          packed, N, P, pb, G, obs_img, hppinv, xc, xg, nullptr, partial);
+      break;
+    case kGather:
+      matvec_obs_kernel<kGather><<<nblk, nthr, 0, stream>>>(
+          packed, N, P, pb, G, obs_img, hppinv, xc, xg, nullptr, partial);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  BA_CHECK_LAUNCH();
+  ba::partial_reduce_kernel<<<G + 6, ba::kReduceThreads, 0, stream>>>(
+      partial, nblk, G + 6, nullptr, nullptr, out);
   BA_CHECK_LAUNCH();
   return 0;
 }

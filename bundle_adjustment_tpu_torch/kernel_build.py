@@ -44,6 +44,13 @@ SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr,                            # hpp perm bstarts
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,  # scratch
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],           # red rg t2 t3 stream
+    "ba_read_floor": [
+        _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,     # packed N P V pb rows
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr],                   # xin part out stream
+    "ba_matvec_stage": [
+        _c_int, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,  # st pk N P V pb G
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr,                    # img hpp xc xg
+        _c_ptr, _c_ptr, _c_ptr],                           # part out stream
 }
 
 
@@ -90,8 +97,8 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> BuildResult:
     """Compile csrc/*.cu into the hash-keyed build directory (no-op when the
-    library is already there).  ``verbose`` adds ptxas resource usage to
-    the log."""
+    library is already there): one nvcc per source, all started together,
+    then one link.  ``verbose`` adds ptxas resource usage to the log."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
@@ -102,23 +109,42 @@ def build(verbose: bool = False) -> BuildResult:
             "nvcc not found ($CUDA_HOME/bin, $PATH, /usr/local/cuda/bin): "
             "the CUDA kernels cannot be built here")
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *cu]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+        flags.append("-Xptxas=-v")
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.time() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {res.returncode}):\n{log[-4000:]}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial .so
-    return BuildResult(lib, seconds, log)
+    try:
+        procs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = work / (src.stem + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{obj.stem}.cu (exit {proc.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise KernelBuildError(f"nvcc failed: {', '.join(failed)}:\n"
+                                   f"{log[-4000:]}")
+        tmp = work / LIB_NAME
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(obj) for obj, _ in procs)],
+            capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed (exit {res.returncode}):\n{log[-4000:]}")
+        # atomic: concurrent builders never see a partial .so
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return BuildResult(lib, time.time() - t0, log)
 
 
 def library():

@@ -509,6 +509,54 @@ def omega_at(p: FMProblem, b: FMBlocks, dxp, dxc, dxg):
     return torch.sum(v[0] * pv0 + v[1] * pv1)
 
 
+class PointOps(NamedTuple):
+    """Point-block closures of one linearisation (feature-major)."""
+
+    hinv: object     # v [P, 3] -> Hpp^{-1} v [P, 3]
+    hinv_at: object  # idx [k] -> Hpp^{-1} blocks [k, 3, 3]
+    hxp: object      # v [P, 3] -> (Hcp v [M, 6], Hgp v [G])
+    hpx: object      # (xc [M, 6], xg [G]) -> Hpx x [P, 3]
+
+
+def point_ops(p: FMProblem, b: FMBlocks) -> PointOps:
+    """The single-camera point-block products the mixed-precision
+    refinement needs (port of the JAX `engine.point_ops`; its multi-camera
+    branch is not ported, as `linearize` refuses such problems).  Hpp^{-1}
+    is held per point in point order (`_point_sum` gives that order in
+    either layout), so ``hinv`` / ``hinv_at`` take point-indexed
+    arguments."""
+
+    def hinv(v):
+        return torch.stack(_hinv_apply(b.Hpp_inv, v[:, 0], v[:, 1], v[:, 2]),
+                           dim=1)
+
+    def hinv_at(idx):
+        h = [r[idx] for r in b.Hpp_inv]  # 6 sym rows at selected points
+        return torch.stack([
+            torch.stack([h[0], h[1], h[2]], dim=1),
+            torch.stack([h[1], h[3], h[4]], dim=1),
+            torch.stack([h[2], h[4], h[5]], dim=1),
+        ], dim=1)  # [k, 3, 3]
+
+    def hxp(v):
+        vo = [_point_expand(p, v[:, a]) for a in range(3)]
+        u = [sum(b.PJp[i * 3 + a] * vo[a] for a in range(3)) for i in (0, 1)]
+        qc = [b.Jc[a] * u[0] + b.Jc[6 + a] * u[1] for a in range(6)]
+        oc = _image_sum_stack(p, qc)
+        G2 = len(b.Jg) // 2
+        og = torch.stack([torch.sum(b.Jg[g] * u[0] + b.Jg[G2 + g] * u[1])
+                          for g in range(G2)])
+        return oc, og
+
+    def hpx(xc, xg):
+        t = _t_rows(p, b, xc, xg)
+        return torch.stack(
+            [_point_sum(p, b.Jp[a] * t[0] + b.Jp[3 + a] * t[1])
+             for a in range(3)], dim=1)
+
+    return PointOps(hinv=hinv, hinv_at=hinv_at, hxp=hxp, hpx=hpx)
+
+
 def lm_step(p: FMProblem, state: ParamState, spec, damping,
             cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
             couple_global=True, state_lo: ParamState | None = None,

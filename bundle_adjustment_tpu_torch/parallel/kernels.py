@@ -1,4 +1,5 @@
-"""Packed-row contract and the three main-path kernels (K1-K3).
+"""Packed-row contract, the three solve kernels (K1-K3) and the two
+matvec probes (K4 read floor, K1 stages).
 
 Port of `bundle_adjustment_tpu/parallel/kernels.py`.  Every
 per-observation quantity is a row of length N in the view-major blocked
@@ -19,6 +20,8 @@ Each kernel has
   K3 `cam_gather_rows`      csrc/cam_gather.cu        camera-row gather
   K1 `schur_matvec_rows`    csrc/schur_matvec.cu      implicit Schur matvec
   K2 `prepare_reduction`    csrc/prepare_reduction.cu fused assembly
+  K4 `read_floor`           csrc/read_floor.cu        pure-read floor
+     `matvec_stage`         csrc/schur_matvec.cu      K1 cut into stages
 """
 
 from __future__ import annotations
@@ -231,30 +234,45 @@ def make_cam_gather(p):
 # K1: Schur matvec
 # ---------------------------------------------------------------------------
 
-def schur_matvec_plain(pp: PackedFM, extra_c, extra_g, xc, xg):
-    """S @ [xc; xg] from the lean packed prefix (see csrc/schur_matvec.cu);
-    returns ([M, 6], [G])."""
+def _matvec_terms(pp: PackedFM, xcr, xg, point_reduce: bool = True):
+    """K1's per-observation terms (qc [6, N], qg [G, N]) from the lean
+    packed prefix, given the camera rows ``xcr`` [6, N].  With
+    ``point_reduce=False`` each lane applies its point's Hpp^{-1} to its
+    own Jp^T t instead of the sum over the point's views (the lane-local
+    stand-in of the `matvec_stage` probes)."""
     G, V, pb = pp.g, pp.views, pp.pb
     off = _offsets(G)
     pk = pp.packed
     Jp, Jc = pk[0:6], pk[off["Jc"]:off["Jc"] + 12]
     Jg = pk[off["Jg"]:off["Jg"] + 2 * G]
     wxx, wxy, wyy = pk[off["W"]], pk[off["W"] + 1], pk[off["W"] + 2]
-    xcr = xc[pp.obs_img.long()].T                         # [6, N]
     s0 = (Jc[:6] * xcr).sum(0) + (Jg[:G] * xg[:, None]).sum(0)
     s1 = (Jc[6:] * xcr).sum(0) + (Jg[G:] * xg[:, None]).sum(0)
     t0 = wxx * s0 + wxy * s1
     t1 = wxy * s0 + wyy * s1
-    y = _view_sum(Jp[:3] * t0 + Jp[3:] * t1, V, pb)      # [3, P]
-    z = torch.stack(engine._hinv_apply(pp.hppinv[:6], y[0], y[1], y[2]))
-    zo = _view_bcast(z, V, pb)                            # [3, N]
+    jt = Jp[:3] * t0 + Jp[3:] * t1                        # [3, N]
+    if point_reduce:
+        y = _view_sum(jt, V, pb)                          # [3, P]
+        z = torch.stack(engine._hinv_apply(pp.hppinv[:6], y[0], y[1], y[2]))
+        zo = _view_bcast(z, V, pb)                        # [3, N]
+    else:
+        h = _view_bcast(pp.hppinv[:6], V, pb)             # [6, N]
+        zo = torch.stack(engine._hinv_apply(h, jt[0], jt[1], jt[2]))
     r0 = (Jp[:3] * zo).sum(0)
     r1 = (Jp[3:] * zo).sum(0)
     tv0 = t0 - (wxx * r0 + wxy * r1)
     tv1 = t1 - (wxy * r0 + wyy * r1)
     qc = Jc[:6] * tv0 + Jc[6:] * tv1                      # [6, N]
+    qg = Jg[:G] * tv0 + Jg[G:] * tv1                      # [G, N]
+    return qc, qg
+
+
+def schur_matvec_plain(pp: PackedFM, extra_c, extra_g, xc, xg):
+    """S @ [xc; xg] from the lean packed prefix (see csrc/schur_matvec.cu);
+    returns ([M, 6], [G])."""
+    qc, qg = _matvec_terms(pp, xc[pp.obs_img.long()].T, xg)
     oc = engine._image_sum_stack(pp, list(qc))
-    og = (Jg[:G] * tv0 + Jg[G:] * tv1).sum(1)
+    og = qg.sum(1)
     return oc + extra_c * xc, og + extra_g * xg
 
 
@@ -406,14 +424,119 @@ def prepare_kernels(p, state, spec, damping, couple_global: bool = True,
     return (*out, pp)
 
 
+# ---------------------------------------------------------------------------
+# K4: read floor
+# ---------------------------------------------------------------------------
+
+_FLOOR_CHUNKS = 32  # kChunks of csrc/read_floor.cu
+
+
+def read_floor_plain(pp: PackedFM, xin):
+    """out[8, 128] = 1e-30 xin + the fold of the lean rows: row r, lane n
+    adds into out[r % 8, n % 128] (see csrc/read_floor.cu).  Folds the
+    21 + 2G rows K1 reads; the pad rows of the lean prefix are zero by
+    `pack_fm`'s contract, so this equals the TPU kernel's fold over the
+    padded prefix."""
+    rows = _offsets(pp.g)["F_lean"]
+    x = pp.packed[:rows]
+    x = torch.nn.functional.pad(x, (0, -x.shape[1] % 128, 0, -rows % 8))
+    fold = x.reshape(-1, 8, x.shape[1] // 128, 128).sum(dim=(0, 2))
+    return 1e-30 * xin + fold
+
+
+def read_floor(pp: PackedFM, xin):
+    """K4 wrapper: `read_floor_plain` for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if _is_cpu(pp.packed):
+        return read_floor_plain(pp, xin)
+    P, V = pp.num_points, pp.views
+    rows = _offsets(pp.g)["F_lean"]
+    dev = _check_packed(pp, rows)
+    f32 = torch.float32
+    _check("xin", xin, f32, (8, 128), dev)
+    # the per-block folds, then the kChunks chunk sums of read_floor.cu
+    partial = torch.empty((P // pp.pb + _FLOOR_CHUNKS, 8, 128), dtype=f32,
+                          device=dev)
+    out = torch.empty((8, 128), dtype=f32, device=dev)
+    _launch("ba_read_floor", _ptr(pp.packed), P * V, P, V, pp.pb, rows,
+            _ptr(xin), _ptr(partial), _ptr(out))
+    read_floor.launches += 1
+    return out
+
+
+read_floor.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 stage probes
+# ---------------------------------------------------------------------------
+
+#: K1 cut into stages, each adding one piece (csrc/schur_matvec.cu):
+#: rowmath  - all per-observation row math; stand-ins for the xc gather
+#:            (xc[0] + obs_img), the point reduction (each lane applies
+#:            its point's Hpp^{-1} to its own Jp^T t) and the per-image
+#:            sum (a global sum of the six Jc^T tv rows);
+#: pointred - + the sum over views in shared memory and the Hpp^{-1} apply;
+#: gather   - + the real xc[obs_img] load;
+#: full     - K1 itself.
+MATVEC_STAGES = ("rowmath", "pointred", "gather", "full")
+_CUT_STAGE_ID = {"rowmath": 0, "pointred": 1, "gather": 2}
+
+
+def matvec_stage_plain(pp: PackedFM, stage, extra_c, extra_g, xc, xg):
+    """The plain version of one stage: ``full`` is `schur_matvec_plain`;
+    a cut stage returns (sum over lanes of Jc^T tv [6], of Jg^T tv [G])."""
+    if stage == "full":
+        return schur_matvec_plain(pp, extra_c, extra_g, xc, xg)
+    if stage not in _CUT_STAGE_ID:
+        raise ValueError(f"stage {stage!r} is not one of {MATVEC_STAGES}")
+    if stage == "gather":
+        xcr = xc[pp.obs_img.long()].T
+    else:
+        xcr = xc[0][:, None] + pp.obs_img.to(xc.dtype)[None]
+    qc, qg = _matvec_terms(pp, xcr, xg, point_reduce=stage != "rowmath")
+    return qc.sum(1), qg.sum(1)
+
+
+def matvec_stage(pp: PackedFM, stage, extra_c, extra_g, xc, xg):
+    """Stage probe wrapper: ``full`` goes to K1 (`schur_matvec_rows`); a
+    cut stage takes `matvec_stage_plain` for CPU tensors and launches its
+    instantiation of K1's per-observation kernel for CUDA tensors."""
+    if stage == "full":
+        return schur_matvec_rows(pp, extra_c, extra_g, xc, xg)
+    if stage not in _CUT_STAGE_ID:
+        raise ValueError(f"stage {stage!r} is not one of {MATVEC_STAGES}")
+    if _is_cpu(pp.packed):
+        return matvec_stage_plain(pp, stage, extra_c, extra_g, xc, xg)
+    G, M = pp.g, pp.num_images
+    P, V = pp.num_points, pp.views
+    dev = _check_packed(pp, _offsets(G)["F_lean"])
+    f32 = torch.float32
+    _check("xc", xc, f32, (M, 6), dev)
+    _check("xg", xg, f32, (G,), dev)
+    partial = torch.empty((P // pp.pb, G + 6), dtype=f32, device=dev)
+    out = torch.empty((G + 6,), dtype=f32, device=dev)
+    _launch("ba_matvec_stage", _CUT_STAGE_ID[stage], _ptr(pp.packed), P * V,
+            P, V, pp.pb, G, _ptr(pp.obs_img), _ptr(pp.hppinv), _ptr(xc),
+            _ptr(xg), _ptr(partial), _ptr(out))
+    matvec_stage.launches += 1
+    return out[G:], out[:G]
+
+
+matvec_stage.launches = 0
+
+_WRAPPERS = {"cam_gather": cam_gather_rows,
+             "schur_matvec": schur_matvec_rows,
+             "prepare_reduction": prepare_reduction,
+             "read_floor": read_floor,
+             "matvec_stage": matvec_stage}
+
+
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last reset."""
-    return {"cam_gather": cam_gather_rows.launches,
-            "schur_matvec": schur_matvec_rows.launches,
-            "prepare_reduction": prepare_reduction.launches}
+    return {name: w.launches for name, w in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    cam_gather_rows.launches = 0
-    schur_matvec_rows.launches = 0
-    prepare_reduction.launches = 0
+    for w in _WRAPPERS.values():
+        w.launches = 0

@@ -12,6 +12,7 @@ and max|dx| has not improved by 30% for 3 steps (the f32 floor), or after
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 from . import engine, rcs
@@ -21,6 +22,7 @@ class LMPhase(NamedTuple):
     steps: int
     max_dx: float          # max|alpha dx| of the last step
     cg_iterations: list    # per step
+    seconds: float         # wall time (each step ends in a host read)
 
 
 def step_scale(damping: float) -> float:
@@ -32,6 +34,7 @@ def run(p, state, spec, damping=1e-2, max_steps=60, use_kernels=True,
         cg_tol=1e-4, cg_maxiter=100, stall_limit=8):
     """Run the LM phase from ``state`` on the (view-major, for the
     kernels) FMProblem ``p``.  Returns (final state, LMPhase)."""
+    t0 = time.perf_counter()
     best, n_flat = float("inf"), 0
     its = []
     mdx = float("inf")
@@ -55,4 +58,5 @@ def run(p, state, spec, damping=1e-2, max_steps=60, use_kernels=True,
             n_flat += 1
             if damping == 0.0 and n_flat >= 3:
                 break
-    return state, LMPhase(steps=k, max_dx=mdx, cg_iterations=its)
+    return state, LMPhase(steps=k, max_dx=mdx, cg_iterations=its,
+                          seconds=time.perf_counter() - t0)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip check of the PyTorch + CUDA port: the f32 scale LM phase on one GPU.
+"""Chip check of the PyTorch + CUDA port: the scale solve on one GPU.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,29 @@ Phases (any failed check exits non-zero, before the result line):
      must land within 1% of the injected 5e-4 (on failure the same phase
      runs through the plain path to tell kernel from slice);
   4. the steady-state fixed-CG step (8 CG iterations, tol 0) through the
-     kernels and through the plain path, timed in turns.
-Then one JSON line with the kernels, and last
+     kernels and through the plain path, timed in turns;
+  5. convergence: from phase 3's end state, mixed-precision refinement
+     (parallel/refine.py `converge`: cg_tol 1e-12, cg_maxiter 800,
+     stall_limit 300, at most 15 steps) through K1-K3, the f64 gradient in
+     plain PyTorch on the GPU, run twice: with the bench's damping 1e-7,
+     recorded, and undamped, which must reach max|dx| <= 1e-6 (at this
+     size the bench's damping limits the contraction to ~2/3 per step, see
+     refine.py).  For each run the launch counters are reset before and
+     read after, each > 0; the f64 Omega of the refinement's own objective
+     (the f32-rounded observations) at the refined state must be <= its
+     value at phase 3's state x (1 + 1e-9) and sigma0 within 1% of 5e-4.
+     time_to_converged_s = phase 3's seconds + the undamped refinement's
+     (a run that fails a check runs again through the plain path);
+  6. the matvec roofline (measure.py) on the lean rows at phase 3's state:
+     K4 (read floor) against its plain version, each entry within 1e-6 of
+     the sum of |values| it folds; each cut K1 stage within a scaled error
+     of 2e-4, the full stage equal to K1 bit for bit; then with the
+     counters reset, K4, every stage and K1 timed over 20 warm runs, GB/s
+     on the rows read and on the padded count, and matvec_vs_read_floor;
+     the floor must not be slower than K1.
+Then one JSON line with the kernels (``launches`` summed over the runs of
+phases 3, 5 and 6, each between a reset and a read of the counters), and
+last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -33,16 +54,26 @@ import time
 NUM_POINTS, NUM_IMAGES, VIEWS = 100_000, 500, 12
 SIGMA = 5e-4
 TOL_SCALED = 2e-4       # kernel vs plain, f32 (tests/test_pallas_prepare.py)
+TOL_FLOOR = 1e-6        # K4 vs plain, per entry, of the sum of |values|
+REFINE_TOL = 1e-6       # max|dx| the refinement must reach (bench.py)
+BENCH_DAMPING = 1e-7    # the bench's refinement damping (bench.py:657)
 TPU_SITES = {  # pallas_call of the TPU kernel each CUDA kernel replaces
     "cam_gather": "bundle_adjustment_tpu/parallel/kernels.py:312",
     "prepare_reduction": "bundle_adjustment_tpu/parallel/kernels.py:761",
     "schur_matvec": "bundle_adjustment_tpu/parallel/kernels.py:467",
+    "read_floor": "bundle_adjustment_tpu/parallel/kernels.py:550",
+    "matvec_stage": "tools/exp_tpu1.py:168, tools/exp_tpu2.py:158, "
+                    "tools/exp_tpu2.py:238, tools/exp_tpu3.py:137, "
+                    "tools/exp_tpu4.py:116",
 }
 SOURCES = {
     "cam_gather": "bundle_adjustment_tpu_torch/csrc/cam_gather.cu",
     "prepare_reduction": "bundle_adjustment_tpu_torch/csrc/prepare_reduction.cu",
     "schur_matvec": "bundle_adjustment_tpu_torch/csrc/schur_matvec.cu",
+    "read_floor": "bundle_adjustment_tpu_torch/csrc/read_floor.cu",
+    "matvec_stage": "bundle_adjustment_tpu_torch/csrc/schur_matvec.cu",
 }
+SOLVE_KERNELS = ("cam_gather", "prepare_reduction", "schur_matvec")
 
 
 def fail(msg: str):
@@ -52,21 +83,6 @@ def fail(msg: str):
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def time_ms(torch, fn, reps=20, warm=3):
-    """Mean device time of fn() over ``reps`` back-to-back runs."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def scaled_err(a, b) -> float:
@@ -96,9 +112,11 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     try:
-        from bundle_adjustment_tpu_torch import convert, kernel_build, synthetic
-        from bundle_adjustment_tpu_torch.parallel import (engine, kernels, lm,
-                                                          rcs)
+        from bundle_adjustment_tpu_torch import (convert, kernel_build,
+                                                 measure, synthetic)
+        from bundle_adjustment_tpu_torch.parallel import (engine, hilo,
+                                                          kernels, lm, rcs,
+                                                          refine)
     except ImportError as exc:
         fail(f"the port package is not importable here: {exc}")
 
@@ -147,9 +165,9 @@ def main():
              f"(max abs {float((g_k - g_p).abs().max()):.3e})")
     results["cam_gather"] = dict(
         max_abs_err=float((g_k - g_p).abs().max()),
-        ms=time_ms(torch, lambda: kernels.cam_gather_rows(eo, pp.obs_img)),
-        plain_ms=time_ms(torch,
-                         lambda: kernels.cam_gather_plain(eo, pp.obs_img)))
+        ms=measure.time_ms(lambda: kernels.cam_gather_rows(eo, pp.obs_img)),
+        plain_ms=measure.time_ms(
+            lambda: kernels.cam_gather_plain(eo, pp.obs_img)))
     log(f"K3 cam_gather: exact; {results['cam_gather']['ms']:.4f} ms vs "
         f"plain {results['cam_gather']['plain_ms']:.4f} ms")
 
@@ -182,9 +200,9 @@ def main():
     results["prepare_reduction"] = dict(
         max_abs_err=max(float((a - r).abs().max())
                         for a, r in zip(out_k, out_p)),
-        ms=time_ms(torch, lambda: kernels.prepare_reduction(pp), reps=10),
-        plain_ms=time_ms(torch, lambda: kernels.prepare_reduction_plain(pp),
-                         reps=5, warm=1))
+        ms=measure.time_ms(lambda: kernels.prepare_reduction(pp), reps=10),
+        plain_ms=measure.time_ms(
+            lambda: kernels.prepare_reduction_plain(pp), reps=5, warm=1))
     log(f"K2 prepare_reduction: {results['prepare_reduction']['ms']:.4f} ms "
         f"vs plain {results['prepare_reduction']['plain_ms']:.4f} ms")
 
@@ -207,9 +225,9 @@ def main():
     results["schur_matvec"] = dict(
         max_abs_err=max(float((oc_k - oc_p).abs().max()),
                         float((og_k - og_p).abs().max())),
-        ms=time_ms(torch, lambda: kernels.schur_matvec_rows(
+        ms=measure.time_ms(lambda: kernels.schur_matvec_rows(
             pp, ec, eg, xc, xg), reps=50),
-        plain_ms=time_ms(torch, lambda: kernels.schur_matvec_plain(
+        plain_ms=measure.time_ms(lambda: kernels.schur_matvec_plain(
             pp, ec, eg, xc, xg), reps=10))
     log(f"K1 schur_matvec: {results['schur_matvec']['ms']:.4f} ms vs plain "
         f"{results['schur_matvec']['plain_ms']:.4f} ms")
@@ -255,10 +273,9 @@ def main():
             f"{ph_p.max_dx:.3e}, sigma0 {s0_p:.6e}")
         fail("LM phase through the kernels did not converge to sigma0 "
              "within 1% of the injected noise")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
-    for name, n in launches.items():
-        results[name]["launches"] = n
+    if min(launches[k] for k in SOLVE_KERNELS) <= 0:
+        fail(f"a kernel of the LM phase was never launched: {launches}")
+    total = dict(launches)
 
     # ---- 4. steady-state fixed-CG step -------------------------------------
     def fixed_step(st, use_kernels):
@@ -286,15 +303,175 @@ def main():
         f"{step_plain:.3f} ms (turns plain/kernels/kernels/plain: "
         + ", ".join(f"{x * 1e3:.3f}" for x in tp) + " ms)")
 
-    log(json.dumps({"lm_phase_steps": ph.steps, "lm_phase_s": t_lm,
-                    "sigma0": s0, "fixed_cg8_step_ms": step_kern,
-                    "fixed_cg8_step_plain_ms": step_plain}))
-    print(json.dumps({"kernels": [
-        dict(name=n, route="cuda", source=SOURCES[n], replaces=TPU_SITES[n],
-             launches=results[n]["launches"],
-             max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
-             plain_ms=results[n]["plain_ms"])
-        for n in ("cam_gather", "prepare_reduction", "schur_matvec")]}))
+    # ---- 5. convergence: mixed-precision refinement through the kernels ---
+    refiner = refine.Refiner(prob, spec, use_kernels=True)
+    st64 = type(st)(*(a.double() for a in st))
+    om3_r = float(refiner.gradient64(refiner.fmp64, st64)[3])
+
+    def refine_phase(r, damping):
+        torch.cuda.synchronize()
+        return refine.converge(r, (st, ph), tolerance=REFINE_TOL,
+                               damping=damping)
+
+    def contraction(hist):
+        """Geometric mean of max|dx| ratios over the last 5 steps."""
+        h = hist[-6:]
+        return (h[-1] / h[0]) ** (1.0 / (len(h) - 1)) if len(h) > 1 else 0.0
+
+    def plain_diagnosis(damping):
+        """The same refinement through the plain path, to tell a kernel
+        fault from a slice fault."""
+        _, rec_p = refine_phase(refine.Refiner(prob, spec, use_kernels=False),
+                                damping)
+        log(f"plain-path refinement, damping {damping:g}: "
+            f"{rec_p.refine_steps} steps, max|dx| {rec_p.max_dx}, "
+            f"CG iterations {rec_p.cg_iterations}")
+
+    runs = {}
+    for label, damping in (("bench", BENCH_DAMPING), ("undamped", 0.0)):
+        kernels.reset_launch_counts()
+        s_ref, rec = refine_phase(refiner, damping)
+        launches5 = kernels.launch_counts()
+        om5_r = float(refiner.gradient64(refiner.fmp64,
+                                         hilo.to_f64(s_ref))[3])
+        s0_5 = (om5_r / dof) ** 0.5
+        log(f"refinement, damping {damping:g} (kernels): {rec.refine_steps} "
+            f"steps in {rec.refine_seconds:.2f} s; max|dx| " + ", ".join(
+                f"{x:.3e}" for x in rec.max_dx) + f"; CG iterations "
+            f"{rec.cg_iterations}; contraction over the last steps "
+            f"{contraction(rec.max_dx):.3f} per step")
+        log(f"  f64 Omega of the refinement's objective {om3_r:.10e} -> "
+            f"{om5_r:.10e}; sigma0 {s0_5:.6e}; on the f64 observations "
+            f"{om1:.10e} -> {omega(hilo.to_f64(s_ref)):.10e}")
+        log(f"  launches during the refinement: {launches5}")
+        if min(launches5[k] for k in SOLVE_KERNELS) <= 0:
+            fail(f"a kernel of the refinement was never launched: "
+                 f"{launches5}")
+        problems = []
+        if not (om5_r <= om3_r * (1.0 + 1e-9)
+                and abs(s0_5 / SIGMA - 1.0) < 0.01):
+            problems.append(f"refinement (damping {damping:g}) raised Omega "
+                            "above phase 3's or moved sigma0 off the "
+                            "injected noise")
+        if label == "undamped" and not rec.max_dx[-1] <= REFINE_TOL:
+            problems.append(f"the undamped refinement through the kernels "
+                            f"did not reach max|dx| <= {REFINE_TOL} within "
+                            f"15 steps")
+        if problems:
+            plain_diagnosis(damping)
+            fail("; ".join(problems))
+        total = {k: total[k] + launches5[k] for k in total}
+        runs[label] = dict(steps=rec.refine_steps, seconds=rec.refine_seconds,
+                           max_dx=rec.max_dx, cg_iterations=rec.cg_iterations,
+                           sigma0=s0_5, omega=om5_r)
+    del s_ref
+    ttc = t_lm + rec.refine_seconds
+    log(f"time_to_converged_s {ttc:.3f} (LM phase {t_lm:.3f} s, "
+        f"{ph.steps} steps + undamped refinement {rec.refine_seconds:.3f} s, "
+        f"{rec.refine_steps} steps)")
+    del refiner
+
+    # ---- 6. the matvec roofline: K4 and the K1 stages ----------------------
+    b6 = engine.linearize(fv, st, spec, 1e-6)
+    pp6 = kernels.pack_fm(b6, fv, lean_only=True)
+    ec6 = torch.zeros((fv.num_images, 6), dtype=torch.float32, device=dev)
+    eg6 = b6.extra_g.contiguous()
+    del b6
+    gen = torch.Generator().manual_seed(4)
+    xc6 = torch.randn((fv.num_images, 6), generator=gen).to(dev)
+    xg6 = torch.randn((G,), generator=gen).to(dev)
+    xin = torch.randn((8, 128), generator=gen).to(dev)
+    f_k = kernels.read_floor(pp6, xin)
+    f_p = kernels.read_floor_plain(pp6, xin)
+    f_scale = kernels.read_floor_plain(pp6._replace(packed=pp6.packed.abs()),
+                                       torch.zeros_like(xin))
+    e_floor = float(((f_k - f_p).abs() / f_scale.clamp_min(1e-30)).max())
+    log(f"K4 read_floor: max |kernel - plain| / sum|values| {e_floor:.2e}")
+    if not e_floor <= TOL_FLOOR:
+        fail("K4 read_floor disagrees with its plain version")
+    stage_err, stage_abs, stage_plain_ms = {}, 0.0, {}
+    for name in kernels.MATVEC_STAGES[:-1]:
+        o_k = torch.cat(kernels.matvec_stage(pp6, name, ec6, eg6, xc6, xg6))
+        o_p = torch.cat(kernels.matvec_stage_plain(pp6, name, ec6, eg6, xc6,
+                                                   xg6))
+        stage_err[name] = scaled_err(o_k, o_p)
+        stage_abs = max(stage_abs, float((o_k - o_p).abs().max()))
+        stage_plain_ms[name] = measure.time_ms(
+            lambda n=name: kernels.matvec_stage_plain(pp6, n, ec6, eg6, xc6,
+                                                      xg6), reps=5, warm=1)
+    full = kernels.matvec_stage(pp6, "full", ec6, eg6, xc6, xg6)
+    k1 = kernels.schur_matvec_rows(pp6, ec6, eg6, xc6, xg6)
+    full_same = all(torch.equal(a, c) for a, c in zip(full, k1))
+    log("K1 stages vs plain, scaled errors: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in stage_err.items())
+        + f"; full stage equal to K1 bit for bit: {full_same}")
+    if not all(e <= TOL_SCALED for e in stage_err.values()):
+        fail("a K1 stage kernel disagrees with its plain version")
+    if not full_same:
+        fail("the full stage differs from K1")
+    stage_plain_ms["full"] = measure.time_ms(
+        lambda: kernels.schur_matvec_plain(pp6, ec6, eg6, xc6, xg6), reps=5,
+        warm=1)
+    floor_plain_ms = measure.time_ms(
+        lambda: kernels.read_floor_plain(pp6, xin), reps=5, warm=1)
+
+    kernels.reset_launch_counts()
+    roof = measure.roofline(pp6, ec6, eg6, xc6, xg6, reps=20)
+    torch.cuda.synchronize()
+    launches6 = kernels.launch_counts()
+    log(f"launches during the roofline: {launches6}")
+    if min(launches6[k] for k in ("read_floor", "matvec_stage",
+                                  "schur_matvec")) <= 0:
+        fail(f"a kernel of the roofline was never launched: {launches6}")
+    total = {k: total[k] + launches6[k] for k in total}
+    sm = roof["stage_ms"]
+    log(f"bytes: rows read {roof['rows_read_bytes']} (41 rows), padded "
+        f"count of bench.matvec_cost {roof['padded_bytes']} (48 rows)")
+    log("stage ms: " + ", ".join(f"{n} {t:.4f}" for n, t in sm.items())
+        + "; plain ms: " + f"dma {floor_plain_ms:.4f}, " + ", ".join(
+            f"{n} {t:.4f}" for n, t in stage_plain_ms.items()))
+    log(f"matvec {roof['matvec_gbps']:.1f} GB/s on the rows read, "
+        f"{roof['matvec_padded_gbps']:.1f} GB/s on the padded count; read "
+        f"floor {roof['matvec_read_floor_gbps']:.1f} GB/s on the rows read, "
+        f"{roof['matvec_read_floor_padded_gbps']:.1f} GB/s on the padded "
+        f"count; matvec_vs_read_floor {roof['matvec_vs_read_floor']:.4f}")
+    if not sm["dma"] < sm["full"]:
+        fail(f"the read floor ({sm['dma']:.4f} ms) is not faster than K1 "
+             f"({sm['full']:.4f} ms)")
+    results["read_floor"] = dict(
+        max_abs_err=float((f_k - f_p).abs().max()), ms=sm["dma"],
+        plain_ms=floor_plain_ms)
+    results["matvec_stage"] = dict(
+        max_abs_err=stage_abs, ms=sm["gather"],
+        plain_ms=stage_plain_ms["gather"],
+        stages={n: dict(ms=sm[n], plain_ms=stage_plain_ms[n])
+                for n in kernels.MATVEC_STAGES})
+
+    log(json.dumps({
+        "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
+        "fixed_cg8_step_ms": step_kern,
+        "fixed_cg8_step_plain_ms": step_plain,
+        "time_to_converged_s": ttc, "refine_steps": rec.refine_steps,
+        "refine_s": rec.refine_seconds, "converged_max_dx": rec.max_dx[-1],
+        "refine_cg_iterations": rec.cg_iterations,
+        "refine_bench_damping": runs["bench"],
+        "matvec_gbps": roof["matvec_gbps"],
+        "matvec_padded_gbps": roof["matvec_padded_gbps"],
+        "matvec_read_floor_gbps": roof["matvec_read_floor_gbps"],
+        "matvec_read_floor_padded_gbps":
+            roof["matvec_read_floor_padded_gbps"],
+        "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
+        "stage_ms": sm}))
+    kernel_rows = []
+    for n in SOURCES:
+        row = dict(name=n, route="cuda", source=SOURCES[n],
+                   replaces=TPU_SITES[n], launches=total[n],
+                   max_abs_err=results[n]["max_abs_err"],
+                   ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
+        if "stages" in results[n]:
+            row["stages"] = results[n]["stages"]
+        kernel_rows.append(row)
+    print(json.dumps({"kernels": kernel_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@ runs without the suite's conftest:
 
 Tolerances: K3 exact (a copy); K1 and K2 within a scaled error of 2e-4
 (f32, other summation order than the plain versions); K1 run twice gives
-identical bits (its reductions are deterministic).
+identical bits (its reductions are deterministic).  K4: each fold entry
+within 1e-6 of the sum of |values| it folds (f32 sums in another order);
+the cut K1 stages within a scaled error of 2e-4 of their plain versions,
+and the ``full`` stage equal to K1 bit for bit.
 """
 
 import pytest
@@ -33,7 +36,7 @@ def case():
                                                      fmp.views))
     b = engine.linearize(fv, state, spec, 1e-3)
     pp = kernels.pack_fm(b, fv, with_pw=True)
-    return dict(fv=fv, state=state, spec=spec, b=b, pp=pp)
+    return dict(prob=prob, fv=fv, state=state, spec=spec, b=b, pp=pp)
 
 
 def _scaled(a, b):
@@ -85,12 +88,76 @@ def test_lm_step_through_kernels_contracts(case):
     dxp, dxc, dxg, b, _ = engine.lm_step(fv, st, spec, 1e-4, cg_tol=1e-6,
                                          cg_maxiter=100, use_kernels=True)
     counts = kernels.launch_counts()
-    assert min(counts.values()) > 0, counts
+    assert min(counts[k] for k in ("cam_gather", "prepare_reduction",
+                                   "schur_matvec")) > 0, counts
     om = float(engine.omega_at(fv, b, dxp, dxc, dxg))
     d_ref = engine.lm_step(fv, st, spec, 1e-4, cg_tol=1e-6, cg_maxiter=100)
     om_ref = float(engine.omega_at(fv, d_ref[3], *d_ref[:3]))
     assert om < 0.9 * float(b.omega0)
     assert om < 1.05 * om_ref
+
+
+def _probe_inputs(case):
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    fv, b, pp = case["fv"], case["b"], case["pp"]
+    fin = engine.finish_reduction(fv, b, case["state"], 1e-3,
+                                  *kernels.prepare_reduction_plain(pp), True)
+    gen = torch.Generator().manual_seed(2)
+    xc = torch.randn((fv.num_images, 6), generator=gen).cuda()
+    xg = torch.randn((b.bg.shape[0],), generator=gen).cuda()
+    return (fin[0].extra_c.contiguous(), fin[0].extra_g.contiguous(), xc,
+            xg)
+
+
+def test_read_floor_kernel_matches_plain(case):
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    pp = case["pp"]
+    xin = torch.randn((8, 128), generator=torch.Generator().manual_seed(3))
+    xin = xin.cuda()
+    before = kernels.read_floor.launches
+    out = kernels.read_floor(pp, xin)
+    assert kernels.read_floor.launches == before + 1
+    ref = kernels.read_floor_plain(pp, xin)
+    scale = kernels.read_floor_plain(pp._replace(packed=pp.packed.abs()),
+                                     torch.zeros_like(xin))
+    assert bool(((out - ref).abs() <= 1e-6 * scale).all())
+    assert torch.equal(out, kernels.read_floor(pp, xin))
+
+
+@pytest.mark.parametrize("stage", ["rowmath", "pointred", "gather"])
+def test_matvec_stage_kernel_matches_plain(case, stage):
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    ec, eg, xc, xg = _probe_inputs(case)
+    out = torch.cat(kernels.matvec_stage(case["pp"], stage, ec, eg, xc, xg))
+    ref = torch.cat(kernels.matvec_stage_plain(case["pp"], stage, ec, eg, xc,
+                                               xg))
+    assert _scaled(out, ref) < 2e-4
+
+
+def test_full_stage_is_k1_bit_for_bit(case):
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    ec, eg, xc, xg = _probe_inputs(case)
+    full = kernels.matvec_stage(case["pp"], "full", ec, eg, xc, xg)
+    k1 = kernels.schur_matvec_rows(case["pp"], ec, eg, xc, xg)
+    assert all(torch.equal(a, b) for a, b in zip(full, k1))
+
+
+def test_refiner_step_through_kernels_contracts(case):
+    from bundle_adjustment_tpu_torch.parallel import hilo, kernels, refine
+
+    kernels.reset_launch_counts()
+    r = refine.Refiner(case["prob"], case["spec"], use_kernels=True)
+    s = hilo.from_f32(case["state"])
+    s, mdx1, _, _ = r.step(s)
+    counts = kernels.launch_counts()
+    assert min(counts[k] for k in ("cam_gather", "prepare_reduction",
+                                   "schur_matvec")) > 0, counts
+    s, mdx2, _, _ = r.step(s)
+    assert float(mdx2) < 0.5 * float(mdx1)
 
 
 def test_wrappers_refuse_f64_on_cuda(case):

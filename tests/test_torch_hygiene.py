@@ -44,7 +44,8 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_package():
     names = {p.name for p in PKG.rglob("*.py")}
-    assert {"engine.py", "kernels.py", "rcs.py", "fm.py", "lm.py"} <= names
+    assert {"engine.py", "kernels.py", "rcs.py", "fm.py", "lm.py", "hilo.py",
+            "refine.py", "measure.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("bundle_adjustment_tpu")
     assert not _forbidden("bundle_adjustment_tpu_torch.parallel")
 
@@ -62,16 +63,37 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_sources_hash_and_signatures():
+    """Every ctypes signature names an extern "C" function of csrc/ with
+    the same number of parameters (ctypes would pass a missing pointer as
+    garbage rather than fail)."""
+    import re
+
     from bundle_adjustment_tpu_torch import kernel_build
 
     names = {s.name for s in kernel_build.sources()}
     assert {"cam_gather.cu", "schur_matvec.cu", "prepare_reduction.cu",
-            "common.cuh"} <= names
+            "read_floor.cu", "common.cuh"} <= names
     h = kernel_build.source_hash()
     assert len(h) == 16 and h == kernel_build.source_hash()
-    for fn in kernel_build.SIGNATURES:
-        assert any(f'extern "C" int {fn}(' in s.read_text()
-                   for s in kernel_build.sources())
+    text = "".join(s.read_text() for s in kernel_build.sources())
+    assert {"ba_read_floor", "ba_matvec_stage"} <= set(kernel_build.SIGNATURES)
+    for fn, argtypes in kernel_build.SIGNATURES.items():
+        m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+        assert m, fn
+        assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+def test_read_floor_scratch_matches_the_kernel():
+    """K4's wrapper sizes its scratch for the chunk sums of read_floor.cu:
+    a smaller buffer would be written past its end on the card."""
+    import re
+
+    from bundle_adjustment_tpu_torch import kernel_build
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    src = next(s for s in kernel_build.sources() if s.name == "read_floor.cu")
+    m = re.search(r"constexpr int kChunks = (\d+);", src.read_text())
+    assert m and int(m.group(1)) == kernels._FLOOR_CHUNKS
 
 
 def test_wrappers_refuse_other_devices():

@@ -1,0 +1,171 @@
+"""The matvec roofline pieces of the port (measure.py, the K4 read floor and
+the K1 stage probes) on the CPU.
+
+* `measure.matvec_cost` equals `bench.matvec_cost` exactly (same formula);
+  `matvec_rows_read` counts the 41 rows K1 reads at G = 10.
+* `read_floor_plain` against the JAX `make_read_floor` run in Pallas
+  interpret mode (`pl.pallas_call` patched with ``interpret=True`` for the
+  test; the JAX package is unchanged).  Tolerance: each fold entry within
+  1e-6 of the sum of |values| it folds (f32 sums in another order).
+* The ``full`` stage is K1's plain version, bit for bit.
+* Each cut stage's output changes when any input it claims to read is
+  perturbed, and does not change when an input it does not read is.
+* The timing path refuses CPU tensors: a CPU run gives no device time.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from bundle_adjustment_tpu.parallel import kernels as JK
+from bundle_adjustment_tpu_torch import measure
+from bundle_adjustment_tpu_torch.parallel import kernels as TK
+from bundle_adjustment_tpu_torch.parallel import rcs
+
+G = 10
+F_LEAN = 21 + 2 * G
+
+
+def _packed_case(P=64, V=12, pb=32, M=7, seed=0):
+    """Random lean rows (pad rows zero, as `pack_fm` makes them), random
+    images, Hpp^{-1} rows and probe vectors; a port PackedFM."""
+    rng = np.random.default_rng(seed)
+    N = P * V
+    packed = np.zeros((48, N), np.float32)
+    packed[:F_LEAN] = rng.normal(0, 1, (F_LEAN, N))
+    hpp = np.zeros((8, P), np.float32)
+    hpp[:6] = rng.normal(0, 1, (6, P))
+    obs_img = rng.integers(0, M, N).astype(np.int32)
+    pp = TK.PackedFM(
+        packed=torch.as_tensor(packed), obs_img=torch.as_tensor(obs_img),
+        hppinv=torch.as_tensor(hpp), img_perm=None, img_block_starts=None,
+        num_points=P, views=V, num_images=M, g=G, f_pad=48, pb=pb)
+    xc = torch.as_tensor(rng.normal(0, 1, (M, 6)), dtype=torch.float32)
+    xg = torch.as_tensor(rng.normal(0, 1, (G,)), dtype=torch.float32)
+    return pp, xc, xg
+
+
+@pytest.mark.parametrize("N,G_,V", [(1_204_224, 10, 12), (12_000_000, 10, 12),
+                                   (3072, 7, 6), (384, 16, 8)])
+def test_matvec_cost_matches_bench(N, G_, V):
+    assert measure.matvec_cost(N, G_, V) == bench.matvec_cost(N, G_, V)
+
+
+def test_rows_read_vs_padded_count():
+    N = 1_204_224
+    assert measure.matvec_rows_read(N, 10) == 41 * 4 * N == 197_492_736
+    assert measure.matvec_cost(N, 10, 12)[1] == 48 * 4 * N == 231_211_008
+
+
+def test_read_floor_plain_matches_pallas_interpret(monkeypatch):
+    pp, _, _ = _packed_case(P=256, seed=1)
+    rng = np.random.default_rng(2)
+    xin = rng.normal(0, 1, (8, 128)).astype(np.float32)
+    monkeypatch.setattr(JK.pl, "pallas_call",
+                        functools.partial(JK.pl.pallas_call, interpret=True))
+    ppj = JK.PackedFM(
+        packed=jnp.asarray(pp.packed.numpy()),
+        obs_img=jnp.asarray(pp.obs_img.numpy()).reshape(1, -1),
+        hppinv=jnp.asarray(pp.hppinv.numpy()), num_points=pp.num_points,
+        views=pp.views, num_images=pp.num_images, m_pad=128, g=G, f_pad=48,
+        pb=pp.pb, h=128)
+    ref = np.asarray(JK.make_read_floor(ppj)(jnp.asarray(xin)))
+    out = TK.read_floor(pp, torch.as_tensor(xin))
+    assert out.shape == (8, 128) and out.dtype == torch.float32
+    scale = TK.read_floor_plain(pp._replace(packed=pp.packed.abs()),
+                                torch.zeros(8, 128)).numpy()
+    assert np.all(np.abs(out.numpy() - ref) <= 1e-6 * scale)
+
+
+def test_full_stage_is_k1_plain():
+    pp, xc, xg = _packed_case()
+    perm, bstarts = rcs.build_image_block_layout(
+        pp.obs_img.numpy(), pp.num_images)
+    pp = pp._replace(img_perm=torch.as_tensor(perm),
+                     img_block_starts=torch.as_tensor(bstarts))
+    rng = np.random.default_rng(3)
+    ec = torch.as_tensor(rng.normal(0, 1, (pp.num_images, 6)),
+                         dtype=torch.float32)
+    eg = torch.as_tensor(rng.normal(0, 1, (G,)), dtype=torch.float32)
+    ref = TK.schur_matvec_plain(pp, ec, eg, xc, xg)
+    for out in (TK.matvec_stage_plain(pp, "full", ec, eg, xc, xg),
+                TK.matvec_stage(pp, "full", ec, eg, xc, xg)):
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def _inputs_read(stage):
+    """(name, perturb fn) of every input the stage reads."""
+    def row(r):
+        return (f"row {r}", lambda pp, xc, xg: (pp._replace(
+            packed=_bump(pp.packed, r)), xc, xg))
+
+    def hrow(r):
+        return (f"hppinv {r}", lambda pp, xc, xg: (pp._replace(
+            hppinv=_bump(pp.hppinv, r)), xc, xg))
+
+    out = [row(r) for r in range(F_LEAN)] + [hrow(r) for r in range(6)]
+    out.append(("obs_img", lambda pp, xc, xg: (pp._replace(
+        obs_img=(pp.obs_img + 1) % pp.num_images), xc, xg)))
+    out.append(("xg", lambda pp, xc, xg: (pp, xc, xg * 1.5)))
+    # the stand-ins read image 0's row; the gather reads every row
+    if stage == "gather":
+        out.append(("xc", lambda pp, xc, xg: (pp, xc * 1.5, xg)))
+    else:
+        out.append(("xc[0]", lambda pp, xc, xg: (pp, _bump(xc, 0), xg)))
+    return out
+
+
+def _inputs_not_read(stage):
+    out = [(f"pad row {r}", lambda pp, xc, xg, r=r: (pp._replace(
+        packed=_bump(pp.packed, r)), xc, xg)) for r in range(F_LEAN, 48)]
+    out += [(f"hppinv pad {r}", lambda pp, xc, xg, r=r: (pp._replace(
+        hppinv=_bump(pp.hppinv, r)), xc, xg)) for r in (6, 7)]
+    if stage != "gather":
+        out.append(("xc[1:]", lambda pp, xc, xg: (pp, torch.cat(
+            [xc[:1], xc[1:] * 1.5]), xg)))
+    return out
+
+
+def _bump(t, r):
+    t = t.clone()
+    t[r] = t[r] + 0.5
+    return t
+
+
+@pytest.mark.parametrize("stage", ["rowmath", "pointred", "gather"])
+def test_cut_stage_depends_on_what_it_reads(stage):
+    pp, xc, xg = _packed_case()
+    base = torch.cat(TK.matvec_stage(pp, stage, None, None, xc, xg))
+    assert base.shape == (6 + G,) and bool(torch.isfinite(base).all())
+    for name, perturb in _inputs_read(stage):
+        p2, xc2, xg2 = perturb(pp, xc, xg)
+        out = torch.cat(TK.matvec_stage_plain(p2, stage, None, None, xc2,
+                                              xg2))
+        assert not torch.equal(out, base), f"{stage} ignores {name}"
+    for name, perturb in _inputs_not_read(stage):
+        p2, xc2, xg2 = perturb(pp, xc, xg)
+        out = torch.cat(TK.matvec_stage_plain(p2, stage, None, None, xc2,
+                                              xg2))
+        assert torch.equal(out, base), f"{stage} reads {name}"
+
+
+def test_stages_differ_from_each_other():
+    """Each stage adds a piece that changes the result."""
+    pp, xc, xg = _packed_case()
+    outs = [torch.cat(TK.matvec_stage_plain(pp, s, None, None, xc, xg))
+            for s in ("rowmath", "pointred", "gather")]
+    assert not torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[1], outs[2])
+    with pytest.raises(ValueError, match="stage"):
+        TK.matvec_stage(pp, "onehot", None, None, xc, xg)
+
+
+def test_roofline_refuses_cpu_tensors():
+    pp, xc, xg = _packed_case()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure.roofline(pp, None, None, xc, xg)
+    assert measure.STAGES == ("dma", "rowmath", "pointred", "gather", "full")

@@ -1,0 +1,186 @@
+"""The port's mixed-precision refinement (parallel/refine.py) against the
+JAX `parallel/refine.py` and an f64 reference solve, on the CPU.
+
+Tolerances:
+* `gradient64`: rtol 1e-10 per block (f64 on both sides, other summation
+  order), with an absolute floor of 1e-10 x the block's largest entry for
+  the entries that are zero (fixed parameters) or nearly cancel;
+* `point_ops` products: rtol 1e-12 (f64, identical rows on both sides,
+  the same products in another order);
+* the refinement, as tests/test_refine.py:14-57 bounds it: max|dx| of the
+  last step <= 1e-7, points within 1e-9 of their scale of the f64
+  reference optimum, eo within 1e-6, and the error 1e-4 x below the f32
+  floor.  The JAX Refiner from the same f32 start must land on the same
+  optimum within the same bounds.  Single f32 steps are not compared value
+  for value: f32 CG is ill-posed (tests/test_torch_slice.py);
+* `converge` from `synthetic.build_problem`, with the bench's damping
+  (1e-7) and undamped: max|dx| <= 1e-6 within 15 steps and sigma0 within
+  5% of the injected 5e-4 (dof ~ 3.3k here); the undamped run needs no
+  more steps than the damped one (the damping bounds the contraction of
+  the weakest mode, see `refine.converge`).  The bench's cg_tol, with a
+  shorter CG budget (maxiter 300, stall 100) to keep the CPU test short;
+  `chip_smoke.py` runs the bench's own settings at full size.
+"""
+
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_parity import CPU, blocks_to_torch, build_pair, np_
+from bundle_adjustment_tpu.models.problem import ParamState as JParamState
+from bundle_adjustment_tpu.parallel import engine as E
+from bundle_adjustment_tpu.parallel import hilo as JH
+from bundle_adjustment_tpu.parallel import refine as JR
+from bundle_adjustment_tpu_torch import convert, synthetic
+from bundle_adjustment_tpu_torch.models.problem import ParamState
+from bundle_adjustment_tpu_torch.parallel import engine as TE
+from bundle_adjustment_tpu_torch.parallel import hilo, kernels, lm, rcs, refine
+
+
+@pytest.fixture(scope="module")
+def pair32():
+    pr = build_pair(256, 12, 6, seed=4, f64=False)
+    prob_t = convert.problem_to_torch(pr.problem_j, CPU, torch.float32)
+    return pr, prob_t
+
+
+def _to_jax(st):
+    return JParamState(*(jnp.asarray(np_(a)) for a in st))
+
+
+def test_gradient64_matches_jax(pair32):
+    pr, prob_t = pair32
+    rj = JR.Refiner(pr.problem_j, pr.spec)
+    rt = refine.Refiner(prob_t, pr.spec, use_kernels=True)
+    assert rt.fmp64.vm_pb is None and rt.fmp64.obs_x.dtype == torch.float64
+    st64 = ParamState(*(a.double() for a in pr.state_t))
+    gj = rj.gradient64(rj.fmp64, _to_jax(st64))
+    gt = rt.gradient64(rt.fmp64, st64)
+    for name, a, b in zip(("bp", "bc", "bg", "omega0"), gj[:4], gt):
+        a = np.asarray(a)
+        assert b.dtype == torch.float64, name
+        np.testing.assert_allclose(np_(b), a, rtol=1e-10,
+                                   atol=1e-10 * np.max(np.abs(a)),
+                                   err_msg=name)
+
+
+def test_point_ops_match_jax():
+    pr = build_pair(256, 12, 6, seed=8)
+    bj = E.linearize(pr.fj, pr.state_j, pr.spec, jnp.asarray(1e-3))
+    bt = blocks_to_torch(bj)
+    oj, ot = E.point_ops(pr.fj, bj), TE.point_ops(pr.ft, bt)
+    rng = np.random.default_rng(0)
+    v = rng.normal(0, 1, (pr.ft.num_points, 3))
+    xc = rng.normal(0, 1, (pr.ft.num_images, 6))
+    xg = rng.normal(0, 1, (bt.bg.shape[0],))
+    idx = np.array([0, 5, 17, 255])
+    pairs = [(oj.hinv(jnp.asarray(v)), ot.hinv(torch.as_tensor(v))),
+             (oj.hinv_at(jnp.asarray(idx)), ot.hinv_at(torch.as_tensor(idx))),
+             (oj.hpx(jnp.asarray(xc), jnp.asarray(xg)),
+              ot.hpx(torch.as_tensor(xc), torch.as_tensor(xg))),
+             *zip(oj.hxp(jnp.asarray(v)), ot.hxp(torch.as_tensor(v)))]
+    for a, b in pairs:
+        np.testing.assert_allclose(np_(b), np.asarray(a), rtol=1e-12,
+                                   atol=1e-12 * np.max(np.abs(np.asarray(a))))
+
+
+@pytest.fixture(scope="module")
+def f32_start(pair32):
+    """(f64 reference optimum, f32 LM phase's end, its point error)."""
+    pr, prob_t = pair32
+    spec = pr.spec
+    # f64 reference optimum on the same (f32-rounded) observations
+    fmp64 = TE.fm_problem(refine.upcast_problem(prob_t))
+    st = ParamState(*(a.double() for a in pr.state_t))
+    for _ in range(14):
+        dxp, dxc, dxg, _, _ = TE.lm_step(fmp64, st, spec, 1e-8, cg_tol=1e-13,
+                                         cg_maxiter=2000)
+        st, mdx = rcs.apply_step(st, dxp, dxc, dxg)
+    assert float(mdx) < 1e-10
+
+    # f32 LM phase to its floor, through the kernel path (plain on the CPU)
+    s32, damp = pr.state_t, 1e-2
+    for _ in range(12):
+        dxp, dxc, dxg, _, _ = TE.lm_step(pr.ft, s32, spec, damp, cg_tol=1e-5,
+                                         cg_maxiter=200, use_kernels=True)
+        a = lm.step_scale(damp)
+        s32, _ = rcs.apply_step(s32, a * dxp, a * dxc, a * dxg)
+        damp = 0.0 if damp < 1e-9 else damp * 0.2
+    err32 = np.abs(np_(s32.points).astype(np.float64)
+                   - np_(st.points)).max()
+    return st, s32, err32
+
+
+def _assert_f64_grade(hist, full, ref, err32):
+    ref_pts = np_(ref.points)
+    assert hist[-1] <= 1e-7, hist
+    err = np.abs(np_(full.points) - ref_pts).max()
+    assert err < 1e-4 * err32
+    assert err / float(np.abs(ref_pts).max()) < 1e-9
+    assert np.abs(np_(full.eo) - np_(ref.eo)).max() < 1e-6
+
+
+def test_refinement_reaches_f64_grade_like_jax(pair32, f32_start):
+    pr, prob_t = pair32
+    ref, s32, err32 = f32_start
+    kernels.reset_launch_counts()
+    rt = refine.Refiner(prob_t, pr.spec, use_kernels=True)
+    s, history = rt.refine(s32, tolerance=1e-7, max_iterations=12)
+    assert set(kernels.launch_counts().values()) == {0}  # CPU: plain
+    rj = JR.Refiner(pr.problem_j, pr.spec, use_pallas=False)
+    sj, history_j = rj.refine(_to_jax(s32), tolerance=1e-7, max_iterations=12)
+    _assert_f64_grade(history, hilo.to_f64(s), ref, err32)
+    _assert_f64_grade(history_j, JH.to_f64(sj), ref, err32)
+
+
+def test_plain_path_refinement_reaches_f64_grade(pair32, f32_start):
+    """``use_kernels=False``: the point-major f32 problem and the plain
+    `engine.prepare` (coupled preconditioner) land on the same optimum."""
+    pr, prob_t = pair32
+    ref, s32, err32 = f32_start
+    rt = refine.Refiner(prob_t, pr.spec, use_kernels=False)
+    assert rt.fmp32.vm_pb is None
+    s, history = rt.refine(s32, tolerance=1e-7, max_iterations=12)
+    _assert_f64_grade(history, hilo.to_f64(s), ref, err32)
+
+
+def test_converge_from_synthetic_reaches_tolerance():
+    prob_h, state_h, spec = synthetic.build_problem(256, 12, 8, seed=1)
+    prob = convert.problem_to_torch(prob_h, CPU, torch.float32)
+    st = convert.state_to_torch(state_h, CPU, torch.float32)
+    fmp = TE.fm_problem(prob)
+    fv = TE.to_view_major(fmp, kernels.choose_pb(fmp.num_points, fmp.views))
+    lm_result = lm.run(fv, st, spec)
+    refiner = refine.Refiner(prob, spec, use_kernels=True)
+    prob64 = convert.problem_to_torch(prob_h, CPU, torch.float64)
+    fmp64 = TE.fm_problem(prob64)
+    n = 2 * int((prob64.obs_weight[:, 0, 0] > 0).sum())
+    u = int(prob64.free_point.sum() + prob64.free_eo.sum()
+            + prob64.free_global.sum())
+    steps = {}
+    for damping in (1e-7, 0.0):
+        s, rec = refine.converge(refiner, lm_result, damping=damping,
+                                 cg_maxiter=300, stall_limit=100)
+        assert rec.max_dx[-1] <= 1e-6 and rec.refine_steps <= 15, rec
+        assert rec.f32_steps == lm_result[1].steps
+        assert len(rec.cg_iterations) == rec.refine_steps
+        assert all(0 < it <= 300 for it in rec.cg_iterations)
+        assert rec.time_to_converged_s == (rec.f32_seconds
+                                           + rec.refine_seconds)
+        b = TE.linearize(fmp64, hilo.to_f64(s), spec, 0.0)
+        s0 = (float(b.omega0) / (n - u)) ** 0.5
+        assert abs(s0 / synthetic.SIGMA - 1.0) < 0.05
+        steps[damping] = rec.refine_steps
+    assert steps[0.0] <= steps[1e-7], steps
+
+
+def test_refiner_refuses_extras(pair32):
+    """Scale bars, a Helmert datum and direct observations are not ported:
+    the constructor refuses them, as `convert` does."""
+    _, prob_t = pair32
+    problem = SimpleNamespace(**prob_t._asdict(), sb_a=np.zeros(1, np.int32))
+    with pytest.raises(NotImplementedError, match="sb_a"):
+        refine.Refiner(problem, None)

@@ -94,8 +94,9 @@ def test_lm_phase_f32_reaches_noise_floor():
     pr = build_pair(256, 12, 6, seed=4, f64=False)
     TK.reset_launch_counts()
     st, ph = lm.run(pr.ft, pr.state_t, pr.spec)
-    assert TK.launch_counts() == {"cam_gather": 0, "schur_matvec": 0,
-                                  "prepare_reduction": 0}  # CPU: plain
+    counts = TK.launch_counts()
+    assert {"cam_gather", "schur_matvec", "prepare_reduction"} <= set(counts)
+    assert set(counts.values()) == {0}  # CPU: plain
     b = TE.linearize(pr.ft, st, pr.spec, 0.0)
     n = 2 * int((pr.ft.wxx > 0).sum())
     u = int(pr.ft.free_point.sum() + pr.ft.free_eo.sum()
