@@ -219,9 +219,9 @@ cam_gather_rows.launches = 0
 
 
 def make_cam_gather(p):
-    """fn(tbl [M, c<=8]) -> [8, N] over a view-major FMProblem's images."""
-    if p.vm_pb is None:
-        raise ValueError("make_cam_gather requires the view-major layout")
+    """fn(tbl [M, c<=8]) -> [8, N] over an FMProblem's images, in its lane
+    order (point-major or view-major: the gather is an indexed load per
+    observation)."""
     obs_img = p.obs_image.to(torch.int32).contiguous()
 
     def gather(tbl):

@@ -37,10 +37,35 @@ Phases (any failed check exits non-zero, before the result line):
      of 2e-4, the full stage equal to K1 bit for bit; then with the
      counters reset, K4, every stage and K1 timed over 20 warm runs, GB/s
      on the rows read and on the padded count, and matvec_vs_read_floor;
-     the floor must not be slower than K1.
+     the floor must not be slower than K1;
+  7. covariance (parallel/cov_direct.py `cov_all`: linearise at damping 0,
+     dense reduced system, Cholesky inverse, every point's 3x3 block) on
+     the point-major problem at phase 3's end state.  The f64 run is the
+     gate: the Cholesky succeeds; S agrees with a second assembly route
+     (per-image sums and the Schur correction as dense products of
+     per-point coupling columns, built from the Jacobian rows with none
+     of cov_direct's helpers) within a Jacobi-scaled 1e-9; the
+     Jacobi-scaled residual max|D^-1 S Q D - I| <= 1e-8 (D = sqrt(diag
+     S)); the camera blocks equal Q's 6x6 diagonal blocks; 8 points (6
+     random free, one datum, one padded dummy) from the all-points dense
+     path and from the row-gather path agree within 1e-6 of each block's
+     largest entry with an LU route (C_p from the same coupling columns,
+     X = solve(S, C_p), Qpp = Hpp^-1 + C_p^T X); the row-gather recovery
+     of all points, and cov_all's cold and warm calls, agree with the
+     staged run likewise; every free point's diagonal is finite and > 0.
+     The f32 run checks K3 on the point-major layout exactly against its
+     plain gather, then goes through K3 (launches > 0) and is recorded:
+     its Cholesky status, where f32 loses S (the Jacobi-scaled assembly
+     error and smallest eigenvalue of the f32 S; the Cholesky of the f64 S
+     rounded to f32) and, if it factorises, the relative error of the free
+     points' diagonal entries against f64.  Times: cov_all_points_s is the
+     mean of 3 warm `cov_all` calls after a cold one, each between CUDA
+     events; the stage split (linearise / assemble base / corrections /
+     inverse / recovery) comes from 3 stage-by-stage runs, and the
+     row-gather recovery of all points is timed beside the dense one.
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5 and 6, each between a reset and a read of the counters), and
-last
+phases 3, 5, 6 and 7, each between a reset and a read of the counters),
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -74,6 +99,10 @@ SOURCES = {
     "matvec_stage": "bundle_adjustment_tpu_torch/csrc/schur_matvec.cu",
 }
 SOLVE_KERNELS = ("cam_gather", "prepare_reduction", "schur_matvec")
+COV_S_TOL = 1e-9         # Jacobi-scaled max|S - S_ref|, f64 (two assemblies)
+COV_RESIDUAL_TOL = 1e-8  # Jacobi-scaled max|D^-1 S Q D - I|, f64
+COV_BLOCK_TOL = 1e-6     # point block vs another route, of its largest entry
+COV_REPS = 3             # warm covariance calls timed after a cold one
 
 
 def fail(msg: str):
@@ -102,6 +131,326 @@ def inverse_err(inv_k, inv_p) -> float:
         a, b = a[None], b[None]
     rel = (a - b).flatten(1).norm(dim=1) / b.flatten(1).norm(dim=1)
     return float((rel / torch.linalg.cond(b, "fro")).max())
+
+
+COV_STAGES = ("linearise", "assemble_base", "corrections", "inverse",
+              "recovery")
+
+
+def time_cov_all(fmp, state, spec, cam_gather=None):
+    """`cov_direct.cov_all` itself, COV_REPS calls, each between two CUDA
+    events.  Returns (mean ms, the last call's blocks)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.parallel import cov_direct
+
+    ms = []
+    for _ in range(COV_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = cov_direct.cov_all(fmp, state, spec, cam_gather=cam_gather)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return sum(ms) / len(ms), out
+
+
+def cov_staged(fmp, state, spec, cam_gather=None):
+    """The stage split of `cov_direct.cov_all`: the calls it makes (its
+    assembly as `assemble_reduced_base` and `assemble_reduced_corrections`,
+    which `assemble_reduced_dense` runs in turn), a CUDA event after each.
+    A diagnostic: the caller holds its blocks against `cov_all`'s.
+    Returns (blocks, FMBlocks, S, Q, {stage: ms})."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.parallel import cov_direct, engine
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    b = engine.linearize(fmp, state, spec, 0.0, cam_gather=cam_gather)
+    ev[1].record()
+    S0 = cov_direct.assemble_reduced_base(fmp, b)
+    ev[2].record()
+    S = cov_direct.assemble_reduced_corrections(fmp, b, S0)
+    ev[3].record()
+    Q = cov_direct.reduced_inverse(S)
+    ev[4].record()
+    blocks = cov_direct.point_covariance_dense(fmp, b, Q)
+    ev[5].record()
+    torch.cuda.synchronize()
+    ms = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(COV_STAGES)}
+    return blocks, b, S, Q, ms
+
+
+def mean_stage_ms(runs):
+    return {n: sum(r[n] for r in runs) / len(runs) for n in COV_STAGES}
+
+
+def block_err(x, ref):
+    """max over blocks of max|x - ref| / max|ref| (each block's own
+    largest entry)."""
+    return float(((x - ref).flatten(1).abs().max(dim=1).values
+                  / ref.flatten(1).abs().max(dim=1).values.clamp_min(1e-300)
+                  ).max())
+
+
+def jacobian_rows(b):
+    """The Jacobian rows of an FMBlocks stacked: Jp, PJp [6, N], Jc, PJc
+    [12, N], Jg, PJg [2G, N] (x rows first, then y rows)."""
+    import torch
+
+    return {n: torch.stack(getattr(b, n))
+            for n in ("Jp", "PJp", "Jc", "PJc", "Jg", "PJg")}
+
+
+def coupling_by_sums(fmp, R, ids):
+    """Hpp^-1 [c, 3, 3] and the coupling columns Hxp = [Jc; Jg]^T P Jp
+    [c, u, 3] of the points ``ids``, summed densely over each point's
+    observations from the Jacobian rows ``R`` (`jacobian_rows`), with
+    none of cov_direct's helpers."""
+    import torch
+
+    V, K = fmp.views, 6 * fmp.num_images
+    G = R["Jg"].shape[0] // 2
+    dev, c = ids.device, ids.shape[0]
+    obs = (ids[:, None] * V + torch.arange(V, device=dev)).reshape(-1)
+    Jp, PJp, Jc, Jg = (R[n][:, obs].reshape(-1, c, V)
+                       for n in ("Jp", "PJp", "Jc", "Jg"))
+    Hpp = torch.einsum("apv,bpv->pab", Jp[:3], PJp[:3]) \
+        + torch.einsum("apv,bpv->pab", Jp[3:], PJp[3:]) \
+        + torch.diag_embed(1.0 - fmp.free_point[:, ids].T)
+    hcp = torch.einsum("epv,apv->pvea", Jc[:6], PJp[:3]) \
+        + torch.einsum("epv,apv->pvea", Jc[6:], PJp[3:])     # [c, V, 6, 3]
+    Hxp = Jp.new_zeros((c, K + G, 3))
+    rows = 6 * fmp.obs_image[obs].long().reshape(c, V, 1) \
+        + torch.arange(6, device=dev)
+    pidx = torch.arange(c, device=dev)[:, None, None].expand(c, V, 6)
+    Hxp.index_put_((pidx, rows), hcp, accumulate=True)
+    Hxp[:, K:] = torch.einsum("gpv,apv->pga", Jg[:G], PJp[:3]) \
+        + torch.einsum("gpv,apv->pga", Jg[G:], PJp[3:])
+    return torch.linalg.inv(Hpp), Hxp
+
+
+def reduced_system_by_sums(fmp, R, chunk=4096):
+    """The reduced system at damping 0 by a second route: the per-image
+    Hcc / Hcg blocks index-added from per-observation products, Hgg, and
+    the Schur correction sum_p Hxp Hpp^-1 Hxp^T as dense [u, 3c] products
+    of `coupling_by_sums` per chunk of points."""
+    import torch
+
+    M, P = fmp.num_images, fmp.num_points
+    K, G = 6 * M, R["Jg"].shape[0] // 2
+    u = K + G
+    img = fmp.obs_image.long()
+    Jc, PJc, Jg, PJg = (R[n] for n in ("Jc", "PJc", "Jg", "PJg"))
+    hcc = torch.einsum("en,fn->nef", Jc[:6], PJc[:6]) \
+        + torch.einsum("en,fn->nef", Jc[6:], PJc[6:])
+    Hcc = hcc.new_zeros((M, 6, 6)).index_add_(0, img, hcc) \
+        + torch.diag_embed(1.0 - fmp.free_eo)
+    del hcc
+    hcg = torch.einsum("en,gn->neg", Jc[:6], PJg[:G]) \
+        + torch.einsum("en,gn->neg", Jc[6:], PJg[G:])
+    Hcg = hcg.new_zeros((M, 6, G)).index_add_(0, img, hcg).reshape(K, G)
+    del hcg
+    S = Jc.new_zeros((u, u))
+    S[:K, :K] = torch.block_diag(*Hcc.unbind(0))
+    S[:K, K:] = Hcg
+    S[K:, :K] = Hcg.T
+    S[K:, K:] = Jg[:G] @ PJg[:G].T + Jg[G:] @ PJg[G:].T \
+        + torch.diag(1.0 - fmp.free_global)
+    for c0 in range(0, P, chunk):
+        ids = torch.arange(c0, min(c0 + chunk, P), device=S.device)
+        hinv, Hxp = coupling_by_sums(fmp, R, ids)
+        C = Hxp @ hinv
+        S -= Hxp.permute(1, 0, 2).reshape(u, -1) \
+            @ C.permute(1, 0, 2).reshape(u, -1).T
+    return S
+
+
+def point_blocks_by_solve(fmp, R, S, ids):
+    """Qpp of the points ``ids`` [c, 3, 3] by an LU route: C_p = Hxp
+    Hpp^-1 from `coupling_by_sums`, X = solve(S, C_p) (LU, not the
+    Cholesky factor), Qpp = Hpp^-1 + C_p^T X."""
+    import torch
+
+    hinv, Hxp = coupling_by_sums(fmp, R, ids)
+    c, u = Hxp.shape[:2]
+    C = Hxp @ hinv                                            # [c, u, 3]
+    X = torch.linalg.solve(S, C.permute(1, 0, 2).reshape(u, 3 * c))
+    return hinv + C.mT @ X.reshape(u, c, 3).permute(1, 0, 2)
+
+
+def covariance_phase(prob, st, spec, dev):
+    """Phase 7 (see the module docstring).  Returns (summary dict, K3
+    launches during the f32 run)."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import measure
+    from bundle_adjustment_tpu_torch.parallel import (cov_direct, engine,
+                                                      kernels, refine)
+
+    fmp64 = engine.fm_problem(refine.upcast_problem(prob))
+    st64 = type(st)(*(a.double() for a in st))
+    P, M, V = fmp64.num_points, fmp64.num_images, fmp64.views
+    K = 6 * M
+    free = fmp64.free_point.sum(dim=0) > 0
+    log(f"covariance: P={P} M={M} V={V} u={K + 3 + spec.num_coefficients} "
+        f"N={P * V}")
+
+    # ---- f64, the gate ----------------------------------------------------
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cold = cov_direct.cov_all(fmp64, st64, spec)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    ms_all64, warm = time_cov_all(fmp64, st64, spec)
+    tot64 = ms_all64 / 1e3
+    runs = [cov_staged(fmp64, st64, spec) for _ in range(COV_REPS)]
+    Qall, b, S, Q, _ = runs[-1]
+    ms64 = mean_stage_ms([r[4] for r in runs])
+    # cov_all, cold and warm, against its stage-by-stage run (the
+    # pair-block corrections add with atomics: not bit for bit)
+    repeat_err = max(block_err(cold, Qall), block_err(warm, Qall))
+    u = S.shape[0]
+    info = int(torch.linalg.cholesky_ex(S).info)
+    d = S.diagonal().sqrt()
+    resid = float(((S @ Q) * d[None, :] / d[:, None]
+                   - torch.eye(u, dtype=S.dtype, device=dev)).abs().max())
+    R = jacobian_rows(b)
+    S_ref = reduced_system_by_sums(fmp64, R)
+    s_err = float(((S - S_ref) / d[:, None] / d[None, :]).abs().max())
+    cams = cov_direct.camera_covariance_dense(Q, torch.arange(M, device=dev))
+    cams_ref = Q[:K, :K].reshape(M, 6, M, 6).diagonal(dim1=0, dim2=2)
+    cams_same = bool(torch.equal(cams, cams_ref.permute(2, 0, 1)))
+    rng = np.random.default_rng(7)
+    free_ids = np.flatnonzero(free.cpu().numpy())
+    ids = torch.as_tensor(np.concatenate([
+        rng.choice(free_ids, 6, replace=False), [1],
+        [NUM_POINTS + int(rng.integers(P - NUM_POINTS))]]), device=dev)
+    sel = cov_direct.point_covariance_dense(fmp64, b, Q, point_ids=ids)
+    ref = point_blocks_by_solve(fmp64, R, S, ids)
+    err_dense, err_sel = block_err(Qall[ids], ref), block_err(sel, ref)
+    # the same LU route on the second assembly: cond(S) ~ 1e8 amplifies
+    # the two assemblies' rounding, so this one is recorded, not gated
+    err_indep = block_err(Qall[ids], point_blocks_by_solve(fmp64, R, S_ref,
+                                                           ids))
+    del R, S_ref
+    diag64 = Qall.diagonal(dim1=1, dim2=2)[free]              # [Pfree, 3]
+    diag_ok = bool(torch.isfinite(diag64).all() and (diag64 > 0).all())
+    eig64 = torch.linalg.eigvalsh(S / d[:, None] / d[None, :])
+    all_ids = torch.arange(P, device=dev)
+    gather_err = block_err(cov_direct.point_covariance_dense(
+        fmp64, b, Q, point_ids=all_ids), Qall)
+    gather_ms = measure.time_ms(lambda: cov_direct.point_covariance_dense(
+        fmp64, b, Q, point_ids=all_ids), reps=COV_REPS, warm=0)
+    log(f"f64 S, Jacobi-scaled: eigenvalues {float(eig64[0]):.3e} .. "
+        f"{float(eig64[-1]):.3e}; recovery of all points by row gathers "
+        f"{gather_ms:.3f} ms (dense panels {ms64['recovery']:.3f} ms), "
+        f"block error {gather_err:.3e}")
+    log(f"f64: Cholesky info {info}; Jacobi-scaled max|S - S_ref| (second "
+        f"assembly route) {s_err:.3e}; Jacobi-scaled residual "
+        f"max|D^-1 S Q D - I| {resid:.3e}; camera blocks equal Q's diagonal "
+        f"blocks: {cams_same}; points {ids.tolist()}: block error vs the LU "
+        f"route, dense path {err_dense:.3e}, row-gather path {err_sel:.3e} "
+        f"(LU on S_ref, recorded: {err_indep:.3e}); free diagonals finite "
+        f"and > 0: {diag_ok}; cov_all (cold, warm) vs the staged run, block "
+        f"error {repeat_err:.3e}")
+    log(f"f64 cov_all: cold {cold_s:.3f} s, peak device memory "
+        f"{peak_gb:.2f} GB above the {base_gb:.2f} GB held before; warm "
+        f"{tot64:.4f} s ({P / tot64:.1f} point blocks/s); stages "
+        + ", ".join(f"{n} {v:.3f}" for n, v in ms64.items())
+        + f" ms (sum {sum(ms64.values()):.3f})")
+    problems = []
+    if info != 0:
+        problems.append(f"f64 Cholesky failed (info {info})")
+    if not s_err <= COV_S_TOL:
+        problems.append(f"S differs from the second assembly route by "
+                        f"{s_err:.3e} > {COV_S_TOL} (Jacobi-scaled)")
+    if not resid <= COV_RESIDUAL_TOL:
+        problems.append(f"Jacobi-scaled residual {resid:.3e} > "
+                        f"{COV_RESIDUAL_TOL}")
+    if not cams_same:
+        problems.append("camera blocks differ from Q's diagonal blocks")
+    if not (err_dense <= COV_BLOCK_TOL and err_sel <= COV_BLOCK_TOL):
+        problems.append(f"point blocks disagree with the LU route "
+                        f"(dense {err_dense:.3e}, row gather {err_sel:.3e})")
+    if not gather_err <= COV_BLOCK_TOL:
+        problems.append(f"the row-gather recovery of all points differs "
+                        f"from the dense one ({gather_err:.3e})")
+    if not repeat_err <= COV_BLOCK_TOL:
+        problems.append(f"cov_all differs from its staged run "
+                        f"({repeat_err:.3e})")
+    if not diag_ok:
+        problems.append("a free point's diagonal is not finite and > 0")
+    if problems:
+        fail("covariance (f64): " + "; ".join(problems))
+    del runs, b, Q, cold, warm, sel
+
+    # ---- f32 through K3, recorded ------------------------------------------
+    fmp32 = engine.fm_problem(prob)
+    cg = kernels.make_cam_gather(fmp32)
+    # K3 on the point-major layout against its plain gather, exactly (before
+    # the counters are reset: this launch is a comparison)
+    if not torch.equal(cg(st.eo), kernels.cam_gather_plain(
+            st.eo, fmp32.obs_image)):
+        fail("K3 on the point-major problem differs from its plain version")
+    kernels.reset_launch_counts()
+    b32 = engine.linearize(fmp32, st, spec, 0.0, cam_gather=cg)
+    S32 = cov_direct.assemble_reduced_dense(fmp32, b32).double()
+    info32 = int(torch.linalg.cholesky_ex(S32.float()).info)
+    del b32
+    # where f32 loses S: its assembly (S32 vs S) or its factorisation
+    # (S rounded to f32), both in the Jacobi scale of the f64 S
+    asm_err = float(((S32 - S) / d[:, None] / d[None, :]).abs().max())
+    eig32 = torch.linalg.eigvalsh(S32 / d[:, None] / d[None, :])
+    info_rounded = int(torch.linalg.cholesky_ex(S.float()).info)
+    out32 = dict(cholesky_info=info32, scaled_assembly_err=asm_err,
+                 scaled_eig_min=float(eig32[0]),
+                 rounded_f64_cholesky_info=info_rounded)
+    log(f"f32 S (K3): Cholesky info {info32}; Jacobi-scaled (f64 S's "
+        f"diagonal) max|S32 - S64| {asm_err:.3e}, eigenvalues of S32 "
+        f"{float(eig32[0]):.3e} .. {float(eig32[-1]):.3e}; the f64 S rounded "
+        f"to f32: Cholesky info {info_rounded}")
+    del S, S32
+    if info32 != 0:
+        log(f"f32: the Cholesky of S fails (info {info32}): no f32 "
+            "covariance, no f32 timing")
+    else:
+        cold32 = cov_direct.cov_all(fmp32, st, spec, cam_gather=cg)
+        ms_all32, _ = time_cov_all(fmp32, st, spec, cam_gather=cg)
+        ms32 = mean_stage_ms([cov_staged(fmp32, st, spec, cam_gather=cg)[4]
+                              for _ in range(COV_REPS)])
+        diag32 = cold32.double().diagonal(dim1=1, dim2=2)[free]
+        rel = ((diag32 - diag64) / diag64).abs()
+        tot32 = ms_all32 / 1e3
+        out32.update(
+            cov_all_points_s=tot32, cov_point_blocks_per_s=P / tot32,
+            stage_ms=ms32, diag_rel_err_max=float(rel.max()),
+            diag_rel_err_median=float(rel.median()))
+        log(f"f32 (K3): Cholesky info {info32}; free points' diagonal vs "
+            f"f64: max relative error {out32['diag_rel_err_max']:.3e}, "
+            f"median {out32['diag_rel_err_median']:.3e}")
+        log(f"f32 cov_all: warm {tot32:.4f} s ({P / tot32:.1f} point "
+            f"blocks/s); stages " + ", ".join(
+                f"{n} {v:.3f}" for n, v in ms32.items()) + " ms")
+        del cold32
+    torch.cuda.synchronize()
+    k3 = kernels.launch_counts()["cam_gather"]
+    log(f"K3 launches during the f32 covariance: {k3}")
+    if k3 <= 0:
+        fail("the f32 covariance never launched K3")
+    return dict(cov_all_points_s=tot64, cov_point_blocks_per_s=P / tot64,
+                cov_stage_ms=ms64, cov_cold_s=cold_s, cov_peak_gb=peak_gb,
+                cov_row_gather_recovery_ms=gather_ms,
+                cov_scaled_eig=[float(eig64[0]), float(eig64[-1])],
+                cov_scaled_s_err=s_err, cov_scaled_residual=resid,
+                cov_block_err=max(err_dense, err_sel),
+                cov_block_err_s_ref=err_indep,
+                cov_repeat_err=repeat_err, cov_f32=out32), k3
 
 
 def main():
@@ -446,6 +795,11 @@ def main():
         plain_ms=stage_plain_ms["gather"],
         stages={n: dict(ms=sm[n], plain_ms=stage_plain_ms[n])
                 for n in kernels.MATVEC_STAGES})
+    del pp6
+
+    # ---- 7. covariance: every point's 3x3 block ----------------------------
+    cov, k3_7 = covariance_phase(prob, st, spec, dev)
+    total["cam_gather"] += k3_7
 
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
@@ -461,7 +815,7 @@ def main():
         "matvec_read_floor_padded_gbps":
             roof["matvec_read_floor_padded_gbps"],
         "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
-        "stage_ms": sm}))
+        "stage_ms": sm, **cov}))
     kernel_rows = []
     for n in SOURCES:
         row = dict(name=n, route="cuda", source=SOURCES[n],

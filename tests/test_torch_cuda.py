@@ -6,12 +6,15 @@ runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K3 exact (a copy); K1 and K2 within a scaled error of 2e-4
+Tolerances: K3 exact (a copy, on the view-major and the point-major
+layout); K1 and K2 within a scaled error of 2e-4
 (f32, other summation order than the plain versions); K1 run twice gives
 identical bits (its reductions are deterministic).  K4: each fold entry
 within 1e-6 of the sum of |values| it folds (f32 sums in another order);
 the cut K1 stages within a scaled error of 2e-4 of their plain versions,
-and the ``full`` stage equal to K1 bit for bit.
+and the ``full`` stage equal to K1 bit for bit.  The covariance (`cov_all`)
+on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
+(through K3) within kappa x 2^-24 of each block's largest entry.
 """
 
 import pytest
@@ -52,6 +55,21 @@ def test_cam_gather_kernel_is_exact(case):
         torch.testing.assert_close(
             out, kernels.cam_gather_plain(tbl, case["pp"].obs_img),
             rtol=0, atol=0)
+
+
+def test_cam_gather_kernel_is_exact_point_major(case):
+    """K3 over the point-major layout (the covariance's linearise) equals
+    the plain gather bit for bit."""
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    fmp = engine.fm_problem(case["prob"])
+    assert fmp.vm_pb is None
+    before = kernels.cam_gather_rows.launches
+    out = kernels.make_cam_gather(fmp)(case["state"].eo)
+    assert kernels.cam_gather_rows.launches == before + 1
+    torch.testing.assert_close(
+        out, kernels.cam_gather_plain(case["state"].eo, fmp.obs_image),
+        rtol=0, atol=0)
 
 
 def test_prepare_reduction_kernel_matches_plain(case):
@@ -158,6 +176,59 @@ def test_refiner_step_through_kernels_contracts(case):
                                    "schur_matvec")) > 0, counts
     s, mdx2, _, _ = r.step(s)
     assert float(mdx2) < 0.5 * float(mdx1)
+
+
+@pytest.fixture(scope="module")
+def cov_ref(case):
+    """cov_all on the CPU in f64 (point-major), and the condition number
+    of the Jacobi-scaled reduced system."""
+    from bundle_adjustment_tpu_torch.parallel import (cov_direct, engine,
+                                                      rcs, refine)
+
+    prob = rcs.RCSProblem(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                            for x in refine.upcast_problem(case["prob"])))
+    st = type(case["state"])(*(a.double().cpu() for a in case["state"]))
+    fmp = engine.fm_problem(prob)
+    S = cov_direct.assemble_reduced_dense(
+        fmp, engine.linearize(fmp, st, case["spec"], 0.0))
+    d = S.diagonal().sqrt()
+    kappa = float(torch.linalg.cond(S / d[:, None] / d[None, :]))
+    return dict(blocks=cov_direct.cov_all(fmp, st, case["spec"]),
+                free=fmp.free_point.sum(dim=0) > 0, kappa=kappa)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cov_all_matches_cpu(case, cov_ref, dtype):
+    """cov_all on the GPU (point-major; f32 through K3) against the CPU's
+    f64 blocks: f64 within a scaled 1e-9 (sums in another order); f32
+    within kappa x 2^-24 of each free point's largest entry (the
+    first-order bound of an inverse of f32-rounded input)."""
+    from bundle_adjustment_tpu_torch.parallel import (cov_direct, engine,
+                                                      kernels, refine)
+
+    prob, st = case["prob"], case["state"]
+    cg = None
+    if dtype == torch.float64:
+        prob = refine.upcast_problem(prob)
+        st = type(st)(*(a.double() for a in st))
+    fmp = engine.fm_problem(prob)
+    if dtype == torch.float32:
+        cg = kernels.make_cam_gather(fmp)
+    before = kernels.cam_gather_rows.launches
+    out = cov_direct.cov_all(fmp, st, case["spec"], cam_gather=cg)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.is_cuda
+    ref = cov_ref["blocks"]
+    if dtype == torch.float64:
+        assert _scaled(out.cpu(), ref) < 1e-9
+        return
+    assert kernels.cam_gather_rows.launches > before
+    free = cov_ref["free"]
+    o, r = out.double().cpu()[free], ref[free]
+    err = ((o - r).flatten(1).abs().max(dim=1).values
+           / r.flatten(1).abs().max(dim=1).values)
+    assert float(err.max()) <= cov_ref["kappa"] * 2.0 ** -24
 
 
 def test_wrappers_refuse_f64_on_cuda(case):

@@ -71,6 +71,25 @@ def test_cam_gather_wrapper_takes_plain_on_cpu(small32):
     assert TK.cam_gather_rows.launches == before  # no kernel launched
 
 
+def test_cam_gather_wrapper_point_major(small32):
+    """K3's wrapper takes the point-major layout (the covariance
+    linearises it) and gathers in its lane order: a layout check of the
+    plain path on the CPU (the kernel itself is held exactly against the
+    plain gather on this layout in tests/test_torch_cuda.py)."""
+    from bundle_adjustment_tpu_torch import convert
+    from bundle_adjustment_tpu_torch.parallel import engine as TE
+
+    pm = TE.fm_problem(convert.problem_to_torch(
+        small32.problem_j, torch.device("cpu"), torch.float32))
+    assert pm.vm_pb is None
+    tbl = torch.randn(pm.num_images, 6,
+                      generator=torch.Generator().manual_seed(1))
+    rows = TK.make_cam_gather(pm)(tbl)
+    ref = TE._gather_rows(pm, tbl, 6)
+    torch.testing.assert_close(rows[:6], torch.stack(ref), rtol=0, atol=0)
+    np.testing.assert_array_equal(np_(rows[6:]), 0.0)
+
+
 def _matvec_case(pr, scaled_atol=False):
     lam = jnp.asarray(1e-3, jnp.float32)
     b, rc, rg, Minv, pp = K.prepare_pallas(pr.fj, pr.state_j, pr.spec, lam,
