@@ -8,8 +8,12 @@
 //
 // Bound: device-memory bandwidth.  Per observation it reads 4 B of index
 // and writes 32 B of rows; the table ([M, <=8] f32, 16 KB at M = 500)
-// stays in L1/L2.  Consecutive threads take consecutive observations, so
-// the index reads and each row's writes are fully coalesced.
+// stays in L1/L2.  At the scale shape (N = 1,204,224) that is 4.8 MB read
+// and 38.5 MB written, 43.4 MB: 0.0129 ms at the 3.35 TB/s of an H100 SXM
+// (measure.k3_work).  The 43 MB fit the 50 MB L2, so back-to-back launches
+// run faster than one that finds the L2 cold; the chip check times both.
+// Design: consecutive threads take consecutive observations, so the index
+// reads and each row's writes are fully coalesced; nothing is staged.
 #include "common.cuh"
 
 namespace {

@@ -11,21 +11,26 @@
 // not skip repeated identical executions; here `xin` only seeds the sum.
 //
 // Bound: device-memory bandwidth, 3.35 TB/s on an H100 SXM.  At G = 10 the
-// rows are 41 x 4 B per observation, 197 MB at N = 1,204,224 (~59 us at that
-// rate); the 50 MB L2 cannot hold them, so back-to-back runs read them from
-// device memory each time.  Design:
-//  * K1's grid, CTA shape and lane order: one CTA per view-major block of
-//    pb x V lanes, thread tid holds lane blk * V * pb + tid, every row read is
-//    coalesced and each value is read once; a thread keeps its 8 sublane sums
-//    in registers;
-//  * the fold to lane n % 128 goes through shared memory inside the CTA, in
-//    thread order, into one [8, 128] partial per block (4 KB against the 63 KB
-//    of rows a block reads at V = 12, pb = 32);
-//  * the sum over blocks is deterministic (no atomics, as K1 and K2):
-//    column_sum_kernel adds the partials in a fixed order in two passes,
-//    kChunks chunks of blocks (1024 CTAs, each warp reading 128 B of
-//    consecutive columns) and then the chunks, so the 12.8 MB of partials at
-//    the full size cost a few microseconds beside the 197 MB of rows.
+// rows are 41 x 4 B per observation, 197.5 MB at N = 1,204,224: 0.0590 ms at
+// that rate (measure.k4_work); the 50 MB L2 cannot hold them, so back-to-back
+// runs read them from device memory each time.  Design:
+//  * K1's own pipeline (common.cuh): the same persistent grid, the same ring
+//    of shared-memory stages filled by asynchronous bulk copies, one tile per
+//    view-major block of pb x V lanes; the consumers do nothing but fold, so
+//    this is what that pipeline costs when no arithmetic stands in its way;
+//  * the fold reads the tile where it lies: output (k, l) adds the rows
+//    r = k, k + 8, ... of a block and, of each, the lanes that fall on column
+//    l, in that order; a consumer thread owns fixed outputs and keeps their
+//    running sums in shared memory, so the consumers need no barrier and the
+//    kernel writes one [8, 128] fold per CTA (0.5 MB in all), not one per
+//    block (12.8 MB, 6% of the rows);
+//  * the sum is deterministic without atomics: a CTA adds its blocks in the
+//    fixed order blk = blockIdx.x, blockIdx.x + gridDim.x, ... (the grid is
+//    one CTA per SM, so the order depends on the card's SM count and on
+//    nothing that varies between runs), and column_sum_kernel (common.cuh)
+//    adds the CTAs' folds in CTA order.  K1 and K2 index their partials by
+//    block instead, because their bits must not depend on the card; a probe
+//    that is only ever compared within a tolerance can take the cheaper way.
 #include "common.cuh"
 
 namespace {
@@ -33,76 +38,50 @@ namespace {
 constexpr int kFoldRows = 8;
 constexpr int kFoldLanes = 128;
 constexpr int kFold = kFoldRows * kFoldLanes;
-constexpr int kColTile = 32;  // columns of a column_sum_kernel block
-constexpr int kChunks = 32;   // chunks of blocks in the first column sum
 
-// partial: [N / (V * pb), 8, 128] f32.
-__global__ void __launch_bounds__(ba::kMaxBlockThreads)
-read_floor_kernel(const float* __restrict__ pk, long long N, int rows,
+// partial: [gridDim.x, 8, 128] f32.
+__global__ void __launch_bounds__(ba::kMaxBlockThreads + ba::kProducerThreads)
+read_floor_kernel(const ba::RingPlan plan, int nblk, int rows,
                   float* __restrict__ partial) {
-  __shared__ float sh[kFoldRows][ba::kMaxBlockThreads];
+  extern __shared__ __align__(128) char smem[];
+  const int nthr = blockDim.x - ba::kProducerThreads;  // V * pb
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;  // V * pb
-  const long long n0 = (long long)blockIdx.x * nthr;
-  const float* col = pk + n0 + tid;  // row r of this lane at col[r * N]
-
-  float acc[kFoldRows];
-#pragma unroll
-  for (int k = 0; k < kFoldRows; ++k) acc[k] = 0.f;
-  for (int r0 = 0; r0 < rows; r0 += kFoldRows) {
-#pragma unroll
-    for (int k = 0; k < kFoldRows; ++k)
-      if (r0 + k < rows) acc[k] += col[(long long)(r0 + k) * N];
-  }
-#pragma unroll
-  for (int k = 0; k < kFoldRows; ++k) sh[k][tid] = acc[k];
+  if (tid == 0) ba::ring_init(smem, plan, nthr / 32);
   __syncthreads();
-
-  // lane n0 + t folds into column (n0 + t) % 128
-  const int base = (int)(n0 % kFoldLanes);
-  for (int o = tid; o < kFold; o += nthr) {
-    const int k = o / kFoldLanes, l = o % kFoldLanes;
-    float s = 0.f;
-    for (int t = (l - base + kFoldLanes) % kFoldLanes; t < nthr;
-         t += kFoldLanes)
-      s += sh[k][t];
-    partial[(long long)blockIdx.x * kFold + o] = s;
+  if (tid >= nthr) {
+    ba::ring_produce(plan, smem, nblk);
+    return;
   }
-}
-
-// out[y * K + k] = sum_{c in chunk y} part[c * K + k] (+ beta * xin[k] when
-// xin is given) for k < K, chunk y = rows [y * chunk, (y + 1) * chunk) of
-// C.  Grid (ceil(K / kColTile), chunks); block (kColTile,
-// kReduceThreads / kColTile).  Thread (kx, j) sums the rows c0 + j,
-// c0 + j + blockDim.y, ... in order (a warp reads 128 B of consecutive
-// columns), then thread j == 0 adds the blockDim.y partial sums in order.
-__global__ void column_sum_kernel(const float* __restrict__ part, int C,
-                                  int K, int chunk,
-                                  const float* __restrict__ xin, float beta,
-                                  float* __restrict__ out) {
-  __shared__ float sh[ba::kReduceThreads];
-  const int kx = threadIdx.x, j = threadIdx.y;
-  const int k = blockIdx.x * blockDim.x + kx;
-  const int c0 = blockIdx.y * chunk;
-  const int c1 = c0 + chunk < C ? c0 + chunk : C;
-  float acc = 0.f;
-  if (k < K)
-    for (int c = c0 + j; c < c1; c += blockDim.y)
-      acc += part[(long long)c * K + k];
-  sh[j * blockDim.x + kx] = acc;
-  __syncthreads();
-  if (j == 0 && k < K) {
-    float s = 0.f;
-    for (int jj = 0; jj < (int)blockDim.y; ++jj) s += sh[jj * blockDim.x + kx];
-    if (xin != nullptr) s += beta * xin[k];
-    out[(long long)blockIdx.y * K + k] = s;
+  // thread tid owns the outputs tid, tid + nthr, ...
+  float* acc = reinterpret_cast<float*>(ba::ring_user(plan, smem));
+  for (int o = tid; o < kFold; o += nthr) acc[o] = 0.f;
+  int it = 0;
+  for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x, ++it) {
+    const float* T =
+        reinterpret_cast<const float*>(ba::ring_wait(plan, smem, it));
+    // lane t of the tile is lane blk * nthr + t of the row: column
+    // (base + t) % 128
+    const int base = (int)(((long long)blk * nthr) % kFoldLanes);
+    for (int o = tid; o < kFold; o += nthr) {
+      const int k = o / kFoldLanes, l = o % kFoldLanes;
+      const int t0 = (l - base + kFoldLanes) % kFoldLanes;
+      float s = 0.f;
+      for (int r = k; r < rows; r += kFoldRows) {
+        const float* row = T + r * nthr;
+        for (int t = t0; t < nthr; t += kFoldLanes) s += row[t];
+      }
+      acc[o] += s;
+    }
+    ba::ring_release(plan, smem, it);
   }
+  for (int o = tid; o < kFold; o += nthr)
+    partial[(long long)blockIdx.x * kFold + o] = acc[o];
 }
 
 }  // namespace
 
 // rows: the lean rows read (21 + 2G); xin, out: [8, 128] f32; partial:
-// [P / pb + kChunks, 8, 128] f32 (the per-block folds, then the chunk sums).
+// [P / pb, 8, 128] f32 (one fold per CTA, at most one CTA per block).
 extern "C" int ba_read_floor(const float* packed, long long N, int P, int V,
                              int pb, int rows, const float* xin,
                              float* partial, float* out, cudaStream_t stream) {
@@ -111,16 +90,24 @@ extern "C" int ba_read_floor(const float* packed, long long N, int P, int V,
       rows < 1 || (long long)P * V != N)
     return (int)cudaErrorInvalidValue;
   const int nblk = P / pb;
-  read_floor_kernel<<<nblk, nthr, 0, stream>>>(packed, N, rows, partial);
+  const long long f4 = sizeof(float);
+  ba::DeviceLimits lim;
+  cudaError_t e = ba::device_limits(&lim);
+  if (e != cudaSuccess) return (int)e;
+  ba::RingPlan plan = {};
+  int smem = 0;
+  if (!ba::ring_add(&plan, packed, N * f4, nthr * f4, rows, nthr * (int)f4) ||
+      !ba::ring_fit(&plan, kFold * (int)f4, lim, &smem))
+    return (int)cudaErrorInvalidValue;
+  BA_ALLOW_SMEM(read_floor_kernel, lim.max_smem);
+  const int grid = ba::ring_grid(lim, nblk);
+  read_floor_kernel<<<grid, nthr + ba::kProducerThreads, smem, stream>>>(
+      plan, nblk, rows, partial);
   BA_CHECK_LAUNCH();
-  const dim3 block(kColTile, ba::kReduceThreads / kColTile);
-  float* chunk_sums = partial + (long long)nblk * kFold;
-  column_sum_kernel<<<dim3(kFold / kColTile, kChunks), block, 0, stream>>>(
-      partial, nblk, kFold, (nblk + kChunks - 1) / kChunks, nullptr, 0.f,
-      chunk_sums);
-  BA_CHECK_LAUNCH();
-  column_sum_kernel<<<dim3(kFold / kColTile, 1), block, 0, stream>>>(
-      chunk_sums, kChunks, kFold, kChunks, xin, 1e-30f, out);
+  ba::column_sum_kernel<<<dim3(kFold / ba::kColTile, 1),
+                          dim3(ba::kColTile, ba::kReduceThreads / ba::kColTile),
+                          0, stream>>>(partial, grid, kFold, grid, xin, 1e-30f,
+                                       out);
   BA_CHECK_LAUNCH();
   return 0;
 }

@@ -37,13 +37,13 @@ SIGNATURES = {
     "ba_schur_matvec": [
         _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,     # packed N P V pb G
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,    # img hpp xc xg ec eg
-        _c_int, _c_ptr, _c_ptr,                            # M perm bstarts
+        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,            # M pos valid bstarts nb
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],           # scr pg oc og stream
     "ba_prepare_reduction": [
         _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int,  # pk N P V pb G M
-        _c_ptr, _c_ptr, _c_ptr,                            # hpp perm bstarts
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,  # scratch
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],           # red rg t2 t3 stream
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,            # hpp pos valid bstarts nb
+        _c_ptr, _c_int, _c_ptr, _c_ptr,                    # feat fs prg pt
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr],                   # red rg t23 stream
     "ba_read_floor": [
         _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,     # packed N P V pb rows
         _c_ptr, _c_ptr, _c_ptr, _c_ptr],                   # xin part out stream

@@ -47,6 +47,11 @@ class FMProblem(NamedTuple):
     # view-major blocked lane layout (the kernels' layout): lane =
     # i*vm_pb*V + v*vm_pb + p for point i*vm_pb + p; None = point-major
     vm_pb: int | None = None
+    # inverse of img_perm (`image_positions`): observation n sits at entry
+    # img_pos[n] of the image-sorted blocked layout, and block b holds
+    # img_block_valid[b] observations (a prefix; the rest is padding)
+    img_pos: torch.Tensor | None = None          # [N] int32
+    img_block_valid: torch.Tensor | None = None  # [Nip / 512] int32
 
 
 class FMBlocks(NamedTuple):
@@ -69,6 +74,23 @@ class FMBlocks(NamedTuple):
     omega0: torch.Tensor          # scalar
 
 
+def image_positions(img_perm, N: int):
+    """Inverse of the image-sorted blocked layout `img_perm` [Nip] (pad
+    entries == N): (img_pos [N] int32 with img_perm[img_pos[n]] == n,
+    img_block_valid [Nip / 512] int32, the observations in each 512-entry
+    block).  `rcs.build_image_block_layout` fills every image from the
+    start of its first block, so the valid entries of a block are a
+    prefix of it.  A pass that writes observation n's values at entry
+    img_pos[n] leaves each image's values contiguous, in img_perm's order."""
+    perm = img_perm.long()
+    valid = perm < N
+    entry = torch.arange(perm.shape[0], dtype=torch.int32, device=perm.device)
+    pos = torch.empty(N, dtype=torch.int32, device=perm.device)
+    pos[perm[valid]] = entry[valid]
+    counts = valid.reshape(-1, rcs.IMG_BLOCK).sum(dim=1).to(torch.int32)
+    return pos, counts
+
+
 def fm_problem(p: rcs.RCSProblem) -> FMProblem:
     """Convert a tensor RCSProblem (`convert.problem_to_torch`; uniform
     point-major layout and blocked image layout required)."""
@@ -77,6 +99,8 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
     if p.img_perm is None:
         raise ValueError("engine requires the blocked image layout")
     w = p.obs_weight
+    img_pos, img_block_valid = image_positions(p.img_perm,
+                                               p.obs_image.shape[0])
     return FMProblem(
         obs_image=p.obs_image,
         obs_x=p.obs_xy[:, 0].contiguous(), obs_y=p.obs_xy[:, 1].contiguous(),
@@ -87,6 +111,7 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
         free_point=p.free_point.T.contiguous(),
         free_eo=p.free_eo, free_global=p.free_global,
         img_perm=p.img_perm, img_block_starts=p.img_block_starts,
+        img_pos=img_pos, img_block_valid=img_block_valid,
     )
 
 
@@ -180,6 +205,8 @@ def to_view_major(p: FMProblem, pb: int) -> FMProblem:
     obs_image = p.obs_image.cpu().numpy()[perm]
     img_perm, img_bs = rcs.build_image_block_layout(obs_image, p.num_images)
     perm_t = torch.as_tensor(perm, device=dev)
+    img_perm_t = torch.as_tensor(img_perm, device=dev)
+    img_pos, img_block_valid = image_positions(img_perm_t, perm.shape[0])
 
     def g(a):
         return a[perm_t].contiguous()
@@ -188,9 +215,9 @@ def to_view_major(p: FMProblem, pb: int) -> FMProblem:
         obs_image=torch.as_tensor(obs_image, device=dev),
         obs_x=g(p.obs_x), obs_y=g(p.obs_y),
         wxx=g(p.wxx), wxy=g(p.wxy), wyy=g(p.wyy),
-        img_perm=torch.as_tensor(img_perm, device=dev),
+        img_perm=img_perm_t,
         img_block_starts=torch.as_tensor(img_bs, device=dev),
-        vm_pb=pb,
+        vm_pb=pb, img_pos=img_pos, img_block_valid=img_block_valid,
     )
 
 

@@ -22,6 +22,13 @@ Each kernel has
   K2 `prepare_reduction`    csrc/prepare_reduction.cu fused assembly
   K4 `read_floor`           csrc/read_floor.cu        pure-read floor
      `matvec_stage`         csrc/schur_matvec.cu      K1 cut into stages
+
+K1, K2 and K4 share one pipeline (csrc/common.cuh): a persistent grid of
+one CTA per SM, tiles of one view-major block brought into a shared-memory
+ring by asynchronous bulk copies.  K1 and K2 take their per-image sums by
+writing each observation's values at its image-sorted position
+(`PackedFM.img_pos`) and streaming over them (`image_sum_sorted_plain` is
+the plain model of that pass).
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from . import engine
 MAX_BLOCK_THREADS = 512
 #: global parameters the CUDA kernels take (csrc/common.cuh kMaxG)
 MAX_G = 16
-#: chunks of the Gram partials in K2 (two per SM of an H100)
-GRAM_CHUNKS = 264
+#: chunks of the two-pass column sum that finishes K2's T2 / T3 partials
+#: (csrc/common.cuh kColChunks)
+COLUMN_SUM_CHUNKS = 32
 
 
 class PackedFM(NamedTuple):
@@ -53,6 +61,10 @@ class PackedFM(NamedTuple):
     g: int                 # number of global parameters
     f_pad: int
     pb: int                # view-major point-block size (= engine vm_pb)
+    # inverse of img_perm (engine.image_positions): where K1 and K2 write
+    # each observation's values for their streaming per-image pass
+    img_pos: torch.Tensor | None = None          # [N] int32
+    img_block_valid: torch.Tensor | None = None  # [Nip / 512] int32
 
 
 def _offsets(G, with_pw=False):
@@ -109,7 +121,8 @@ def pack_fm(b, p, dtype=torch.float32, with_pw: bool = False,
         hppinv=hpp.to(dtype), img_perm=p.img_perm,
         img_block_starts=p.img_block_starts,
         num_points=p.num_points, views=p.views, num_images=p.num_images,
-        g=G, f_pad=f_pad, pb=p.vm_pb)
+        g=G, f_pad=f_pad, pb=p.vm_pb, img_pos=p.img_pos,
+        img_block_valid=p.img_block_valid)
 
 
 def _view_sum(x, views, pb):
@@ -151,20 +164,24 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(fn_name, *args):
+def _launch(fn_name, *args, shape=""):
+    """Call one C entry point of the kernel library on the current stream;
+    a non-zero return (a refused shape or launch) raises, with ``shape``
+    naming the sizes that decide it."""
     from .. import kernel_build
 
     fn = getattr(kernel_build.library(), fn_name)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}"
+                           + (f" ({shape})" if shape else ""))
 
 
 def _ptr(t):
     return t.data_ptr()
 
 
-def _check_packed(pp: PackedFM, rows: int):
+def _check_packed(pp: PackedFM, rows: int, image_pass: bool = False):
     dev = pp.packed.device
     f32, i32 = torch.float32, torch.int32
     N = pp.num_points * pp.views
@@ -180,9 +197,15 @@ def _check_packed(pp: PackedFM, rows: int):
     _check("packed", pp.packed, f32, (pp.packed.shape[0], N), dev)
     _check("obs_img", pp.obs_img, i32, (N,), dev)
     _check("hppinv", pp.hppinv, f32, (8, pp.num_points), dev)
-    _check("img_perm", pp.img_perm, i32, pp.img_perm.shape, dev)
-    _check("img_block_starts", pp.img_block_starts, i32,
-           (pp.num_images + 1,), dev)
+    if image_pass:
+        if pp.img_pos is None or pp.img_block_valid is None:
+            raise ValueError("the per-image pass needs img_pos and "
+                             "img_block_valid (engine.image_positions)")
+        _check("img_pos", pp.img_pos, i32, (N,), dev)
+        _check("img_block_valid", pp.img_block_valid, i32,
+               pp.img_block_valid.shape, dev)
+        _check("img_block_starts", pp.img_block_starts, i32,
+               (pp.num_images + 1,), dev)
     return dev
 
 
@@ -231,6 +254,30 @@ def make_cam_gather(p):
 
 
 # ---------------------------------------------------------------------------
+# the streaming per-image pass of K1 and K2
+# ---------------------------------------------------------------------------
+
+def image_sum_sorted_plain(pp: PackedFM, x):
+    """Per-image sums [M, F] of x [N, F] the way K1 and K2 take them on the
+    card: row n is written at entry img_pos[n] of the image-sorted blocked
+    layout, every 512-entry block sums its valid prefix, and each image
+    adds its blocks in order.  Equals `engine._image_sum_stack` up to the
+    order of the sums."""
+    blk = engine.rcs.IMG_BLOCK
+    nb = pp.img_block_valid.shape[0]
+    scratch = x.new_full((nb * blk, x.shape[1]), float("nan"))
+    scratch[pp.img_pos.long()] = x
+    live = torch.arange(blk, device=x.device)[None, :] \
+        < pp.img_block_valid[:, None]
+    bsum = torch.where(live[:, :, None], scratch.reshape(nb, blk, -1),
+                       scratch.new_zeros(())).sum(dim=1)
+    cs = torch.cat([bsum.new_zeros((1, bsum.shape[1])),
+                    torch.cumsum(bsum, dim=0)])
+    bs = pp.img_block_starts.long()
+    return cs[bs[1:]] - cs[bs[:-1]]
+
+
+# ---------------------------------------------------------------------------
 # K1: Schur matvec
 # ---------------------------------------------------------------------------
 
@@ -267,6 +314,13 @@ def _matvec_terms(pp: PackedFM, xcr, xg, point_reduce: bool = True):
     return qc, qg
 
 
+def _matvec_shape(pp: PackedFM) -> str:
+    lanes = pp.views * pp.pb
+    return (f"G={pp.g}, V*pb={lanes}: one tile of (23 + 2G) rows x V*pb lanes "
+            f"x 4 B = {(23 + 2 * pp.g) * lanes * 4} B and the kernel's own "
+            "scratch must fit the shared memory of a block")
+
+
 def schur_matvec_plain(pp: PackedFM, extra_c, extra_g, xc, xg):
     """S @ [xc; xg] from the lean packed prefix (see csrc/schur_matvec.cu);
     returns ([M, 6], [G])."""
@@ -284,21 +338,26 @@ def schur_matvec_rows(pp: PackedFM, extra_c, extra_g, xc, xg):
     G, M = pp.g, pp.num_images
     P, V = pp.num_points, pp.views
     N = P * V
-    dev = _check_packed(pp, _offsets(G)["F_lean"])
+    dev = _check_packed(pp, _offsets(G)["F_lean"], image_pass=True)
     f32 = torch.float32
     _check("xc", xc, f32, (M, 6), dev)
     _check("xg", xg, f32, (G,), dev)
     _check("extra_c", extra_c, f32, (M, 6), dev)
     _check("extra_g", extra_g, f32, (G,), dev)
-    scratch = torch.empty((N, 8), dtype=f32, device=dev)
+    nb = pp.img_block_valid.shape[0]
+    # the image-sorted scratch (8 floats per entry; pad entries are never
+    # written or read), then the sums of its 512-entry blocks
+    scratch = torch.empty((nb * engine.rcs.IMG_BLOCK + nb, 8), dtype=f32,
+                          device=dev)
     partial_g = torch.empty((P // pp.pb, G), dtype=f32, device=dev)
     out_c = torch.empty((M, 6), dtype=f32, device=dev)
     out_g = torch.empty((G,), dtype=f32, device=dev)
     _launch("ba_schur_matvec", _ptr(pp.packed), N, P, V, pp.pb, G,
             _ptr(pp.obs_img), _ptr(pp.hppinv), _ptr(xc), _ptr(xg),
-            _ptr(extra_c), _ptr(extra_g), M, _ptr(pp.img_perm),
-            _ptr(pp.img_block_starts), _ptr(scratch), _ptr(partial_g),
-            _ptr(out_c), _ptr(out_g))
+            _ptr(extra_c), _ptr(extra_g), M, _ptr(pp.img_pos),
+            _ptr(pp.img_block_valid), _ptr(pp.img_block_starts), nb,
+            _ptr(scratch), _ptr(partial_g), _ptr(out_c), _ptr(out_g),
+            shape=_matvec_shape(pp))
     schur_matvec_rows.launches += 1
     return out_c, out_g
 
@@ -383,24 +442,33 @@ def prepare_reduction(pp: PackedFM):
     G, M = pp.g, pp.num_images
     P, V = pp.num_points, pp.views
     N = P * V
-    dev = _check_packed(pp, _offsets(G, with_pw=True)["F"])
+    dev = _check_packed(pp, _offsets(G, with_pw=True)["F"], image_pass=True)
     f32 = torch.float32
     F = 39 + 6 * G
-    fs = (F + 3) // 4 * 4
-    feat = torch.empty((N, fs), dtype=f32, device=dev)
-    pg = torch.empty((6 * G, P), dtype=f32, device=dev)
-    partial_rg = torch.empty((P // pp.pb, G), dtype=f32, device=dev)
-    partial_t2 = torch.empty((GRAM_CHUNKS, 4 * G * G), dtype=f32, device=dev)
-    partial_t3 = torch.empty((GRAM_CHUNKS, 9 * G * G), dtype=f32, device=dev)
+    fs = (F + 7) // 8 * 8  # whole 32-byte sectors per feature row
+    nb = pp.img_block_valid.shape[0]
+    nblk = P // pp.pb
+    # the image-sorted feature rows (pad entries are never written or
+    # read), then the sums of their 512-entry blocks
+    feat = torch.empty((nb * engine.rcs.IMG_BLOCK + nb, fs), dtype=f32,
+                       device=dev)
+    partial_rg = torch.empty((nblk, G), dtype=f32, device=dev)
+    # the per-block T2 and T3 sums, then the chunk sums of the column sum
+    partial_t = torch.empty((nblk + COLUMN_SUM_CHUNKS, 13 * G * G),
+                            dtype=f32, device=dev)
     red = torch.empty((M, F), dtype=f32, device=dev)
     rg_corr = torch.empty((G,), dtype=f32, device=dev)
-    T2 = torch.empty((2 * G, 2 * G), dtype=f32, device=dev)
-    T3 = torch.empty((3 * G, 3 * G), dtype=f32, device=dev)
+    t23 = torch.empty((13 * G * G,), dtype=f32, device=dev)
     _launch("ba_prepare_reduction", _ptr(pp.packed), N, P, V, pp.pb, G, M,
-            _ptr(pp.hppinv), _ptr(pp.img_perm), _ptr(pp.img_block_starts),
-            _ptr(feat), fs, _ptr(pg), _ptr(partial_rg), _ptr(partial_t2),
-            _ptr(partial_t3), GRAM_CHUNKS, _ptr(red), _ptr(rg_corr),
-            _ptr(T2), _ptr(T3))
+            _ptr(pp.hppinv), _ptr(pp.img_pos), _ptr(pp.img_block_valid),
+            _ptr(pp.img_block_starts), nb, _ptr(feat), fs, _ptr(partial_rg),
+            _ptr(partial_t), _ptr(red), _ptr(rg_corr), _ptr(t23),
+            shape=f"G={G}, V*pb={V * pp.pb}: one tile of (38 + 4G) rows x "
+                  f"V*pb lanes x 4 B = {(38 + 4 * G) * V * pp.pb * 4} B and "
+                  "the kernel's own scratch must fit the shared memory of a "
+                  "block")
+    T2 = t23[:4 * G * G].view(2 * G, 2 * G)
+    T3 = t23[4 * G * G:].view(3 * G, 3 * G)
     prepare_reduction.launches += 1
     return red, rg_corr, T2, T3
 
@@ -428,9 +496,6 @@ def prepare_kernels(p, state, spec, damping, couple_global: bool = True,
 # K4: read floor
 # ---------------------------------------------------------------------------
 
-_FLOOR_CHUNKS = 32  # kChunks of csrc/read_floor.cu
-
-
 def read_floor_plain(pp: PackedFM, xin):
     """out[8, 128] = 1e-30 xin + the fold of the lean rows: row r, lane n
     adds into out[r % 8, n % 128] (see csrc/read_floor.cu).  Folds the
@@ -454,9 +519,8 @@ def read_floor(pp: PackedFM, xin):
     dev = _check_packed(pp, rows)
     f32 = torch.float32
     _check("xin", xin, f32, (8, 128), dev)
-    # the per-block folds, then the kChunks chunk sums of read_floor.cu
-    partial = torch.empty((P // pp.pb + _FLOOR_CHUNKS, 8, 128), dtype=f32,
-                          device=dev)
+    # one fold per CTA of the persistent grid: at most one CTA per block
+    partial = torch.empty((P // pp.pb, 8, 128), dtype=f32, device=dev)
     out = torch.empty((8, 128), dtype=f32, device=dev)
     _launch("ba_read_floor", _ptr(pp.packed), P * V, P, V, pp.pb, rows,
             _ptr(xin), _ptr(partial), _ptr(out))
@@ -518,7 +582,7 @@ def matvec_stage(pp: PackedFM, stage, extra_c, extra_g, xc, xg):
     out = torch.empty((G + 6,), dtype=f32, device=dev)
     _launch("ba_matvec_stage", _CUT_STAGE_ID[stage], _ptr(pp.packed), P * V,
             P, V, pp.pb, G, _ptr(pp.obs_img), _ptr(pp.hppinv), _ptr(xc),
-            _ptr(xg), _ptr(partial), _ptr(out))
+            _ptr(xg), _ptr(partial), _ptr(out), shape=_matvec_shape(pp))
     matvec_stage.launches += 1
     return out[G:], out[:G]
 

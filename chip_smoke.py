@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch + CUDA port: the scale solve on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-refinement]
 
 Phases (any failed check exits non-zero, before the result line):
   1. card and build: the card's name and power limit (nvidia-smi), then the
@@ -10,15 +10,26 @@ Phases (any failed check exits non-zero, before the result line):
      against its plain PyTorch version at the main-path shapes (100,352
      points incl. padding, 500 images, 12 views, G = 10): K3 exactly, K1
      and K2 within a scaled error of 2e-4 (the reference's f32 kernel
-     tolerance), K2 also through finish_reduction; K1 run twice must give
-     identical bits (deterministic reductions); times from CUDA events;
+     tolerance), K2 also through finish_reduction; 50 repeat runs of K1 and
+     5 of K2 must give identical bits (deterministic reductions, and every
+     barrier of the shared-memory ring in place); each kernel's time is
+     the device time of its launches under torch.profiler
+     (measure.device_ms: no launch gap, no host; K1 and K2 also kernel by
+     kernel), K1 and K3 also with the L2 flushed before each launch, beside
+     the time per call between CUDA events around back-to-back calls (for
+     K3 that reads the host: the kernel is shorter than its wrapper); for
+     K3 the device time of the one PyTorch call for the same gather;
   3. the LM phase (parallel/lm.py) from synthetic.build_problem(seed=0),
      entirely through the kernels: launch counters reset before and read
      after, each must be > 0; Omega must drop and sigma0 = sqrt(Omega/dof)
      must land within 1% of the injected 5e-4 (on failure the same phase
      runs through the plain path to tell kernel from slice);
   4. the steady-state fixed-CG step (8 CG iterations, tol 0) through the
-     kernels and through the plain path, timed in turns;
+     kernels and through the plain path, timed in turns; then three steps
+     under torch.profiler (device busy and idle share, launches, the
+     largest kernels); with --profile-refinement the undamped refinement
+     of phase 5 runs once more under the profiler, likewise (seconds of
+     profiler bookkeeping for its ~36,000 launches, so not by default);
   5. convergence: from phase 3's end state, mixed-precision refinement
      (parallel/refine.py `converge`: cg_tol 1e-12, cg_maxiter 800,
      stall_limit 300, at most 15 steps) through K1-K3, the f64 gradient in
@@ -33,9 +44,11 @@ Phases (any failed check exits non-zero, before the result line):
      (a run that fails a check runs again through the plain path);
   6. the matvec roofline (measure.py) on the lean rows at phase 3's state:
      K4 (read floor) against its plain version, each entry within 1e-6 of
-     the sum of |values| it folds; each cut K1 stage within a scaled error
+     the sum of |values| it folds, and the device time of the one PyTorch
+     call for the same fold (a sum over the zero-padded prefix); each cut K1 stage within a scaled error
      of 2e-4, the full stage equal to K1 bit for bit; then with the
-     counters reset, K4, every stage and K1 timed over 20 warm runs, GB/s
+     counters reset, K4, every stage and K1 timed over 20 warm runs (CUDA
+     events; then once more for their device time), GB/s
      on the rows read and on the padded count, and matvec_vs_read_floor;
      the floor must not be slower than K1;
   7. covariance (parallel/cov_direct.py `cov_all`: linearise at damping 0,
@@ -64,14 +77,18 @@ Phases (any failed check exits non-zero, before the result line):
      inverse / recovery) comes from 3 stage-by-stage runs, and the
      row-gather recovery of all points is timed beside the dense one.
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6 and 7, each between a reset and a read of the counters),
-and last
+phases 3, 5, 6 and 7, each between a reset and a read of the counters;
+``ms`` the device time, ``events_ms`` the time per call between CUDA events;
+``bound_ms`` the least time an H100 SXM could take for the bytes and
+operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
+``library_ms`` where one PyTorch call computes the same function), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +97,8 @@ NUM_POINTS, NUM_IMAGES, VIEWS = 100_000, 500, 12
 SIGMA = 5e-4
 TOL_SCALED = 2e-4       # kernel vs plain, f32 (tests/test_pallas_prepare.py)
 TOL_FLOOR = 1e-6        # K4 vs plain, per entry, of the sum of |values|
+K1_REPEATS = 50         # repeat runs of K1 that must give the same bits
+K2_REPEATS = 5          # and of K2
 REFINE_TOL = 1e-6       # max|dx| the refinement must reach (bench.py)
 BENCH_DAMPING = 1e-7    # the bench's refinement damping (bench.py:657)
 TPU_SITES = {  # pallas_call of the TPU kernel each CUDA kernel replaces
@@ -103,6 +122,7 @@ COV_S_TOL = 1e-9         # Jacobi-scaled max|S - S_ref|, f64 (two assemblies)
 COV_RESIDUAL_TOL = 1e-8  # Jacobi-scaled max|D^-1 S Q D - I|, f64
 COV_BLOCK_TOL = 1e-6     # point block vs another route, of its largest entry
 COV_REPS = 3             # warm covariance calls timed after a cold one
+PROFILE_REFINEMENT = "--profile-refinement"
 
 
 def fail(msg: str):
@@ -112,6 +132,17 @@ def fail(msg: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def by_kernel(ms_by_name) -> str:
+    """`measure.device_ms`'s second result on one line, in us."""
+    def short(name):
+        m = re.match(r"(?:void )?([\w:]+(?:<[^>]*>)?)",
+                     name.replace("(anonymous namespace)::", ""))
+        return m.group(1) if m else name
+
+    return ", ".join(f"{short(n)} {t * 1e3:.1f} us"
+                     for n, t in ms_by_name.items())
 
 
 def scaled_err(a, b) -> float:
@@ -453,7 +484,8 @@ def covariance_phase(prob, st, spec, dev):
                 cov_repeat_err=repeat_err, cov_f32=out32), k3
 
 
-def main():
+def main(profile_refinement=False):
+    t_start = time.time()
     try:
         import torch
     except ImportError as exc:
@@ -487,6 +519,7 @@ def main():
     kernel_build.library()
 
     # ---- 2. kernels vs plain versions at the main-path shapes -------------
+    log(f"-- phase 2 at {time.time() - t_start:.1f} s")
     t0 = time.time()
     prob_h, state_h, spec = synthetic.build_problem(NUM_POINTS, NUM_IMAGES,
                                                     VIEWS, seed=0)
@@ -512,13 +545,31 @@ def main():
     if not torch.equal(g_k, g_p):
         fail(f"K3 cam_gather differs from its plain version "
              f"(max abs {float((g_k - g_p).abs().max()):.3e})")
+    idx64 = pp.obs_img.long()
+
+    def k3():
+        return kernels.cam_gather_rows(eo, pp.obs_img)
+
+    # K3 is shorter than its wrapper's host cost, so CUDA events around
+    # back-to-back calls read the host: its plain version and the library
+    # call are held against device times too
     results["cam_gather"] = dict(
         max_abs_err=float((g_k - g_p).abs().max()),
-        ms=measure.time_ms(lambda: kernels.cam_gather_rows(eo, pp.obs_img)),
-        plain_ms=measure.time_ms(
-            lambda: kernels.cam_gather_plain(eo, pp.obs_img)))
-    log(f"K3 cam_gather: exact; {results['cam_gather']['ms']:.4f} ms vs "
-        f"plain {results['cam_gather']['plain_ms']:.4f} ms")
+        ms=measure.device_ms(k3, reps=50, warm=20)[0],
+        ms_l2_flushed=measure.device_ms(k3, flush_l2=True)[0],
+        events_ms=measure.time_ms(k3, reps=50),
+        plain_ms=measure.device_ms(
+            lambda: kernels.cam_gather_plain(eo, pp.obs_img))[0],
+        # the one PyTorch call for the same gather (timed here, used nowhere
+        # in the port): index_select, then the transpose copy
+        library_ms=measure.device_ms(
+            lambda: torch.index_select(eo, 0, idx64).t().contiguous())[0])
+    del idx64
+    log("K3 cam_gather: exact; device time {ms:.4f} ms, {ms_l2_flushed:.4f} "
+        "ms with the L2 flushed before each launch ({events_ms:.4f} ms per "
+        "call between CUDA events, back to back), plain {plain_ms:.4f} ms, "
+        "index_select + transpose copy {library_ms:.4f} ms".format(
+            **results["cam_gather"]))
 
     # K2
     out_k = kernels.prepare_reduction(pp)
@@ -546,14 +597,24 @@ def main():
            if not e <= TOL_SCALED]
     if bad:
         fail(f"K2 prepare_reduction disagrees with its plain version: {bad}")
+    for _ in range(K2_REPEATS):
+        if not all(torch.equal(a, c) for a, c in zip(
+                out_k, kernels.prepare_reduction(pp))):
+            fail("K2 prepare_reduction is not deterministic")
+    log(f"K2 repeat runs bit-identical: {K2_REPEATS} of {K2_REPEATS}")
+    k2_ms, k2_by = measure.device_ms(lambda: kernels.prepare_reduction(pp),
+                                     reps=10)
     results["prepare_reduction"] = dict(
         max_abs_err=max(float((a - r).abs().max())
                         for a, r in zip(out_k, out_p)),
-        ms=measure.time_ms(lambda: kernels.prepare_reduction(pp), reps=10),
+        ms=k2_ms, by_kernel_ms=k2_by,
+        events_ms=measure.time_ms(lambda: kernels.prepare_reduction(pp),
+                                  reps=10),
         plain_ms=measure.time_ms(
             lambda: kernels.prepare_reduction_plain(pp), reps=5, warm=1))
-    log(f"K2 prepare_reduction: {results['prepare_reduction']['ms']:.4f} ms "
-        f"vs plain {results['prepare_reduction']['plain_ms']:.4f} ms")
+    log("K2 prepare_reduction: device time {ms:.4f} ms ({events_ms:.4f} ms "
+        "between CUDA events), plain {plain_ms:.4f} ms; by kernel ".format(
+            **results["prepare_reduction"]) + by_kernel(k2_by))
 
     # K1
     gen = torch.Generator().manual_seed(1)
@@ -561,28 +622,41 @@ def main():
     xg = torch.randn((G,), generator=gen).to(dev)
     ec, eg = fin_p[0].extra_c.contiguous(), fin_p[0].extra_g.contiguous()
     oc_k, og_k = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
-    oc_k2, og_k2 = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
     oc_p, og_p = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
     e_c, e_g = scaled_err(oc_k, oc_p), scaled_err(og_k, og_p)
-    same = bool(torch.equal(oc_k, oc_k2) and torch.equal(og_k, og_k2))
+    # many repeats: a missing barrier of the shared-memory ring would give
+    # other bits only now and then
+    same = True
+    for _ in range(K1_REPEATS):
+        oc_k2, og_k2 = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+        same = same and bool(torch.equal(oc_k, oc_k2)
+                             and torch.equal(og_k, og_k2))
     log(f"K1 scaled errors: c {e_c:.2e}, g {e_g:.2e}; "
-        f"repeat run bit-identical: {same}")
+        f"{K1_REPEATS} repeat runs bit-identical: {same}")
     if not (e_c <= TOL_SCALED and e_g <= TOL_SCALED):
         fail("K1 schur_matvec disagrees with its plain version")
     if not same:
         fail("K1 schur_matvec is not deterministic")
+    def k1():
+        return kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+
+    k1_ms, k1_by = measure.device_ms(k1, reps=50)
     results["schur_matvec"] = dict(
         max_abs_err=max(float((oc_k - oc_p).abs().max()),
                         float((og_k - og_p).abs().max())),
-        ms=measure.time_ms(lambda: kernels.schur_matvec_rows(
-            pp, ec, eg, xc, xg), reps=50),
+        ms=k1_ms, by_kernel_ms=k1_by,
+        ms_l2_flushed=measure.device_ms(k1, flush_l2=True)[0],
+        events_ms=measure.time_ms(k1, reps=50),
         plain_ms=measure.time_ms(lambda: kernels.schur_matvec_plain(
             pp, ec, eg, xc, xg), reps=10))
-    log(f"K1 schur_matvec: {results['schur_matvec']['ms']:.4f} ms vs plain "
-        f"{results['schur_matvec']['plain_ms']:.4f} ms")
+    log("K1 schur_matvec: device time {ms:.4f} ms, {ms_l2_flushed:.4f} ms "
+        "with the L2 flushed before each launch ({events_ms:.4f} ms between "
+        "CUDA events, back to back), plain {plain_ms:.4f} ms; by "
+        "kernel ".format(**results["schur_matvec"]) + by_kernel(k1_by))
     del b, pp, out_k, out_p, fin_k, fin_p
 
     # ---- 3. the LM phase through the kernels -------------------------------
+    log(f"-- phase 3 at {time.time() - t_start:.1f} s")
     prob64 = convert.problem_to_torch(prob_h, dev, torch.float64)
     fv64 = engine.to_view_major(engine.fm_problem(prob64), pb)
     n_obs = 2 * int((prob64.obs_weight[:, 0, 0] > 0).sum())
@@ -625,8 +699,10 @@ def main():
     if min(launches[k] for k in SOLVE_KERNELS) <= 0:
         fail(f"a kernel of the LM phase was never launched: {launches}")
     total = dict(launches)
+    by_phase = {"lm_phase": launches}
 
     # ---- 4. steady-state fixed-CG step -------------------------------------
+    log(f"-- phase 4 at {time.time() - t_start:.1f} s")
     def fixed_step(st, use_kernels):
         dxp, dxc, dxg, _, _ = engine.lm_step(
             fv, st, spec, 1e-6, cg_tol=0.0, cg_maxiter=8, stall_limit=9,
@@ -642,7 +718,10 @@ def main():
         torch.cuda.synchronize()
         return (time.time() - t) / reps
 
+    kernels.reset_launch_counts()
     run_fixed(True, 1)
+    by_phase["fixed_cg8_step"] = kernels.launch_counts()
+    log(f"launches during one fixed-cg8 step: {by_phase['fixed_cg8_step']}")
     run_fixed(False, 1)
     tp = [run_fixed(False), run_fixed(True), run_fixed(True),
           run_fixed(False)]
@@ -652,7 +731,18 @@ def main():
         f"{step_plain:.3f} ms (turns plain/kernels/kernels/plain: "
         + ", ".join(f"{x * 1e3:.3f}" for x in tp) + " ms)")
 
+    def log_profile(label, prof, per=1):
+        log(f"{label}: device busy {prof['busy_ms'] / per:.3f} ms of "
+            f"{prof['wall_ms'] / per:.3f} ms profiled (idle "
+            f"{prof['idle_share']:.1%}), {prof['launches'] // per} launches; "
+            + "; ".join(f"{n} x{c // per} {t / per:.3f} ms"
+                        for n, c, t in prof["top"]))
+
+    prof_step = measure.device_profile(lambda: run_fixed(True, 3))
+    log_profile("fixed-cg8 step under torch.profiler, per step", prof_step, 3)
+
     # ---- 5. convergence: mixed-precision refinement through the kernels ---
+    log(f"-- phase 5 at {time.time() - t_start:.1f} s")
     refiner = refine.Refiner(prob, spec, use_kernels=True)
     st64 = type(st)(*(a.double() for a in st))
     om3_r = float(refiner.gradient64(refiner.fmp64, st64)[3])
@@ -710,10 +800,15 @@ def main():
             plain_diagnosis(damping)
             fail("; ".join(problems))
         total = {k: total[k] + launches5[k] for k in total}
+        by_phase[f"refine_{label}"] = launches5
         runs[label] = dict(steps=rec.refine_steps, seconds=rec.refine_seconds,
                            max_dx=rec.max_dx, cg_iterations=rec.cg_iterations,
                            sigma0=s0_5, omega=om5_r)
     del s_ref
+    prof_ref = None
+    if profile_refinement:
+        prof_ref = measure.device_profile(lambda: refine_phase(refiner, 0.0))
+        log_profile("undamped refinement under torch.profiler", prof_ref)
     ttc = t_lm + rec.refine_seconds
     log(f"time_to_converged_s {ttc:.3f} (LM phase {t_lm:.3f} s, "
         f"{ph.steps} steps + undamped refinement {rec.refine_seconds:.3f} s, "
@@ -721,6 +816,7 @@ def main():
     del refiner
 
     # ---- 6. the matvec roofline: K4 and the K1 stages ----------------------
+    log(f"-- phase 6 at {time.time() - t_start:.1f} s")
     b6 = engine.linearize(fv, st, spec, 1e-6)
     pp6 = kernels.pack_fm(b6, fv, lean_only=True)
     ec6 = torch.zeros((fv.num_images, 6), dtype=torch.float32, device=dev)
@@ -764,6 +860,19 @@ def main():
     floor_plain_ms = measure.time_ms(
         lambda: kernels.read_floor_plain(pp6, xin), reps=5, warm=1)
 
+    # the one PyTorch call for K4's fold (timed here, used nowhere in the
+    # port): the pad rows of the lean prefix are zero, so one sum over the
+    # prefix viewed [.., 8, N / 128, 128] is the same fold; it reads the pad
+    # rows too (48 rows for K4's 41 at G = 10)
+    def fold_one_call():
+        return pp6.packed.view(-1, 8, N // 128, 128).sum(dim=(0, 2))
+
+    e_lib = float(((fold_one_call() - f_p).abs()
+                   / f_scale.clamp_min(1e-30)).max())
+    if not e_lib <= 10 * TOL_FLOOR:
+        fail(f"the one-call fold is not K4's function (error {e_lib:.2e})")
+    floor_library_ms = measure.device_ms(fold_one_call)[0]
+
     kernels.reset_launch_counts()
     roof = measure.roofline(pp6, ec6, eg6, xc6, xg6, reps=20)
     torch.cuda.synchronize()
@@ -773,11 +882,22 @@ def main():
                                   "schur_matvec")) <= 0:
         fail(f"a kernel of the roofline was never launched: {launches6}")
     total = {k: total[k] + launches6[k] for k in total}
+    by_phase["roofline"] = launches6
     sm = roof["stage_ms"]
+    # the same probes' device time (after the counters were read: these
+    # launches are measurements, not the roofline's)
+    dm = {"dma": measure.device_ms(lambda: kernels.read_floor(pp6, xin))[0]}
+    for name in kernels.MATVEC_STAGES:
+        dm[name] = measure.device_ms(
+            lambda n=name: kernels.matvec_stage(pp6, n, ec6, eg6, xc6,
+                                                xg6))[0]
     log(f"bytes: rows read {roof['rows_read_bytes']} (41 rows), padded "
         f"count of bench.matvec_cost {roof['padded_bytes']} (48 rows)")
-    log("stage ms: " + ", ".join(f"{n} {t:.4f}" for n, t in sm.items())
-        + "; plain ms: " + f"dma {floor_plain_ms:.4f}, " + ", ".join(
+    log("stage ms between CUDA events: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in sm.items()) + "; device time: " + ", ".join(
+            f"{n} {t:.4f}" for n, t in dm.items())
+        + f"; the fold as one torch sum {floor_library_ms:.4f} (error "
+        f"{e_lib:.2e} of the sum of |values|); plain ms: " + f"dma {floor_plain_ms:.4f}, " + ", ".join(
             f"{n} {t:.4f}" for n, t in stage_plain_ms.items()))
     log(f"matvec {roof['matvec_gbps']:.1f} GB/s on the rows read, "
         f"{roof['matvec_padded_gbps']:.1f} GB/s on the padded count; read "
@@ -788,18 +908,22 @@ def main():
         fail(f"the read floor ({sm['dma']:.4f} ms) is not faster than K1 "
              f"({sm['full']:.4f} ms)")
     results["read_floor"] = dict(
-        max_abs_err=float((f_k - f_p).abs().max()), ms=sm["dma"],
-        plain_ms=floor_plain_ms)
+        max_abs_err=float((f_k - f_p).abs().max()), ms=dm["dma"],
+        events_ms=sm["dma"], plain_ms=floor_plain_ms,
+        library_ms=floor_library_ms)
     results["matvec_stage"] = dict(
-        max_abs_err=stage_abs, ms=sm["gather"],
+        max_abs_err=stage_abs, ms=dm["gather"], events_ms=sm["gather"],
         plain_ms=stage_plain_ms["gather"],
-        stages={n: dict(ms=sm[n], plain_ms=stage_plain_ms[n])
+        stages={n: dict(ms=dm[n], events_ms=sm[n],
+                        plain_ms=stage_plain_ms[n])
                 for n in kernels.MATVEC_STAGES})
     del pp6
 
     # ---- 7. covariance: every point's 3x3 block ----------------------------
+    log(f"-- phase 7 at {time.time() - t_start:.1f} s")
     cov, k3_7 = covariance_phase(prob, st, spec, dev)
     total["cam_gather"] += k3_7
+    by_phase["covariance_f32"] = {"cam_gather": k3_7}
 
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
@@ -815,16 +939,34 @@ def main():
         "matvec_read_floor_padded_gbps":
             roof["matvec_read_floor_padded_gbps"],
         "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
-        "stage_ms": sm, **cov}))
+        "stage_ms": sm, "launches_by_phase": by_phase,
+        "profile_fixed_cg8_3_steps": prof_step,
+        "profile_refine_undamped": prof_ref, **cov}))
+    # the least time the card could take for each kernel's work at these
+    # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
+    P_, M_ = fv.num_points, fv.num_images
+    work = {"cam_gather": measure.k3_work(N, M_, state0.eo.shape[1]),
+            "prepare_reduction": measure.k2_work(N, P_, M_, G, VIEWS),
+            "schur_matvec": measure.k1_work(N, P_, M_, G, VIEWS),
+            "read_floor": measure.k4_work(N, G),
+            "matvec_stage": measure.stage_work(N, P_, M_, G, VIEWS)}
     kernel_rows = []
     for n in SOURCES:
+        b_ms, b_by = measure.bound_ms(work[n])
         row = dict(name=n, route="cuda", source=SOURCES[n],
                    replaces=TPU_SITES[n], launches=total[n],
                    max_abs_err=results[n]["max_abs_err"],
-                   ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
-        if "stages" in results[n]:
-            row["stages"] = results[n]["stages"]
+                   ms=results[n]["ms"], plain_ms=results[n]["plain_ms"],
+                   bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=b_ms / results[n]["ms"],
+                   library_ms=results[n].get("library_ms"),
+                   work_bytes=work[n][0])
+        for extra in ("events_ms", "ms_l2_flushed", "by_kernel_ms",
+                      "stages"):
+            if extra in results[n]:
+                row[extra] = results[n][extra]
         kernel_rows.append(row)
+    log(f"-- done at {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -832,4 +974,6 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], [PROFILE_REFINEMENT]):
+        fail(f"usage: chip_smoke.py [{PROFILE_REFINEMENT}]")
+    main(profile_refinement=PROFILE_REFINEMENT in sys.argv[1:])

@@ -8,8 +8,11 @@ runs without the suite's conftest:
 
 Tolerances: K3 exact (a copy, on the view-major and the point-major
 layout); K1 and K2 within a scaled error of 2e-4
-(f32, other summation order than the plain versions); K1 run twice gives
-identical bits (its reductions are deterministic).  K4: each fold entry
+(f32, other summation order than the plain versions), also on random
+packed rows at G = 1, 3, 16, at V = 4 (pb > 32) and with 130 uneven images
+(some empty); K1 run 50 times and K2 run 5 times give identical bits (their
+reductions are deterministic, and a missing barrier in the shared-memory
+ring would show only sometimes).  K4: each fold entry
 within 1e-6 of the sum of |values| it folds (f32 sums in another order);
 the cut K1 stages within a scaled error of 2e-4 of their plain versions,
 and the ``full`` stage equal to K1 bit for bit.  The covariance (`cov_all`)
@@ -96,6 +99,110 @@ def test_schur_matvec_kernel_matches_plain_and_repeats(case):
     rc, rg = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
     assert _scaled(oc, rc) < 2e-4 and _scaled(og, rg) < 2e-4
     assert torch.equal(oc, oc2) and torch.equal(og, og2)
+
+
+def _random_packed(P, V, M, G, seed):
+    """A PackedFM of random rows on the GPU: N(0, 1) rows in the kernel
+    layout, random Hpp^{-1} rows, uneven random images (the last tenth of
+    them empty, most images' last 512-entry block partly padding)."""
+    import numpy as np
+
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
+
+    rng = np.random.default_rng(seed)
+    N = P * V
+    pb = kernels.choose_pb(P, V)
+    off = kernels._offsets(G, with_pw=True)
+    f_pad = (off["F"] + 7) // 8 * 8
+    packed = np.zeros((f_pad, N), np.float32)
+    packed[:off["F_lean"]] = rng.normal(0, 1, (off["F_lean"], N))
+    packed[off["PJp"]:off["F"]] = rng.normal(
+        0, 1, (off["F"] - off["PJp"], N))
+    hpp = np.zeros((8, P), np.float32)
+    hpp[:6] = rng.normal(0, 1, (6, P))
+    used = max(1, M - M // 10)
+    obs_img = np.minimum(rng.integers(0, used, N),
+                         rng.integers(0, used, N)).astype(np.int32)
+    perm, bstarts = rcs.build_image_block_layout(obs_img, M)
+    dev = torch.device("cuda", 0)
+    perm_t = torch.as_tensor(perm, device=dev)
+    pos, valid = engine.image_positions(perm_t, N)
+    return kernels.PackedFM(
+        packed=torch.as_tensor(packed, device=dev),
+        obs_img=torch.as_tensor(obs_img, device=dev),
+        hppinv=torch.as_tensor(hpp, device=dev), img_perm=perm_t,
+        img_block_starts=torch.as_tensor(bstarts, device=dev),
+        num_points=P, views=V, num_images=M, g=G, f_pad=f_pad, pb=pb,
+        img_pos=pos, img_block_valid=valid)
+
+
+# (P, V, M, G): G = 1, 3, 16; V = 4 gives pb = 128; M = 130 uneven images
+SHAPES = [(1024, 8, 24, 1), (1024, 12, 24, 3), (960, 12, 130, 16),
+          (1280, 4, 130, 10), (4096, 12, 130, 10)]
+
+
+@pytest.mark.parametrize("P,V,M,G", SHAPES)
+def test_schur_matvec_kernel_shapes(case, P, V, M, G):
+    """K1 against its plain version over G, V (pb) and M, and the same
+    bits on 50 runs."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    pp = _random_packed(P, V, M, G, seed=P + G)
+    gen = torch.Generator().manual_seed(G)
+    xc = torch.randn((M, 6), generator=gen).cuda()
+    xg = torch.randn((G,), generator=gen).cuda()
+    ec = torch.rand((M, 6), generator=gen).cuda()
+    eg = torch.rand((G,), generator=gen).cuda()
+    oc, og = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+    rc, rg = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
+    assert _scaled(oc, rc) < 2e-4 and _scaled(og, rg) < 2e-4
+    for _ in range(50):
+        oc2, og2 = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+        assert torch.equal(oc, oc2) and torch.equal(og, og2)
+    for stage in ("rowmath", "pointred", "gather"):
+        out = torch.cat(kernels.matvec_stage(pp, stage, ec, eg, xc, xg))
+        ref = torch.cat(kernels.matvec_stage_plain(pp, stage, ec, eg, xc, xg))
+        assert _scaled(out, ref) < 2e-4, stage
+
+
+@pytest.mark.parametrize("P,V,M,G", SHAPES)
+def test_prepare_reduction_kernel_shapes(case, P, V, M, G):
+    """K2 against its plain version over G, V (pb) and M, and the same
+    bits on 5 runs."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    pp = _random_packed(P, V, M, G, seed=P + G + 1)
+    out = kernels.prepare_reduction(pp)
+    ref = kernels.prepare_reduction_plain(pp)
+    for name, a, r in zip(("red", "rg_corr", "T2", "T3"), out, ref):
+        assert a.shape == r.shape, name
+        assert _scaled(a, r) < 2e-4, name
+    for _ in range(5):
+        again = kernels.prepare_reduction(pp)
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_image_pass_layout_on_the_card(case):
+    """The scatter to image-sorted positions and the two-level sum, as the
+    kernels take it, against `engine._image_sum_stack` on CUDA tensors."""
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    pp = _random_packed(960, 12, 130, 3, seed=9)
+    x = torch.randn((960 * 12, 6), generator=torch.Generator().manual_seed(1))
+    x = x.cuda()
+    ref = engine._image_sum_stack(pp, list(x.T))
+    assert _scaled(kernels.image_sum_sorted_plain(pp, x), ref) < 1e-5
+
+
+def test_kernels_refuse_a_tile_that_does_not_fit(case):
+    """G = 16 at V * pb = 512: K2's tile (102 rows x 512 lanes) leaves no
+    room for its scratch; the wrapper raises and names the sizes."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    pp = _random_packed(1024, 16, 24, 16, seed=3)
+    assert pp.views * pp.pb == 512
+    with pytest.raises(RuntimeError, match="V\\*pb=512"):
+        kernels.prepare_reduction(pp)
 
 
 def test_lm_step_through_kernels_contracts(case):

@@ -84,16 +84,20 @@ def test_sources_hash_and_signatures():
 
 
 def test_read_floor_scratch_matches_the_kernel():
-    """K4's wrapper sizes its scratch for the chunk sums of read_floor.cu:
-    a smaller buffer would be written past its end on the card."""
+    """K2's wrapper sizes its scratch for the chunk sums of the two-pass
+    column sum of common.cuh, and K4's for one fold per CTA: a smaller
+    buffer would be written past its end on the card."""
     import re
 
     from bundle_adjustment_tpu_torch import kernel_build
     from bundle_adjustment_tpu_torch.parallel import kernels
 
-    src = next(s for s in kernel_build.sources() if s.name == "read_floor.cu")
-    m = re.search(r"constexpr int kChunks = (\d+);", src.read_text())
-    assert m and int(m.group(1)) == kernels._FLOOR_CHUNKS
+    src = {s.name: s.read_text() for s in kernel_build.sources()}
+    m = re.search(r"constexpr int kColChunks = (\d+);", src["common.cuh"])
+    assert m and int(m.group(1)) == kernels.COLUMN_SUM_CHUNKS
+    assert "ba::kColChunks" in src["prepare_reduction.cu"]
+    assert "ba::kColChunks" not in src["read_floor.cu"]
+    assert "ba::ring_grid(lim, nblk)" in src["read_floor.cu"]
 
 
 def test_wrappers_refuse_other_devices():

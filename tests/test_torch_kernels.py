@@ -242,3 +242,63 @@ def test_choose_pb():
     assert TK.choose_pb(512, 8) == 64
     with pytest.raises(ValueError):
         TK.choose_pb(100, 4)
+
+
+# (N, M, images used, seed): uneven images, M = 130, empty images, images of
+# exactly one block, and one image that holds everything
+@pytest.mark.parametrize("N,M,used,seed", [
+    (3000, 130, 130, 0), (3000, 130, 100, 1), (5000, 7, 7, 2),
+    (1024, 2, 2, 3), (2000, 3, 1, 4), (700, 130, 130, 5)])
+def test_image_positions_and_sorted_sum(N, M, used, seed):
+    """`engine.image_positions` inverts `img_perm`, every block's valid
+    entries are a prefix, and a scatter to the image-sorted positions
+    followed by the two-level segmented sum (`image_sum_sorted_plain`, the
+    plain model of the kernels' streaming per-image pass) equals
+    `engine._image_sum_stack` (f64: rtol 1e-12, the order of the sums
+    differs)."""
+    from bundle_adjustment_tpu_torch.parallel import engine as TE
+    from bundle_adjustment_tpu_torch.parallel import rcs as TR
+
+    rng = np.random.default_rng(seed)
+    if N == 1024:
+        obs_img = np.repeat(np.arange(2), 512).astype(np.int32)
+    else:
+        obs_img = np.minimum(rng.integers(0, used, N),
+                             rng.integers(0, used, N)).astype(np.int32)
+    perm, bstarts = TR.build_image_block_layout(obs_img, M)
+    perm_t = torch.as_tensor(perm)
+    pos, valid = TE.image_positions(perm_t, N)
+    assert pos.dtype == torch.int32 and valid.dtype == torch.int32
+    np.testing.assert_array_equal(perm[pos.numpy()], np.arange(N))
+    blocks = perm.reshape(-1, TR.IMG_BLOCK) < N
+    np.testing.assert_array_equal(valid.numpy(), blocks.sum(1))
+    assert int(valid.sum()) == N
+    for b, n in enumerate(valid.tolist()):
+        assert blocks[b, :n].all() and not blocks[b, n:].any()
+    if N != 1024:
+        assert (perm >= N).any()              # padded entries
+    pp = TK.PackedFM(
+        packed=None, obs_img=torch.as_tensor(obs_img), hppinv=None,
+        img_perm=perm_t, img_block_starts=torch.as_tensor(bstarts),
+        num_points=N, views=1, num_images=M, g=1, f_pad=0, pb=32,
+        img_pos=pos, img_block_valid=valid)
+    x = torch.as_tensor(rng.normal(0, 1, (N, 5)))
+    ref = TE._image_sum_stack(pp, list(x.T))
+    out = TK.image_sum_sorted_plain(pp, x)
+    assert out.shape == (M, 5)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    direct = np.zeros((M, 5))
+    np.add.at(direct, obs_img, x.numpy())
+    np.testing.assert_allclose(out.numpy(), direct, rtol=1e-12, atol=1e-12)
+
+
+def test_fm_problem_carries_the_inverse_layout(small32):
+    """fm_problem and to_view_major build img_pos / img_block_valid beside
+    img_perm, and pack_fm hands them to the kernels."""
+    ft = small32.ft
+    N = ft.num_points * ft.views
+    assert ft.img_pos.shape == (N,)
+    np.testing.assert_array_equal(
+        ft.img_perm.numpy()[ft.img_pos.numpy()], np.arange(N))
+    assert int(ft.img_block_valid.sum()) == N

@@ -61,6 +61,44 @@ def test_rows_read_vs_padded_count():
     assert measure.matvec_cost(N, 10, 12)[1] == 48 * 4 * N == 231_211_008
 
 
+SCALE = dict(N=1_204_224, P=100_352, M=500, G=10, V=12)
+
+
+@pytest.mark.parametrize("name,work,nbytes,ms", [
+    ("K1", measure.k1_work(**SCALE), 204_754_200, 0.0611),
+    ("K2", measure.k2_work(**SCALE), 378_329_576, 0.1129),
+    ("K3", measure.k3_work(SCALE["N"], SCALE["M"], 6), 43_364_064, 0.0129),
+    ("K4", measure.k4_work(SCALE["N"], SCALE["G"]), 197_500_928, 0.0590),
+    ("stage", measure.stage_work(**SCALE), 204_730_184, 0.0611),
+])
+def test_work_and_bound_at_the_scale_shape(name, work, nbytes, ms):
+    """The bytes each kernel must move at 100,352 points / 500 images / 12
+    views, G = 10, and the bound they give at 3.35 TB/s (4 decimals of a
+    ms, as PERF.md prints them)."""
+    assert work[0] == nbytes
+    t, by = measure.bound_ms(work)
+    assert by == "bytes" and round(t, 4) == ms
+
+
+def test_work_of_a_small_shape_by_hand():
+    """P = 64, V = 3, M = 5, G = 2: N = 192."""
+    N, P, M, G, V = 192, 64, 5, 2, 3
+    rows = 25 * 4 * N                       # 21 + 2G lean rows
+    assert measure.matvec_rows_read(N, G) == rows == 19_200
+    io = rows + 4 * N + 24 * P              # + obs_img + six Hpp^-1 rows
+    assert io == 21_504
+    assert measure.k1_work(N, P, M, G, V)[0] == io + 3 * (6 * M + G) * 4
+    assert measure.stage_work(N, P, M, G, V)[0] == io + 32 * 4 + 8 * 4
+    assert measure.k2_rows_read(N, G) == 46 * 4 * N == 35_328
+    out = (M * 51 + G + 16 + 36) * 4        # red, rg_corr, T2, T3
+    assert measure.k2_work(N, P, M, G, V)[0] == 35_328 + 24 * P + out
+    assert measure.k3_work(N, M, 6) == (4 * N + M * 24 + 32 * N, 0.0)
+    assert measure.k4_work(N, G) == (rows + 8192, 25.0 * N)
+    # the operations bound takes over when the flops outweigh the bytes
+    assert measure.bound_ms((3.35e9, 67e9)) == (1.0, "bytes")
+    assert measure.bound_ms((3.35e9, 134e9)) == (2.0, "operations")
+
+
 def test_read_floor_plain_matches_pallas_interpret(monkeypatch):
     pp, _, _ = _packed_case(P=256, seed=1)
     rng = np.random.default_rng(2)
@@ -169,3 +207,21 @@ def test_roofline_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         measure.roofline(pp, None, None, xc, xg)
     assert measure.STAGES == ("dma", "rowmath", "pointred", "gather", "full")
+
+
+@pytest.mark.parametrize("fn", [measure.device_profile, measure.device_ms])
+def test_device_time_refuses_a_cpu_run(fn):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(lambda: None)
+
+
+@pytest.mark.parametrize("P", [64, 128])
+def test_read_floor_is_one_sum_over_the_padded_prefix(P):
+    """The one PyTorch call timed beside K4: the lean prefix with its zero
+    pad rows, viewed [6, 8, N / 128, 128] and summed over dims 0 and 2, is
+    the fold of `read_floor_plain`."""
+    pp, _, _ = _packed_case(P=P)
+    N = pp.num_points * pp.views
+    one_call = pp.packed[:48].view(6, 8, N // 128, 128).sum(dim=(0, 2))
+    ref = TK.read_floor_plain(pp, torch.zeros((8, 128)))
+    torch.testing.assert_close(one_call, ref, rtol=0, atol=1e-5)
