@@ -14,6 +14,10 @@ Layout mirrors the JAX package so every counterpart is easy to find:
     parallel/rcs.py    RCSProblem, block layout, preconditioner, PCG
     parallel/kernels.py packed-row contract + kernel wrappers (K1-K3)
     parallel/lm.py     the f32 LM phase (damping schedule, stop rule)
+    parallel/freenet.py scale bars, inner-constraint datum, direct groups
+    parallel/solver.py the LM loop `solve` (gain schedule, events)
+    parallel/hilo.py, refine.py  two-float state, mixed-precision refiner
+    parallel/cov_direct.py       dense posterior covariance
     synthetic.py       the synthetic scale network (same draws as bench.py)
     convert.py         host arrays -> tensors on a device
 

@@ -18,20 +18,24 @@ from .parallel.rcs import RCSProblem
 _INDEX_FIELDS = ("obs_point", "obs_image", "img_perm", "img_block_starts")
 _FLOAT_FIELDS = ("obs_xy", "obs_weight", "r0", "free_point", "free_eo",
                  "free_global")
-# fields of the JAX RCSProblem the port's slice does not take yet
-_UNSUPPORTED = ("point2obs", "img2obs", "sb_a", "datum_mask_d",
-                "defect_flags_d", "dp_w", "de_w", "dg_w", "dpg_idx")
+# optional fields (None = absent): scale bars, Helmert datum, direct
+# observations (see parallel/rcs.RCSProblem)
+_OPT_INDEX_FIELDS = ("sb_a", "sb_b", "dpg_idx", "dpg_axis")
+_OPT_FLOAT_FIELDS = ("sb_length", "sb_weight", "datum_mask_d", "dp_w",
+                     "dp_val", "de_w", "de_val", "dg_w", "dg_val", "dpg_val",
+                     "dpg_cov")
+# fields of the JAX RCSProblem the port does not take: the dense
+# visibility tables of the block-layout engine
+_UNSUPPORTED = ("point2obs", "img2obs")
 
 
 def refuse_unsupported(problem) -> None:
-    """Raise NotImplementedError for a problem with more than one camera,
-    scale bars, a Helmert datum or direct observations."""
+    """Raise NotImplementedError for a problem with more than one camera
+    or with the block-layout engine's visibility tables."""
     if tuple(problem.r0.shape) != (1,):
         raise NotImplementedError("the port takes single-camera problems")
     for name in _UNSUPPORTED:
-        val = getattr(problem, name, None)
-        if val is not None and not (name == "defect_flags_d"
-                                    and not any(val)):
+        if getattr(problem, name, None) is not None:
             raise NotImplementedError(
                 f"RCSProblem.{name} is not supported by the port yet")
 
@@ -47,11 +51,20 @@ def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
         return torch.as_tensor(np.array(a, np.float64), device=device,
                                dtype=dtype)
 
+    def opt(conv, name):
+        a = getattr(problem, name, None)
+        return None if a is None else conv(a)
+
     fields = {n: idx(getattr(problem, n)) for n in _INDEX_FIELDS}
     fields.update({n: flt(getattr(problem, n)) for n in _FLOAT_FIELDS})
+    fields.update({n: opt(idx, n) for n in _OPT_INDEX_FIELDS})
+    fields.update({n: opt(flt, n) for n in _OPT_FLOAT_FIELDS})
+    flags = getattr(problem, "defect_flags_d", None)
     return RCSProblem(num_points=int(problem.num_points),
                       num_images=int(problem.num_images),
-                      point_uniform=problem.point_uniform, **fields)
+                      point_uniform=problem.point_uniform,
+                      defect_flags_d=None if flags is None
+                      else tuple(bool(f) for f in flags), **fields)
 
 
 def state_to_torch(state, device, dtype=torch.float32) -> ParamState:

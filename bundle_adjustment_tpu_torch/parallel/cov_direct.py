@@ -24,7 +24,10 @@ camera-major by indexed adds, the corrections are pair blocks (see
 Every function takes the feature-major `engine.FMProblem` in the uniform
 point-major layout (observation n = point * V + view): the chunked passes
 slice observations by point.  Single camera only (`linearize` refuses
-more), no direct observations (`convert` refuses them).
+more).  Diagonal direct observations enter through the lineariser (Hpp,
+extra_g) and extra_c; scale bars, an inner-constraint datum and populated
+direct groups (`FMProblem.has_extras`) have no branch here, as in the JAX
+module, and are refused.
 
 Dtype: run it in f64.  At 100k points the Jacobi-scaled S has a condition
 number ~1e8, and the S assembled in f32 is indefinite (`PERF.md`).
@@ -125,6 +128,10 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
     `assemble_reduced_corrections`).
     Camera-major rows: (image m, component e) -> 6m + e, globals last.
     The per-image sums are the deterministic `engine._image_sum_stack`."""
+    if p.has_extras:
+        raise NotImplementedError(
+            "cov_direct has no branch for scale bars, an inner-constraint "
+            "datum or a populated direct group")
     M, G2 = p.num_images, len(b.Jg) // 2
     K = 6 * M
     dt, dev = b.Jp[0].dtype, b.Jp[0].device
@@ -143,9 +150,11 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
     Hcg = red[:, 21:].reshape(K, G2)
 
     # extra_c as engine.finish_reduction: damping on the diagonal, unit
-    # rows for fixed EO
+    # rows for fixed EO, the weights of directly observed EO
     extra_c = damping * torch.diagonal(Hcc, dim1=1, dim2=2) \
         + (1.0 - p.free_eo)
+    if p.de_w is not None:
+        extra_c = extra_c + p.de_w * p.free_eo * (1.0 + damping)
     Hcc = Hcc + torch.diag_embed(extra_c)
 
     T2 = torch.stack(b.Jg) @ torch.stack(b.PJg).T         # [2G, 2G]

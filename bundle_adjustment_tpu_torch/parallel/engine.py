@@ -12,7 +12,11 @@ Every per-observation quantity is a feature row of length N.  Reductions:
 ``lm_step(use_kernels=True)`` runs the hand-written CUDA kernels of
 `kernels.py` for CUDA tensors (K3 camera gather, K2 fused assembly, K1
 Schur matvec); for CPU tensors the same wrappers take their plain
-PyTorch versions.
+PyTorch versions.  `lm_step_full` is the same step for a free network:
+scale bars, the inner-constraint datum and populated direct groups enter
+as low-rank corrections around those kernels (`freenet.py`), diagonal
+direct observations through the kernels' inputs (Hpp^{-1}, extra_c,
+extra_g).
 """
 
 from __future__ import annotations
@@ -52,6 +56,17 @@ class FMProblem(NamedTuple):
     # img_block_valid[b] observations (a prefix; the rest is padding)
     img_pos: torch.Tensor | None = None          # [N] int32
     img_block_valid: torch.Tensor | None = None  # [Nip / 512] int32
+    # directly observed parameters with diagonal weights (rcs.RCSProblem);
+    # indexed by point, image and global id, not by lane
+    dp_w: torch.Tensor | None = None    # [P, 3]
+    dp_val: torch.Tensor | None = None  # [P, 3]
+    de_w: torch.Tensor | None = None    # [M, 6]
+    de_val: torch.Tensor | None = None  # [M, 6]
+    dg_w: torch.Tensor | None = None    # [G]
+    dg_val: torch.Tensor | None = None  # [G]
+    # the RCSProblem's has_extras (scale bars, inner constraints or a
+    # populated direct group): the rows here do not carry those
+    has_extras: bool = False
 
 
 class FMBlocks(NamedTuple):
@@ -112,6 +127,8 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
         free_eo=p.free_eo, free_global=p.free_global,
         img_perm=p.img_perm, img_block_starts=p.img_block_starts,
         img_pos=img_pos, img_block_valid=img_block_valid,
+        dp_w=p.dp_w, dp_val=p.dp_val, de_w=p.de_w, de_val=p.de_val,
+        dg_w=p.dg_w, dg_val=p.dg_val, has_extras=p.has_extras,
     )
 
 
@@ -122,7 +139,9 @@ def pad_problem(problem: rcs.RCSProblem, state: ParamState,
 
     Dummy points copy point 0's coordinates (finite geometry, so their
     rows are finite; zero weights null every contribution) and are marked
-    fixed, so Hpp gets a unit diagonal and dx stays 0.
+    fixed, so Hpp gets a unit diagonal and dx stays 0.  A dummy point is
+    neither directly observed nor a datum point (zero dp_w / dp_val /
+    datum_mask_d rows).
     Returns (padded RCSProblem, padded ParamState, P_original)."""
     P = problem.num_points
     V = problem.point_uniform
@@ -148,7 +167,16 @@ def pad_problem(problem: rcs.RCSProblem, state: ParamState,
                             torch.zeros((extra, 3), dtype=dt, device=dev)])
     img_perm, img_bs = rcs.build_image_block_layout(
         obs_image.cpu().numpy(), problem.num_images)
+    extra_fields = {}
+    if problem.dp_w is not None:
+        zeros = torch.zeros((extra, 3), dtype=dt, device=dev)
+        extra_fields["dp_w"] = torch.cat([problem.dp_w, zeros])
+        extra_fields["dp_val"] = torch.cat([problem.dp_val, zeros])
+    if problem.datum_mask_d is not None:
+        extra_fields["datum_mask_d"] = torch.cat(
+            [problem.datum_mask_d, torch.zeros(extra, dtype=dt, device=dev)])
     problem = problem._replace(
+        **extra_fields,
         obs_point=obs_point, obs_image=obs_image, obs_xy=obs_xy,
         obs_weight=obs_weight, free_point=free_point, num_points=P_pad,
         img_perm=torch.as_tensor(img_perm, device=dev),
@@ -261,6 +289,11 @@ def _hinv_apply(H, a0, a1, a2):
 # linearisation
 # ---------------------------------------------------------------------------
 
+def _global_vector(state: ParamState):
+    """The global parameters [G] = per camera (io, dist), flattened."""
+    return torch.cat([state.io, state.dist], dim=1).reshape(-1)
+
+
 def _gather_rows(p: FMProblem, tbl, ncols, cam_gather=None):
     """tbl [M, c] -> ``ncols`` rows [N] of tbl[obs_image]."""
     if cam_gather is not None:
@@ -345,8 +378,21 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     e0 = damping * m00 + (1.0 - fpc[0])
     e1 = damping * m11 + (1.0 - fpc[1])
     e2 = damping * m22 + (1.0 - fpc[2])
-    bp = tuple(_point_sum(p, Jp[a] * Pw[0] + Jp[3 + a] * Pw[1])
-               for a in range(3))
+    bp = [_point_sum(p, Jp[a] * Pw[0] + Jp[3 + a] * Pw[1])
+          for a in range(3)]
+    # directly observed point coordinates and EO, diagonal weights
+    if p.dp_w is not None:
+        w_dp = p.dp_val - pts
+        for a in range(3):
+            bp[a] = bp[a] + p.dp_w[:, a] * fpc[a] * w_dp[:, a]
+        e0 = e0 + p.dp_w[:, 0] * fpc[0] * (1.0 + damping)
+        e1 = e1 + p.dp_w[:, 1] * fpc[1] * (1.0 + damping)
+        e2 = e2 + p.dp_w[:, 2] * fpc[2] * (1.0 + damping)
+        omega0 = omega0 + torch.sum(p.dp_w * w_dp * w_dp)
+    if p.de_w is not None:
+        w_de = p.de_val - state.eo
+        omega0 = omega0 + torch.sum(p.de_w * w_de * w_de)
+    bp = tuple(bp)
     Hpp_inv = _sym3_inverse(m00 + e0, m01, m02, m11 + e1, m12, m22 + e2)
 
     Hgg_diag = torch.stack([torch.sum(Jg[g] * PJg[g] + Jg[G + g] * PJg[G + g])
@@ -354,6 +400,12 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     bg = torch.stack([torch.sum(Jg[g] * Pw[0] + Jg[G + g] * Pw[1])
                       for g in range(G)])
     extra_g = damping * Hgg_diag + (1.0 - fg)
+    if p.dg_w is not None:
+        w_dg = p.dg_val - _global_vector(state)
+        wg = p.dg_w * fg
+        extra_g = extra_g + wg * (1.0 + damping)
+        bg = bg + wg * w_dg
+        omega0 = omega0 + torch.sum(p.dg_w * w_dg * w_dg)
     return FMBlocks(Jp=Jp, PJp=PJp, Jc=Jc, PJc=PJc, Jg=Jg, PJg=PJg,
                     w=(w0, w1), Pw=Pw, Hpp_inv=Hpp_inv, bp=bp,
                     bc=None, bg=bg, extra_c=None, extra_g=extra_g,
@@ -482,6 +534,10 @@ def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
     m_rows = red.shape[0]
     bc = red[:, :6]
     extra_c = damping * red[:, 6:12] + (1.0 - p.free_eo)
+    if p.de_w is not None:
+        we = p.de_w * p.free_eo
+        bc = bc + we * (p.de_val - state.eo)
+        extra_c = extra_c + we * (1.0 + damping)
     rc = bc - red[:, 12:18]
     tri = red[:, 18:39]
     iu = np.triu_indices(6)
@@ -539,23 +595,25 @@ def omega_at(p: FMProblem, b: FMBlocks, dxp, dxc, dxg):
 class PointOps(NamedTuple):
     """Point-block closures of one linearisation (feature-major)."""
 
-    hinv: object     # v [P, 3] -> Hpp^{-1} v [P, 3]
+    hinv: object     # v [..., P, 3] -> Hpp^{-1} v [..., P, 3]
     hinv_at: object  # idx [k] -> Hpp^{-1} blocks [k, 3, 3]
     hxp: object      # v [P, 3] -> (Hcp v [M, 6], Hgp v [G])
     hpx: object      # (xc [M, 6], xg [G]) -> Hpx x [P, 3]
 
 
-def point_ops(p: FMProblem, b: FMBlocks) -> PointOps:
-    """The single-camera point-block products the mixed-precision
-    refinement needs (port of the JAX `engine.point_ops`; its multi-camera
-    branch is not ported, as `linearize` refuses such problems).  Hpp^{-1}
-    is held per point in point order (`_point_sum` gives that order in
-    either layout), so ``hinv`` / ``hinv_at`` take point-indexed
-    arguments."""
+def point_ops(p: FMProblem, b: FMBlocks, cam_gather=None) -> PointOps:
+    """The single-camera point-block products that the mixed-precision
+    refinement and `freenet` need (port of the JAX `engine.point_ops`; its
+    multi-camera branch is not ported, as `linearize` refuses such
+    problems).  Every [P, 3] argument and result is indexed by point id in
+    either lane layout: `_point_sum` and `_point_expand` map between point
+    ids and lanes, and Hpp^{-1} is held per point id.  ``hinv`` also takes
+    a leading batch axis.  ``cam_gather``: the K3 wrapper for the camera
+    rows of ``hpx``."""
 
     def hinv(v):
-        return torch.stack(_hinv_apply(b.Hpp_inv, v[:, 0], v[:, 1], v[:, 2]),
-                           dim=1)
+        return torch.stack(_hinv_apply(b.Hpp_inv, v[..., 0], v[..., 1],
+                                       v[..., 2]), dim=-1)
 
     def hinv_at(idx):
         h = [r[idx] for r in b.Hpp_inv]  # 6 sym rows at selected points
@@ -576,12 +634,80 @@ def point_ops(p: FMProblem, b: FMBlocks) -> PointOps:
         return oc, og
 
     def hpx(xc, xg):
-        t = _t_rows(p, b, xc, xg)
+        t = _t_rows(p, b, xc, xg, cam_gather)
         return torch.stack(
             [_point_sum(p, b.Jp[a] * t[0] + b.Jp[3 + a] * t[1])
              for a in range(3)], dim=1)
 
     return PointOps(hinv=hinv, hinv_at=hinv_at, hxp=hxp, hpx=hpx)
+
+
+def omega_at_full(p: FMProblem, rp: rcs.RCSProblem, b: FMBlocks, ext,
+                  dxp, dxc, dxg, state: ParamState):
+    """Omega(dx) including the scale-bar, direct-group (``ext``, a
+    `freenet.Extras` or None) and diagonal direct-observation rows.
+    ``rp`` is the RCSProblem that ``p`` was made from."""
+    from . import freenet
+
+    om = omega_at(p, b, dxp, dxc, dxg)
+    if ext is not None:
+        om = om + freenet.omega_extras(rp, ext, dxp)
+    if p.dp_w is not None:
+        v = (p.dp_val - state.points) - dxp
+        om = om + torch.sum(p.dp_w * v * v)
+    if p.de_w is not None:
+        v = (p.de_val - state.eo) - dxc
+        om = om + torch.sum(p.de_w * v * v)
+    if p.dg_w is not None:
+        v = (p.dg_val - _global_vector(state)) - dxg
+        om = om + torch.sum(p.dg_w * v * v)
+    return om
+
+
+def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
+                 damping, cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
+                 couple_global=True, state_lo: ParamState | None = None,
+                 stall_limit=None):
+    """`lm_step` extended with scale bars, the inner-constraint datum and
+    populated direct groups: the exact low-rank corrections of
+    `freenet` folded around the same assembly, matvec and
+    back-substitution.  ``rp`` is the RCSProblem that ``p`` was made from
+    (it carries the sb_* / datum / dpg_* fields).  A problem without such
+    extras takes the `lm_step` route.
+    Returns (dxp, dxc, dxg, blocks, cg_iterations, Extras or None)."""
+    from . import freenet
+
+    if not rp.has_extras:
+        return (*lm_step(p, state, spec, damping, cg_tol=cg_tol,
+                         cg_maxiter=cg_maxiter, use_kernels=use_kernels,
+                         couple_global=couple_global, state_lo=state_lo,
+                         stall_limit=stall_limit), None)
+    cgf = None
+    if use_kernels:
+        from . import kernels
+
+        cgf = kernels.make_cam_gather(p)
+        b, rc, rg, Minv, pp = kernels.prepare_kernels(
+            p, state, spec, damping, couple_global=couple_global,
+            state_lo=state_lo, cam_gather=cgf)
+        base = kernels.make_matvec(pp, b.extra_c, b.extra_g)
+    else:
+        b, rc, rg, Minv = prepare(p, state, spec, damping,
+                                  couple_global=couple_global,
+                                  state_lo=state_lo)
+
+        def base(c, g):
+            return schur_matvec(p, b, c, g)
+    ops = point_ops(p, b, cam_gather=cgf)
+    ext = freenet.prepare_extras(rp, state, torch.stack(b.bp, dim=1), rc, rg,
+                                 ops, b.omega0)
+    b = b._replace(omega0=ext.omega0)
+    xc, xg, it = rcs.pcg(
+        ext.rc, ext.rg, freenet.wrap_precond(rcs.make_apply_M(Minv), ext),
+        freenet.wrap_matvec(base, ext), tol=cg_tol, maxiter=cg_maxiter,
+        stall_limit=stall_limit)
+    dxp, _lam = freenet.back_substitute(rp, ext, ops, xc, xg)
+    return dxp, xc, xg, b, it, ext
 
 
 def lm_step(p: FMProblem, state: ParamState, spec, damping,

@@ -482,14 +482,25 @@ def prepare_kernels(p, state, spec, damping, couple_global: bool = True,
     through ``cam_gather``), pack once, fused assembly through K2, finish
     in PyTorch.  Returns (blocks, rc, rg, Precond, PackedFM); the PackedFM
     feeds `make_matvec`, so the LM step packs exactly once.  ``p`` must be
-    view-major."""
+    view-major.  Diagonal direct observations reach K2 through its inputs
+    (Hpp^{-1} in the rows' point blocks) and `finish_reduction` (extra_c,
+    bc, bg); only the point rhs of directly observed points is eliminated
+    outside the kernel."""
     b = engine.linearize(p, state, spec, damping, state_lo=state_lo,
                          cam_gather=cam_gather)
     pp = pack_fm(b, p, dtype=b.Jp[0].dtype, with_pw=True)
     red, rg_corr, T2, T3 = prepare_reduction(pp)
-    out = engine.finish_reduction(p, b, state, damping, red, rg_corr, T2, T3,
-                                  couple_global)
-    return (*out, pp)
+    b, rc, rg, Minv = engine.finish_reduction(p, b, state, damping, red,
+                                              rg_corr, T2, T3, couple_global)
+    if p.dp_w is not None:
+        # K2 eliminates the point rhs it sums from its rows (Jp^T P w);
+        # the share of directly observed points in bp is not in the rows,
+        # so its elimination Hxp Hpp^{-1} (bp - Jp^T P w) follows here
+        ops = engine.point_ops(p, b)
+        dc, dg = ops.hxp(ops.hinv(
+            p.dp_w * p.free_point.T * (p.dp_val - state.points)))
+        rc, rg = rc - dc, rg - dg
+    return b, rc, rg, Minv, pp
 
 
 # ---------------------------------------------------------------------------

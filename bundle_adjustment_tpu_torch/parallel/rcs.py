@@ -45,6 +45,41 @@ class RCSProblem(NamedTuple):
     img_block_starts: object = None  # [M+1] int32 (block units)
     # uniform views per point in point-major order (static int)
     point_uniform: int | None = None
+    # ---- free-network extensions (parallel/freenet.py) ----
+    # scale bars: rank-1 rows over two points, folded into the reduced
+    # system by Woodbury
+    sb_a: object = None       # [S] int32
+    sb_b: object = None       # [S] int32
+    sb_length: object = None  # [S]
+    sb_weight: object = None  # [S] sigma0^2 / sigma_s^2
+    # Helmert inner constraints
+    datum_mask_d: object = None          # [P] 1.0 = datum point
+    defect_flags_d: tuple | None = None  # 7 bools (tx ty tz rx ry rz s)
+    # directly observed parameters with diagonal weights; weight 0 = not
+    # observed
+    dp_w: object = None    # [P, 3]
+    dp_val: object = None  # [P, 3]
+    de_w: object = None    # [M, 6]
+    de_val: object = None  # [M, 6]
+    dg_w: object = None    # [G]
+    dg_val: object = None  # [G]
+    # directly observed point coordinates with a fully populated
+    # dispersion: n coordinates (point, axis) with the cofactor block
+    # dpg_cov = Sigma / sigma0^2 = W^{-1}, folded as exact low-rank rows
+    dpg_idx: object = None   # [n] int32 point ids
+    dpg_axis: object = None  # [n] int32 axis (0/1/2)
+    dpg_val: object = None   # [n] observed values
+    dpg_cov: object = None   # [n, n]
+
+    @property
+    def has_extras(self) -> bool:
+        """Scale bars, inner constraints or a populated direct group
+        present (the `engine.lm_step_full` route)."""
+        return ((self.sb_a is not None and int(self.sb_a.shape[0]) > 0)
+                or (self.defect_flags_d is not None
+                    and any(self.defect_flags_d))
+                or (self.dpg_idx is not None
+                    and int(self.dpg_idx.shape[0]) > 0))
 
 
 #: block size of the image-sorted blocked reduction
@@ -100,7 +135,11 @@ def finish_coupling(Minv: Precond, Scg, Sgg) -> Precond:
 
 def make_apply_M(Minv: Precond):
     """Preconditioner apply (zc, zg) = M^{-1} (rc, rg) of a `Precond`:
-    the exact coupled form when it carries Scg, else block-diagonal."""
+    the exact coupled form when it carries Scg, else block-diagonal.  An
+    apply that is already a callable (`freenet.wrap_precond`) passes
+    through."""
+    if callable(Minv):
+        return Minv
     if Minv.Scg is not None:
         def apply_M(rc_, rg_):
             u = torch.einsum("mab,mb->ma", Minv.Minv_c, rc_)
@@ -118,7 +157,8 @@ def make_apply_M(Minv: Precond):
 def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None):
     """Preconditioned CG on the implicit reduced system.
 
-    ``matvec(xc, xg) -> (Sc, Sg)`` is the implicit Schur product.
+    ``matvec(xc, xg) -> (Sc, Sg)`` is the implicit Schur product;
+    ``Minv`` a `Precond` or a callable apply (rc, rg) -> (zc, zg).
     Returns the best-residual iterate (long f32 runs can wander past the
     rounding floor) and the iteration count.  ``stall_limit``: stop once
     no iteration in a window of this many improves the best residual by

@@ -1,7 +1,7 @@
 """Mixed-precision refinement: f64 gradient + hi/lo state + f32 solve.
 
-Port of `bundle_adjustment_tpu/parallel/refine.py` (single camera, no
-extras) and of the time-to-converged loop of `bench.py` (`converge`).
+Port of `bundle_adjustment_tpu/parallel/refine.py` (single camera) and of
+the time-to-converged loop of `bench.py` (`converge`).
 
 The f32 LM phase floors at max|dx| ~ 1e-3 because the gradient
 g = J^T P w is a massively cancelling reduction: near the optimum it is
@@ -34,7 +34,7 @@ import torch
 
 from .. import convert
 from ..models.problem import ParamState
-from . import engine, hilo, rcs
+from . import engine, freenet, hilo, rcs
 
 
 def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
@@ -49,6 +49,13 @@ def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
 
 class Refiner:
     """Engine-path (feature-major) mixed-precision refiner.
+
+    Takes the extras of the scale path: scale bars, the Helmert
+    inner-constraint datum and populated direct groups (the low-rank
+    corrections of `freenet`, their coefficients in f32, the cancelling
+    bar and group misclosures from the f64 pass) and diagonal direct
+    observations (folded by the f64 lineariser; the EO term of the camera
+    rhs is added in `gradient64`).
 
     Usage:
         r = Refiner(problem32, spec, use_kernels=True)
@@ -70,6 +77,7 @@ class Refiner:
     def __init__(self, problem32: rcs.RCSProblem, spec,
                  use_kernels: bool = False):
         convert.refuse_unsupported(problem32)
+        self.problem32 = problem32
         self.spec = spec
         self.use_kernels = use_kernels
         self.fmp32 = engine.fm_problem(problem32)
@@ -79,22 +87,45 @@ class Refiner:
             self.fmp32 = engine.to_view_major(
                 self.fmp32, kernels.choose_pb(self.fmp32.num_points,
                                               self.fmp32.views))
-        self.fmp64 = engine.fm_problem(upcast_problem(problem32))
+        # the f64 problem also holds the bar and group geometry of the f64
+        # misclosures (tiny)
+        self.problem64 = upcast_problem(problem32)
+        self.fmp64 = engine.fm_problem(self.problem64)
 
     def gradient64(self, fmp64, state64: ParamState):
-        """(bp [P, 3], bc [M, 6], bg [G], omega0) in f64: the full-space
-        gradient blocks J^T P w and Omega at ``state64``, the only f64
-        pass."""
+        """(bp [P, 3], bc [M, 6], bg [G], omega0, wsb [R], wdpg [n]) in
+        f64, the only f64 pass: the full-space gradient blocks J^T P w at
+        ``state64`` incl. the diagonal direct observations (`linearize`
+        folds dp / dg; the de camera term is added here), Omega incl. the
+        bar and group rows, and the misclosures of the scale bars and of
+        the populated direct group (empty without them)."""
+        p64 = self.problem64
         b = engine.linearize(fmp64, state64, self.spec, 0.0)
         bc = engine._image_sum_stack(
             fmp64,
             [b.Jc[a] * b.Pw[0] + b.Jc[6 + a] * b.Pw[1] for a in range(6)])
-        out = torch.stack(b.bp, dim=1), bc, b.bg, b.omega0
+        if fmp64.de_w is not None:
+            bc = bc + fmp64.de_w * fmp64.free_eo * (fmp64.de_val - state64.eo)
+        omega0 = b.omega0
+        wsb = wdpg = state64.points.new_zeros((0,))
+        if freenet.has_rows(p64.sb_a):
+            dvec = state64.points[p64.sb_b.long()] \
+                - state64.points[p64.sb_a.long()]
+            wsb = p64.sb_length - torch.sqrt(torch.sum(dvec * dvec, dim=1))
+            omega0 = omega0 + torch.sum(p64.sb_weight * wsb * wsb)
+        if freenet.has_rows(p64.dpg_idx):
+            cur = torch.gather(state64.points[p64.dpg_idx.long()], 1,
+                               p64.dpg_axis.long()[:, None])[:, 0]
+            wdpg = p64.dpg_val - cur
+            omega0 = omega0 + torch.dot(
+                wdpg, freenet.solve_vec(p64.dpg_cov, wdpg))
+        out = torch.stack(b.bp, dim=1), bc, b.bg, omega0, wsb, wdpg
         del b  # the f64 rows (~80 per observation) go before the f32 step
         return out
 
     def _step_impl(self, s: hilo.HiLoState, damping, bp32, bc32, bg32,
-                   cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
+                   wsb32, wdpg32, cg_tol=1e-7, cg_maxiter=400,
+                   stall_limit=200):
         p32 = self.fmp32
         cam_gather = None
         if self.use_kernels:
@@ -108,7 +139,7 @@ class Refiner:
             b, _rc, _rg, Minv = engine.prepare(p32, s.hi, self.spec, damping,
                                                couple_global=True,
                                                state_lo=s.lo)
-        ops = engine.point_ops(p32, b)
+        ops = engine.point_ops(p32, b, cam_gather=cam_gather)
         z0 = ops.hinv(bp32)
         dc, dg = ops.hxp(z0)
         rc = bc32 - dc
@@ -121,10 +152,25 @@ class Refiner:
         else:
             def matvec(c, g):
                 return engine.schur_matvec(p32, b, c, g)
+        ext = None
+        if self.problem32.has_extras:
+            # the exact low-rank corrections around the f64 gradient: the
+            # coefficients (U, B, Cap, Bb) in f32 from the current hi
+            # state, the cancelling misclosures from the f64 pass
+            ext = freenet.prepare_extras(
+                self.problem32, s.hi, bp32, rc, rg, ops, 0.0,
+                sb_misclosure=wsb32, dpg_misclosure=wdpg32)
+            rc, rg = ext.rc, ext.rg
+            matvec = freenet.wrap_matvec(matvec, ext)
+            Minv = freenet.wrap_precond(rcs.make_apply_M(Minv), ext)
         xc, xg, it = rcs.pcg(rc, rg, Minv, matvec, tol=cg_tol,
                              maxiter=cg_maxiter, stall_limit=stall_limit)
-        dxp = engine.back_substitute_points(p32, b, xc, xg,
-                                            cam_gather=cam_gather)
+        if ext is not None:
+            dxp, _lam = freenet.back_substitute(self.problem32, ext, ops,
+                                                xc, xg)
+        else:
+            dxp = engine.back_substitute_points(p32, b, xc, xg,
+                                                cam_gather=cam_gather)
         new_s, max_dx = hilo.apply_step(s, dxp, xc, xg)
         return new_s, max_dx, it
 
@@ -132,11 +178,12 @@ class Refiner:
              cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
         """One refinement step from ``s``: returns (HiLoState, max|dx| 0-d
         tensor, f64 Omega at ``s``, CG iterations)."""
-        bp64, bc64, bg64, omega0 = self.gradient64(self.fmp64, hilo.to_f64(s))
+        bp64, bc64, bg64, omega0, wsb, wdpg = self.gradient64(
+            self.fmp64, hilo.to_f64(s))
         f32 = torch.float32
         new_s, max_dx, it = self._step_impl(
             s, damping, bp64.to(f32), bc64.to(f32), bg64.to(f32),
-            cg_tol=cg_tol, cg_maxiter=cg_maxiter, stall_limit=stall_limit)
+            wsb.to(f32), wdpg.to(f32), cg_tol=cg_tol, cg_maxiter=cg_maxiter, stall_limit=stall_limit)
         return new_s, max_dx, omega0, it
 
     def refine(self, state32: ParamState, tolerance: float = 1e-6,

@@ -34,7 +34,8 @@ Phases (any failed check exits non-zero, before the result line):
      (parallel/refine.py `converge`: cg_tol 1e-12, cg_maxiter 800,
      stall_limit 300, at most 15 steps) through K1-K3, the f64 gradient in
      plain PyTorch on the GPU, run twice: with the bench's damping 1e-7,
-     recorded, and undamped, which must reach max|dx| <= 1e-6 (at this
+     recorded over its first 5 steps, and undamped, which must reach
+     max|dx| <= 1e-6 (at this
      size the bench's damping limits the contraction to ~2/3 per step, see
      refine.py).  For each run the launch counters are reset before and
      read after, each > 0; the f64 Omega of the refinement's own objective
@@ -76,8 +77,39 @@ Phases (any failed check exits non-zero, before the result line):
      events; the stage split (linearise / assemble base / corrections /
      inverse / recovery) comes from 3 stage-by-stage runs, and the
      row-gather recovery of all points is timed beside the dense one.
+  8. the free network (parallel/freenet.py, solver.py, refine.py with
+     extras) at the same size: phase 2's problem re-dressed by
+     synthetic.free_network (every coordinate of the 100,000 true points
+     free, 8 scale bars of weight 1e6 at the true distance + N(0, 5e-7^2),
+     the six-defect inner-constraint datum over all true points).  First
+     one LM step at the start state (damping 1e-2, cg_tol 1e-7), f32
+     through K3 / K2 / K1 against the plain path on the card and both
+     against the plain f64 step on the f32-rounded problem: an f32 step
+     lies ~1e-3 (scaled) from the f64 step, its rounding amplified by the
+     solve, so dxp, dxc, dxg of the kernels must lie within that distance
+     of the plain f32 step's (or within 2e-4, the kernels' own tolerance,
+     if that is larger), and no further than twice that distance from the
+     f64 step; run twice: equal bits.  The same
+     for a second problem with a 30-row populated direct group and
+     diagonal dp / de / dg observations on the fixed-coordinate datum
+     (d = 0).  Then, with the counters reset, `solver.solve` (f32,
+     damping 1e-2, through the kernels by default; its tolerance is the
+     f32 floor 1e-3, since the dtype-scaled default 3.45e-4 lies under the
+     floor of an f32 step here) and `refine.converge` with extras, undamped
+     (the gate: max|dx| <= 1e-6) and with the Refiner's default damping
+     1e-8 (recorded).  Gates: K1, K2 and K3 launched; sigma0 =
+     sqrt(Omega / dof) within 1% of 5e-4 with dof = 2 N_true - (3 P_true +
+     6 M + G) + d + bars; the f64 Omega at the refined state not above the
+     f32 phase's end; every bar's refined length within 5 sigma (2.5e-6)
+     of its observed length; one more f32 step at the f32 phase's end:
+     max|B dxp| <= 1e-6 max|dxp| (the sums in f64).  Recorded: steps,
+     accepted / rejected, CG iterations per step, seconds of both parts,
+     the set-up time of the extras per step (prepare_extras +
+     wrap_precond, CUDA events), and the launches and device time of one
+     CG iteration with and without the extras (torch.profiler, 16 against
+     8 iterations).
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6 and 7, each between a reset and a read of the counters;
+phases 3, 5, 6, 7 and 8, each between a reset and a read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -123,6 +155,16 @@ COV_RESIDUAL_TOL = 1e-8  # Jacobi-scaled max|D^-1 S Q D - I|, f64
 COV_BLOCK_TOL = 1e-6     # point block vs another route, of its largest entry
 COV_REPS = 3             # warm covariance calls timed after a cold one
 PROFILE_REFINEMENT = "--profile-refinement"
+BENCH_DAMPED_STEPS = 5   # steps of the recorded bench-damped refinement
+FREE_BARS = 8            # scale bars of phase 8's free network
+BAR_SIGMA = 5e-7         # their noise: SIGMA / sqrt(weight 1e6)
+FREE_DEFECTS = 6         # its datum defect: 3 translations, 3 rotations
+GROUP_ROWS = 30          # rows of the populated group of the second problem
+F32_STOP = 1e-3          # max|dx| at which the f32 `solve` hands over
+BDX_TOL = 1e-6           # max|B dxp| of an f32 step, of max|dxp|
+# refinement damping of the free network: the gate, and the one recorded
+FREE_REFINE_DAMPING = {"undamped": 0.0, "refiner_default": 1e-8}
+FREE_REFINE_GATE = "undamped"
 
 
 def fail(msg: str):
@@ -484,6 +526,223 @@ def covariance_phase(prob, st, spec, dev):
                 cov_repeat_err=repeat_err, cov_f32=out32), k3
 
 
+def free_network_phase(prob_h, state_h, spec, dev):
+    """Phase 8 (see the module docstring).  Returns (summary dict, the
+    launch counts of `solve` + the gated refinement)."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, measure, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (engine, freenet, hilo,
+                                                      kernels, lm, rcs,
+                                                      refine, solver)
+
+    f32 = torch.float32
+    state0 = convert.state_to_torch(state_h, dev, f32)
+    state0_64 = type(state0)(*(a.double() for a in state0))
+
+    def layouts(prob):
+        fmp = engine.fm_problem(prob)
+        return fmp, engine.to_view_major(
+            fmp, kernels.choose_pb(fmp.num_points, fmp.views))
+
+    def one_step(label, net_h):
+        """One LM step at the start state: f32 kernels against f32 plain,
+        and both against the plain f64 step on the same (f32-rounded)
+        problem."""
+        prob = convert.problem_to_torch(net_h, dev, f32)
+        fmp, fv = layouts(prob)
+        kw = dict(cg_tol=1e-7, cg_maxiter=200, stall_limit=50)
+        k = engine.lm_step_full(fv, prob, state0, spec, 1e-2,
+                                use_kernels=True, **kw)
+        again = engine.lm_step_full(fv, prob, state0, spec, 1e-2,
+                                    use_kernels=True, **kw)
+        same = all(torch.equal(a, c) for a, c in zip(k[:3], again[:3]))
+        del again
+        pl = engine.lm_step_full(fmp, prob, state0, spec, 1e-2, **kw)
+        prob64 = refine.upcast_problem(prob)
+        r = engine.lm_step_full(engine.fm_problem(prob64), prob64, state0_64,
+                                spec, 1e-2, cg_tol=1e-12, cg_maxiter=400)
+        names = ("dxp", "dxc", "dxg")
+        e_kp = {n: scaled_err(a, c) for n, a, c in zip(names, k, pl)}
+        e_k64 = {n: scaled_err(a.double(), c) for n, a, c in zip(names, k, r)}
+        e_p64 = {n: scaled_err(a.double(), c) for n, a, c in zip(names, pl, r)}
+        log(f"{label}: one step at the start (damping 1e-2), CG iterations "
+            f"kernels {k[4]}, plain {pl[4]}, f64 {r[4]}; scaled errors "
+            "kernels vs plain " + ", ".join(
+                f"{n} {e:.2e}" for n, e in e_kp.items())
+            + "; kernels vs f64 " + ", ".join(
+                f"{n} {e:.2e}" for n, e in e_k64.items())
+            + "; plain f32 vs f64 " + ", ".join(
+                f"{n} {e:.2e}" for n, e in e_p64.items())
+            + f"; two kernel runs bit-identical: {same}")
+        if not same:
+            fail(f"{label}: two runs of one step through the kernels differ")
+        bad = [n for n in names if not e_kp[n] <= max(e_p64[n], TOL_SCALED)]
+        bad += [n + " (vs f64)" for n in names
+                if not e_k64[n] <= max(2.0 * e_p64[n], TOL_SCALED)]
+        if bad:
+            fail(f"{label}: the step through the kernels disagrees: {bad}")
+        return dict(kernels_vs_plain=e_kp, kernels_vs_f64=e_k64,
+                    plain_vs_f64=e_p64, cg_iterations=[k[4], pl[4], r[4]])
+
+    truth = synthetic.true_points(NUM_POINTS, seed=0)
+    net_h = synthetic.free_network(prob_h, state_h, bars=FREE_BARS, seed=8,
+                                   truth=truth)
+    steps_a = one_step("free network (8 bars, datum)", net_h)
+    steps_b = one_step(
+        f"direct observations ({GROUP_ROWS}-row group, dp / de / dg)",
+        synthetic.free_network(
+            prob_h, state_h, bars=0, datum=False, seed=9,
+            direct=dict(group=GROUP_ROWS, dp=1000, de=50, dg=True)))
+
+    # ---- solve (f32) + refinement with extras ------------------------------
+    prob = convert.problem_to_torch(net_h, dev, f32)
+    n_true = 2 * int((prob.obs_weight[:, 0, 0] > 0).sum())
+    u = int(prob.free_point.sum() + prob.free_eo.sum()
+            + prob.free_global.sum())
+    dof = n_true - u + FREE_DEFECTS + FREE_BARS
+    log(f"free network: dof = 2 N_true {n_true} - u {u} (3 P_true + 6 M + G) "
+        f"+ d {FREE_DEFECTS} + bars {FREE_BARS} = {dof}")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = solver.solve(prob, state0, spec, damping=1e-2, max_iterations=30,
+                       tolerance=F32_STOP)
+    torch.cuda.synchronize()
+    t_f32 = time.perf_counter() - t
+    launches_solve = kernels.launch_counts()
+    hist = res.history
+    accepted = sum(h["accepted"] for h in hist)
+    log(f"solve (f32, kernels): {res.status.name} after {res.iterations} "
+        f"steps in {t_f32:.3f} s ({accepted} accepted, "
+        f"{len(hist) - accepted} rejected); max|dx| " + ", ".join(
+            f"{h['max_dx']:.3e}" for h in hist) + "; CG iterations "
+        f"{[h['cg_it'] for h in hist]}; damping "
+        f"{[h['damping'] for h in hist]}")
+    log(f"  launches during solve: {launches_solve}")
+    st = res.state
+
+    refiner = refine.Refiner(prob, spec, use_kernels=True)
+    fv = refiner.fmp32
+    st64 = type(st)(*(a.double() for a in st))
+    om_f32 = float(refiner.gradient64(refiner.fmp64, st64)[3])
+    phase = lm.LMPhase(steps=res.iterations, max_dx=res.max_abs_dx,
+                       cg_iterations=[h["cg_it"] for h in hist],
+                       seconds=t_f32)
+    sb_a, sb_b = prob.sb_a.long(), prob.sb_b.long()
+    runs = {}
+    for label, damping in FREE_REFINE_DAMPING.items():
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        s_ref, rec = refine.converge(refiner, (st, phase),
+                                     tolerance=REFINE_TOL, damping=damping)
+        counts = kernels.launch_counts()
+        full = hilo.to_f64(s_ref)
+        om = float(refiner.gradient64(refiner.fmp64, full)[3])
+        length = (full.points[sb_b] - full.points[sb_a]).norm(dim=1)
+        bar_err = float((length - prob.sb_length.double()).abs().max())
+        runs[label] = dict(
+            damping=damping, steps=rec.refine_steps,
+            seconds=rec.refine_seconds, max_dx=rec.max_dx,
+            cg_iterations=rec.cg_iterations, omega=om,
+            sigma0=(om / dof) ** 0.5, bar_err=bar_err, launches=counts)
+        log(f"refinement with extras, damping {damping:g}: "
+            f"{rec.refine_steps} steps in {rec.refine_seconds:.3f} s; "
+            "max|dx| " + ", ".join(f"{x:.3e}" for x in rec.max_dx)
+            + f"; CG iterations {rec.cg_iterations}; f64 Omega "
+            f"{om_f32:.10e} -> {om:.10e}; sigma0 {runs[label]['sigma0']:.6e};"
+            f" max |bar length - observed| {bar_err:.3e}; launches {counts}")
+    gate = runs[FREE_REFINE_GATE]
+    launches = {k: launches_solve[k] + gate["launches"][k]
+                for k in launches_solve}
+    problems = []
+    if min(launches_solve[k] for k in SOLVE_KERNELS) <= 0 \
+            or min(gate["launches"][k] for k in SOLVE_KERNELS) <= 0:
+        problems.append(f"a kernel was never launched: solve "
+                        f"{launches_solve}, refinement {gate['launches']}")
+    if not gate["max_dx"][-1] <= REFINE_TOL:
+        problems.append(f"the {FREE_REFINE_GATE} refinement did not reach "
+                        f"max|dx| <= {REFINE_TOL}")
+    if not abs(gate["sigma0"] / SIGMA - 1.0) < 0.01:
+        problems.append(f"sigma0 {gate['sigma0']:.6e} is not within 1% of "
+                        f"{SIGMA}")
+    if not gate["omega"] <= om_f32 * (1.0 + 1e-9):
+        problems.append("the refinement raised Omega above the f32 phase's")
+    if not gate["bar_err"] <= 5 * BAR_SIGMA:
+        problems.append(f"a bar is {gate['bar_err']:.3e} from its observed "
+                        f"length (limit {5 * BAR_SIGMA:.1e})")
+
+    # ---- one more f32 step at the f32 phase's end: B dx = 0 ----------------
+    dxp, _, _, _, it_last, ext = engine.lm_step_full(
+        fv, prob, st, spec, 0.0, cg_tol=1e-6, cg_maxiter=100,
+        use_kernels=True)
+    bdx = float(torch.einsum("kpa,pa->k", ext.Brows.double(),
+                             dxp.double()).abs().max())
+    mdxp = float(dxp.abs().max())
+    log(f"f32 step at the f32 phase's end ({it_last} CG iterations): "
+        f"max|B dxp| {bdx:.3e}, max|dxp| {mdxp:.3e}, ratio "
+        f"{bdx / mdxp:.3e}")
+    if not bdx <= BDX_TOL * mdxp:
+        problems.append(f"max|B dxp| {bdx:.3e} > {BDX_TOL} x max|dxp|")
+    if problems:
+        fail("free network: " + "; ".join(problems))
+    del dxp, ext
+
+    # ---- what the extras cost: set-up per step, launches per iteration -----
+    cgf = kernels.make_cam_gather(fv)
+    b, rc, rg, Minv, pp = kernels.prepare_kernels(fv, st, spec, 0.0,
+                                                  cam_gather=cgf)
+    ops = engine.point_ops(fv, b, cam_gather=cgf)
+    bp3 = torch.stack(b.bp, dim=1)
+    apply_M = rcs.make_apply_M(Minv)
+
+    def setup():
+        e = freenet.prepare_extras(prob, st, bp3, rc, rg, ops, b.omega0)
+        return e, freenet.wrap_precond(apply_M, e)
+
+    setup_ms = measure.time_ms(setup, reps=3, warm=1)
+    setup_prof = measure.device_profile(setup)
+    ext, apply_full = setup()
+    base = kernels.make_matvec(pp, b.extra_c, b.extra_g)
+    wrapped = freenet.wrap_matvec(base, ext)
+
+    def per_iteration(M, mv):
+        """(launches, device ms) of one CG iteration: 16 iterations against
+        8 under the profiler."""
+        p8, p16 = (measure.device_profile(lambda n=n: rcs.pcg(
+            ext.rc, ext.rg, M, mv, tol=0.0, maxiter=n, stall_limit=n + 1))
+            for n in (8, 16))
+        return ((p16["launches"] - p8["launches"]) / 8,
+                (p16["busy_ms"] - p8["busy_ms"]) / 8)
+
+    rcs.pcg(ext.rc, ext.rg, apply_full, wrapped, tol=0.0, maxiter=2)
+    it_with = per_iteration(apply_full, wrapped)
+    it_without = per_iteration(Minv, base)
+    log(f"extras: set-up per step (prepare_extras + wrap_precond, Q + d = "
+        f"{ext.W.shape[0]} rows) {setup_ms:.3f} ms between CUDA events, "
+        f"{setup_prof['busy_ms']:.3f} ms of device time in "
+        f"{setup_prof['launches']} launches; one CG iteration with extras "
+        f"{it_with[0]:.1f} launches, {it_with[1]:.4f} ms of device time; "
+        f"without {it_without[0]:.1f} launches, {it_without[1]:.4f} ms")
+    return dict(
+        free_dof=dof, free_solve_steps=res.iterations,
+        free_solve_accepted=accepted, free_solve_s=t_f32,
+        free_solve_cg_iterations=phase.cg_iterations,
+        free_solve_max_dx=[h["max_dx"] for h in hist],
+        free_refine=runs, free_omega_f32_end=om_f32,
+        free_time_to_converged_s=t_f32 + gate["seconds"],
+        free_bdx_over_dxp=bdx / mdxp,
+        free_one_step=steps_a, direct_one_step=steps_b,
+        extras_setup_ms=setup_ms,
+        extras_setup_device_ms=setup_prof["busy_ms"],
+        extras_setup_launches=setup_prof["launches"],
+        cg_iteration_launches=dict(with_extras=it_with[0],
+                                   without=it_without[0]),
+        cg_iteration_device_ms=dict(with_extras=it_with[1],
+                                    without=it_without[1])), launches
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -747,10 +1006,10 @@ def main(profile_refinement=False):
     st64 = type(st)(*(a.double() for a in st))
     om3_r = float(refiner.gradient64(refiner.fmp64, st64)[3])
 
-    def refine_phase(r, damping):
+    def refine_phase(r, damping, max_steps=15):
         torch.cuda.synchronize()
         return refine.converge(r, (st, ph), tolerance=REFINE_TOL,
-                               damping=damping)
+                               damping=damping, max_steps=max_steps)
 
     def contraction(hist):
         """Geometric mean of max|dx| ratios over the last 5 steps."""
@@ -761,15 +1020,16 @@ def main(profile_refinement=False):
         """The same refinement through the plain path, to tell a kernel
         fault from a slice fault."""
         _, rec_p = refine_phase(refine.Refiner(prob, spec, use_kernels=False),
-                                damping)
+                                damping, max_steps[damping])
         log(f"plain-path refinement, damping {damping:g}: "
             f"{rec_p.refine_steps} steps, max|dx| {rec_p.max_dx}, "
             f"CG iterations {rec_p.cg_iterations}")
 
     runs = {}
+    max_steps = {BENCH_DAMPING: BENCH_DAMPED_STEPS, 0.0: 15}
     for label, damping in (("bench", BENCH_DAMPING), ("undamped", 0.0)):
         kernels.reset_launch_counts()
-        s_ref, rec = refine_phase(refiner, damping)
+        s_ref, rec = refine_phase(refiner, damping, max_steps[damping])
         launches5 = kernels.launch_counts()
         om5_r = float(refiner.gradient64(refiner.fmp64,
                                          hilo.to_f64(s_ref))[3])
@@ -925,6 +1185,12 @@ def main(profile_refinement=False):
     total["cam_gather"] += k3_7
     by_phase["covariance_f32"] = {"cam_gather": k3_7}
 
+    # ---- 8. the free network: solve + refinement with extras ---------------
+    log(f"-- phase 8 at {time.time() - t_start:.1f} s")
+    free, launches8 = free_network_phase(prob_h, state_h, spec, dev)
+    total = {k: total[k] + launches8[k] for k in total}
+    by_phase["free_network"] = launches8
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -941,7 +1207,7 @@ def main(profile_refinement=False):
         "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
-        "profile_refine_undamped": prof_ref, **cov}))
+        "profile_refine_undamped": prof_ref, **cov, **free}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

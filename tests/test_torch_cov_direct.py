@@ -231,3 +231,42 @@ def test_view_major_layout_refused(case):
     ft, bt = _port(case)
     with pytest.raises(ValueError, match="point-major"):
         CT.assemble_reduced_corrections(ft._replace(vm_pb=64), bt)
+
+
+def test_direct_observations_match_jax():
+    """Diagonal direct observations of points, EO and IO (f64): the
+    lineariser's Hpp / extra_g terms and the `de_w` term of extra_c give
+    the JAX module's S, S^-1 and point blocks (rtol 1e-9, scaled as
+    above); a problem with scale bars is refused."""
+    import bench
+    from bundle_adjustment_tpu_torch import synthetic
+
+    problem, state, spec = bench.build_problem(P_REAL, 7, 4, jnp.float64,
+                                               seed=3)
+    problem = synthetic.free_network(
+        problem, state, bars=0, datum=False, seed=2,
+        direct=dict(dp=12, de=3, dg=True))
+    problem, state, _ = E.pad_problem(problem, state, multiple=64)
+    fj = E.fm_problem(problem)
+    bj = E.linearize(fj, state, spec, jnp.asarray(0.0))
+    Sj = CJ.assemble_reduced_dense(fj, bj)
+    Qj = CJ.reduced_inverse(Sj)
+    pt = convert.problem_to_torch(problem, CPU, torch.float64)
+    ft = TE.fm_problem(pt)
+    st = convert.state_to_torch(state, CPU, torch.float64)
+    assert ft.de_w is not None and float(ft.de_w.sum()) > 0
+    bt = TE.linearize(ft, st, spec, 0.0)
+    St = CT.assemble_reduced_dense(ft, bt)
+    _close(St, Sj)
+    # without the de_w term the camera diagonal differs
+    S_no = CT.assemble_reduced_dense(ft._replace(de_w=None, de_val=None), bt)
+    assert float((St - S_no).abs().max()) > 1e-4
+    Qt = CT.reduced_inverse(St)
+    _close(Qt, Qj)
+    _close(CT.point_covariance_dense(ft, bt, Qt),
+          CJ.point_covariance_dense(fj, bj, Qj))
+    _close(CT.cov_all(ft, st, spec), CJ.point_covariance_dense(fj, bj, Qj))
+    bars = synthetic.free_network(problem, state, bars=2, datum=False)
+    with pytest.raises(NotImplementedError, match="scale bars"):
+        CT.cov_all(TE.fm_problem(convert.problem_to_torch(
+            bars, CPU, torch.float64)), st, spec)

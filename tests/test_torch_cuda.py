@@ -15,7 +15,12 @@ reductions are deterministic, and a missing barrier in the shared-memory
 ring would show only sometimes).  K4: each fold entry
 within 1e-6 of the sum of |values| it folds (f32 sums in another order);
 the cut K1 stages within a scaled error of 2e-4 of their plain versions,
-and the ``full`` stage equal to K1 bit for bit.  The covariance (`cov_all`)
+and the ``full`` stage equal to K1 bit for bit.  The free-network step
+(`engine.lm_step_full`, damping 1e-2, cg_tol 1e-8) through K3 / K2 / K1
+against the plain path on the GPU, on the view-major and on the point-major
+layout, at G = 10 and at G = 3 (the fewest a camera has: no distortion
+terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
+the same bits when run again.  The covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
 (through K3) within kappa x 2^-24 of each block's largest entry.
 """
@@ -283,6 +288,79 @@ def test_refiner_step_through_kernels_contracts(case):
                                    "schur_matvec")) > 0, counts
     s, mdx2, _, _ = r.step(s)
     assert float(mdx2) < 0.5 * float(mdx1)
+
+
+@pytest.mark.parametrize("G", [10, 3])
+def test_lm_step_full_through_kernels_matches_plain(case, G):
+    """A free network (4 bars, one of them sharing an end, six-defect
+    datum, a populated group and diagonal dp / de / dg observations)."""
+    import numpy as np
+
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.distortion import DistortionSpec
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    dev = torch.device("cuda", 0)
+    spec = None if G == 10 else DistortionSpec()  # no distortion terms
+    prob_h, state_h, spec = synthetic.build_problem(1000, 24, 8, seed=6,
+                                                    spec=spec)
+    truth = synthetic.true_points(1000, 6)
+    prob_h = synthetic.free_network(
+        prob_h, state_h, bars=4, seed=2, truth=truth,
+        direct=dict(group=12, dp=30, de=4, dg=True))
+    # the last bar ends where the first begins
+    sb_b = np.concatenate([prob_h.sb_b[:3], prob_h.sb_a[:1]]).astype(np.int32)
+    prob_h = prob_h._replace(sb_b=sb_b, sb_length=np.linalg.norm(
+        truth[sb_b] - truth[prob_h.sb_a], axis=1))
+    prob = convert.problem_to_torch(prob_h, dev, torch.float32)
+    st = convert.state_to_torch(state_h, dev, torch.float32)
+    assert prob.free_global.shape[0] == G and prob.has_extras
+    fmp = engine.fm_problem(prob)
+    fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
+                                                     fmp.views))
+    kw = dict(cg_tol=1e-8, cg_maxiter=300)
+    kernels.reset_launch_counts()
+    out = engine.lm_step_full(fv, prob, st, spec, 1e-2, use_kernels=True,
+                              **kw)
+    counts = kernels.launch_counts()
+    assert min(counts[k] for k in ("cam_gather", "prepare_reduction",
+                                   "schur_matvec")) > 0, counts
+    assert counts["schur_matvec"] == out[4]
+    again = engine.lm_step_full(fv, prob, st, spec, 1e-2, use_kernels=True,
+                                **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], again[:3]))
+    for layout in (fv, fmp):
+        ref = engine.lm_step_full(layout, prob, st, spec, 1e-2, **kw)
+        for name, a, r in zip(("dxp", "dxc", "dxg"), out[:3], ref[:3]):
+            assert _scaled(a, r) < 2e-4, (name, layout.vm_pb)
+    ext, dxp = out[5], out[0]
+    bdx = torch.einsum("kpa,pa->k", ext.Brows, dxp)
+    assert float(bdx.abs().max()) <= 1e-5 * float(dxp.abs().max())
+    om = float(engine.omega_at_full(fv, prob, out[3], ext, *out[:3], st))
+    assert om < float(out[3].omega0)
+
+
+def test_solve_defaults_to_the_kernels_on_cuda(case):
+    """`solver.solve` on CUDA tensors goes through K3 / K2 / K1 unless told
+    otherwise, pads to the kernels' block size and drops the padding."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import kernels, solver
+
+    dev = torch.device("cuda", 0)
+    prob_h, state_h, spec = synthetic.build_problem(1000, 24, 8, seed=6)
+    prob_h = synthetic.free_network(prob_h, state_h, bars=4, seed=2,
+                                    truth=synthetic.true_points(1000, 6))
+    prob = convert.problem_to_torch(prob_h, dev, torch.float32)
+    st = convert.state_to_torch(state_h, dev, torch.float32)
+    kernels.reset_launch_counts()
+    res = solver.solve(prob, st, spec, damping=1e-2, max_iterations=12,
+                       tolerance=1e-3)
+    counts = kernels.launch_counts()
+    assert min(counts[k] for k in ("cam_gather", "prepare_reduction",
+                                   "schur_matvec")) > 0, counts
+    assert counts["prepare_reduction"] == res.iterations
+    assert res.state.points.shape == st.points.shape
+    assert res.history[-1]["omega0"] < 0.01 * res.history[0]["omega0"]
 
 
 @pytest.fixture(scope="module")

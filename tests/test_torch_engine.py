@@ -130,3 +130,133 @@ def test_pad_problem_matches_jax():
         np.testing.assert_array_equal(np_(getattr(pt, f)),
                                       np_(getattr(pj, f)), err_msg=f)
     np.testing.assert_array_equal(np_(st.points), np_(sj.points))
+
+
+# ---------------------------------------------------------------------------
+# diagonal direct observations and the free-network fields
+# ---------------------------------------------------------------------------
+
+def _direct_pair(f64=True, view_major=False):
+    """A 200-point network with diagonal dp / de / dg observations, 2 bars
+    and the inner-constraint datum, padded to 256 by the JAX
+    `pad_problem`: (JAX FMProblem, JAX state, port RCSProblem, port
+    FMProblem, port state, spec)."""
+    import bench
+    from bundle_adjustment_tpu_torch import convert, synthetic
+
+    jdt, tdt = (jnp.float64, torch.float64) if f64 \
+        else (jnp.float32, torch.float32)
+    problem, state, spec = bench.build_problem(200, 12, 6, jdt, seed=9)
+    problem = synthetic.free_network(problem, state, bars=2, seed=3,
+                                     direct=dict(dp=20, de=4, dg=True))
+    pj, sj, _ = E.pad_problem(problem, state)
+    fj = E.fm_problem(pj)
+    pt = convert.problem_to_torch(pj, torch.device("cpu"), tdt)
+    ft = TE.fm_problem(pt)
+    if view_major:
+        fj, ft = E.to_view_major(fj, 128), TE.to_view_major(ft, 128)
+    st = convert.state_to_torch(sj, torch.device("cpu"), tdt)
+    return fj, sj, pt, ft, st, spec, problem, state
+
+
+@pytest.mark.parametrize("f64,tol", [(True, 1e-10), (False, 2e-4)],
+                         ids=["f64", "f32"])
+def test_linearize_direct_observations_match_jax(f64, tol):
+    """dp into bp, the Hpp diagonal (x (1 + damping)) and Omega; de into
+    Omega; dg into extra_g, bg and Omega: f64 at rtol 1e-10 (1e-8 for the
+    inverse), f32 within 2e-4 of each field's largest entry."""
+    fj, sj, _, ft, st, spec, _, _ = _direct_pair(f64)
+    assert ft.dp_w is not None and ft.de_w is not None and ft.dg_w is not None
+    lam = 1e-3
+    bj = E.linearize(fj, sj, spec, jnp.asarray(lam, sj.points.dtype))
+    bt = TE.linearize(ft, st, spec, lam)
+    plain = TE.linearize(ft._replace(dp_w=None, de_w=None, dg_w=None), st,
+                         spec, lam)
+    for name, a, b, c in (
+            ("omega0", bj.omega0, bt.omega0, plain.omega0),
+            ("bp", jnp.stack(bj.bp), torch.stack(bt.bp), torch.stack(plain.bp)),
+            ("bg", bj.bg, bt.bg, plain.bg),
+            ("extra_g", bj.extra_g, bt.extra_g, plain.extra_g),
+            ("Hpp_inv", jnp.stack(bj.Hpp_inv), torch.stack(bt.Hpp_inv),
+             torch.stack(plain.Hpp_inv))):
+        a = np_(a)
+        t = 1e-8 if (f64 and name == "Hpp_inv") else tol
+        np.testing.assert_allclose(np_(b), a, rtol=t if f64 else 0,
+                                   atol=t * np.abs(a).max(), err_msg=name)
+        assert float((b - c).abs().max()) > 0, name  # the terms are there
+
+
+@pytest.mark.parametrize("route", ["plain", "kernels"])
+def test_finish_reduction_direct_eo_matches_jax(route):
+    """The de_w * free_eo term in bc, rc, extra_c and the 6x6 blocks, on
+    the plain reduction and on the K2 route (both end in
+    `finish_reduction`)."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    fj, sj, _, ft, st, spec, _, _ = _direct_pair(view_major=True)
+    lam = 1e-4
+    bj, rcj, rgj, Mj = E.prepare(fj, sj, spec, jnp.asarray(lam),
+                                 couple_global=True)
+    if route == "plain":
+        bt, rct, rgt, Mt = TE.prepare(ft, st, spec, lam, couple_global=True)
+    else:
+        bt, rct, rgt, Mt, _ = kernels.prepare_kernels(ft, st, spec, lam)
+    np.testing.assert_allclose(np_(rct), np_(rcj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(rgt), np_(rgj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(bt.bc), np_(bj.bc), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np_(bt.extra_c), np_(bj.extra_c), rtol=1e-9)
+    np.testing.assert_allclose(np_(Mt.Minv_c), np_(Mj.Minv_c), rtol=1e-7,
+                               atol=1e-10)
+    we = ft.de_w * ft.free_eo
+    assert float(we.sum()) > 0
+    no_de = TE.prepare(ft._replace(de_w=None, de_val=None), st, spec, lam)[0]
+    np.testing.assert_allclose(np_(bt.extra_c - no_de.extra_c),
+                               np_(we * (1.0 + lam)), rtol=1e-9, atol=1e-12)
+
+
+def test_pad_problem_pads_the_free_network_fields():
+    """Dummy points get zero dp_w / dp_val / datum_mask_d rows, as in the
+    JAX `pad_problem`; per-image and global fields stay as they are."""
+    from bundle_adjustment_tpu_torch import convert
+
+    _, _, pj, _, _, _, problem, state = _direct_pair()
+    pt, st, P0 = TE.pad_problem(
+        convert.problem_to_torch(problem, torch.device("cpu"), torch.float64),
+        convert.state_to_torch(state, torch.device("cpu"), torch.float64))
+    assert P0 == 200 and pt.num_points == 256
+    for f in ("dp_w", "dp_val", "datum_mask_d", "free_point", "de_w",
+              "de_val", "dg_w", "dg_val", "sb_a", "sb_b", "sb_length",
+              "sb_weight", "img_perm"):
+        np.testing.assert_array_equal(np_(getattr(pt, f)),
+                                      np_(getattr(pj, f)), err_msg=f)
+    assert float(pt.datum_mask_d[200:].abs().sum()) == 0.0
+    assert float(pt.dp_w[200:].abs().sum()) == 0.0
+    assert pt.defect_flags_d == pj.defect_flags_d and pt.has_extras
+    fm = TE.fm_problem(pt)
+    assert fm.has_extras and fm.dp_w is pt.dp_w
+    vm = TE.to_view_major(fm, 32)
+    assert vm.dp_w is pt.dp_w and vm.de_w is pt.de_w and vm.has_extras
+
+
+def test_point_ops_index_points_by_id_on_both_layouts():
+    """`point_ops` on the view-major FMProblem takes and returns the same
+    point-id-indexed [P, 3] arrays as on the point-major one (`freenet`
+    indexes points by id), and `hinv` takes a batch."""
+    _, _, _, fpm, st, spec, _, _ = _direct_pair()
+    fvm = TE.to_view_major(fpm, 32)
+    ops_p = TE.point_ops(fpm, TE.linearize(fpm, st, spec, 1e-3))
+    ops_v = TE.point_ops(fvm, TE.linearize(fvm, st, spec, 1e-3))
+    rng = np.random.default_rng(1)
+    v = torch.as_tensor(rng.normal(size=(3, 256, 3)))
+    xc = torch.as_tensor(rng.normal(size=(12, 6)))
+    xg = torch.as_tensor(rng.normal(size=10))
+    idx = torch.as_tensor([0, 31, 32, 199, 255])
+    pairs = [(ops_p.hinv(v), ops_v.hinv(v)),
+             (ops_p.hinv_at(idx), ops_v.hinv_at(idx)),
+             (ops_p.hpx(xc, xg), ops_v.hpx(xc, xg)),
+             *zip(ops_p.hxp(v[0]), ops_v.hxp(v[0]))]
+    for a, b in pairs:
+        np.testing.assert_allclose(np_(b), np_(a), rtol=1e-11,
+                                   atol=1e-12 * float(a.abs().max()))
+    np.testing.assert_array_equal(np_(ops_v.hinv(v)[1]),
+                                  np_(ops_v.hinv(v[1])))

@@ -45,7 +45,7 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "kernels.py", "rcs.py", "fm.py", "lm.py", "hilo.py",
-            "refine.py", "measure.py"} <= names
+            "refine.py", "measure.py", "freenet.py", "solver.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("bundle_adjustment_tpu")
     assert not _forbidden("bundle_adjustment_tpu_torch.parallel")
 
@@ -117,3 +117,22 @@ def test_precision_pinned_on_import():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_precision_pins_survive_the_free_network_modules():
+    """`freenet` and `solver` take their over-points contractions
+    (B Hpp^-1 B^T, r_lam, W M^-1 W^T) through `torch.einsum` / `@`, which
+    the package's pins keep in full f32: importing them leaves the pins
+    in place, and no module but the package's ``__init__`` touches them."""
+    from bundle_adjustment_tpu_torch.parallel import freenet, solver  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    for path in PKG.rglob("*.py"):
+        if path != PKG / "__init__.py":
+            text = path.read_text()
+            assert "allow_tf32" not in text, path.name
+            assert "set_float32_matmul_precision" not in text, path.name
+    text = (PKG / "parallel" / "freenet.py").read_text()
+    assert "einsum" in text and "index_add" not in text.replace(
+        "`index_add_`", "")

@@ -120,6 +120,16 @@ def test_convert_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError, match="single-camera"):
         convert.problem_to_torch(problem, CPU)
     problem, _, _ = bench.build_problem(128, 6, 4, jnp.float64)
-    problem = problem._replace(dp_w=np.ones((128, 3)))
-    with pytest.raises(NotImplementedError, match="dp_w"):
-        convert.problem_to_torch(problem, CPU)
+    tables = problem._replace(point2obs=np.zeros((128, 4), np.int32))
+    with pytest.raises(NotImplementedError, match="point2obs"):
+        convert.problem_to_torch(tables, CPU)
+    # direct observations, scale bars and the datum are carried across
+    problem = problem._replace(
+        dp_w=np.ones((128, 3)), dp_val=np.zeros((128, 3)),
+        sb_a=np.array([0]), sb_b=np.array([1]), sb_length=np.ones(1),
+        sb_weight=np.ones(1), datum_mask_d=np.ones(128),
+        defect_flags_d=(True,) * 6 + (False,))
+    pt = convert.problem_to_torch(problem, CPU, torch.float32)
+    assert pt.dp_w.dtype == torch.float32 and pt.sb_a.dtype == torch.int32
+    assert pt.defect_flags_d == (True,) * 6 + (False,) and pt.has_extras
+    assert pt.de_w is None and pt.dpg_idx is None

@@ -43,3 +43,58 @@ def test_padding_is_inert():
     assert np.all(pt.obs_weight[300:] == 0.0)
     assert np.all(pt.free_point[100:] == 0.0)
     assert np.all(st.points[100:] == st.points[0])
+
+
+def test_free_network_redresses_the_true_points_only():
+    """`free_network`: true points free and in the datum, dummy points
+    fixed and outside it; bars between distinct true points at the true
+    distance plus noise of sigma 5e-7 (weight 1e6); the same seed gives
+    the same network; `true_points` is `build_problem`'s first draw."""
+    P = 300
+    pt, st, _ = synthetic.build_problem(P, 8, 4, seed=2)
+    truth = synthetic.true_points(P, seed=2)
+    # the start is the truth plus the perturbation (sigma 0.05) off the
+    # three datum points, and equal to it on them
+    np.testing.assert_array_equal(st.points[:3], truth[:3])
+    assert 0.01 < np.abs(st.points[3:P] - truth[3:]).std() < 0.1
+    fn = synthetic.free_network(pt, st, bars=8, seed=5, truth=truth)
+    assert fn.has_extras and fn.num_points == 512
+    assert np.all(fn.free_point[:P] == 1.0) and np.all(fn.free_point[P:] == 0)
+    np.testing.assert_array_equal(fn.datum_mask_d, fn.free_point[:, 0])
+    assert fn.defect_flags_d == (True,) * 6 + (False,)
+    ends = np.concatenate([fn.sb_a, fn.sb_b])
+    assert ends.max() < P and len(set(ends.tolist())) == 16
+    d = np.linalg.norm(truth[fn.sb_b] - truth[fn.sb_a], axis=1)
+    err = fn.sb_length - d
+    assert np.all(np.abs(err) < 5 * 5e-7) and np.any(err != 0.0)
+    assert np.all(fn.sb_weight == synthetic.BAR_WEIGHT)
+    again = synthetic.free_network(pt, st, bars=8, seed=5, truth=truth)
+    np.testing.assert_array_equal(again.sb_length, fn.sb_length)
+    # without the truth, the bars take the state's distances
+    fs = synthetic.free_network(pt, st, bars=8, seed=5)
+    ds = np.linalg.norm(st.points[fs.sb_b] - st.points[fs.sb_a], axis=1)
+    assert np.all(np.abs(fs.sb_length - ds) < 5 * 5e-7)
+
+
+def test_free_network_direct_observations():
+    """The populated group (cofactor U^T U, SPD), the diagonal dp / de /
+    dg observations (weight (5e-4 / sigma)^2 where observed, 0 elsewhere)
+    and the fixed-coordinate datum kept with ``datum=False``."""
+    pt, st, _ = synthetic.build_problem(300, 8, 4, seed=2)
+    fn = synthetic.free_network(
+        pt, st, bars=0, datum=False, seed=1,
+        direct=dict(group=30, dp=10, de=3, dg=True))
+    assert fn.has_extras and fn.sb_a is None and fn.datum_mask_d is None
+    np.testing.assert_array_equal(fn.free_point, pt.free_point)
+    assert fn.dpg_cov.shape == (30, 30) and fn.dpg_idx.max() < 300
+    assert np.linalg.eigvalsh(fn.dpg_cov).min() > 0
+    np.testing.assert_array_equal(fn.dpg_cov, fn.dpg_cov.T)
+    assert set(fn.dpg_axis.tolist()) <= {0, 1, 2}
+    assert (fn.dp_w.sum(axis=1) > 0).sum() == 10
+    assert np.all(fn.dp_w[300:] == 0) and np.all(fn.dp_w[fn.dp_w > 0] == 0.25)
+    np.testing.assert_array_equal(fn.dp_val[fn.dp_w == 0],
+                                  st.points[fn.dp_w == 0])
+    assert (fn.de_w.sum(axis=1) > 0).sum() == 3
+    assert np.all(fn.dg_w[:3] == 0.25) and np.all(fn.dg_w[3:] == 0)
+    with pytest.raises(ValueError, match="unknown"):
+        synthetic.free_network(pt, st, direct=dict(points=3))
