@@ -1,17 +1,24 @@
-"""Host arrays -> the port's tensors on a device.
+"""Host arrays -> the port's tensors on a device, and scenes -> the port's
+scene objects.
 
-Takes an RCSProblem-shaped object whose fields are host arrays (the port's
-`synthetic.build_problem`, or the JAX package's `bench.build_problem`) and
-a ParamState-shaped object, and returns the port's tensor containers on
-the given device: index arrays as int32, everything else in ``dtype``.
-The tests use it to feed both implementations the same problem.
+`problem_to_torch` / `state_to_torch` take an RCSProblem-shaped object whose
+fields are host arrays (the port's `synthetic.build_problem`, or the JAX
+package's `bench.build_problem`) and a ParamState-shaped object, and return
+the port's tensor containers on the given device: index arrays as int32,
+everything else in ``dtype``.  `scene_from` rebuilds a scene graph of any
+objects with the reference's attribute names as the port's own
+`models.scene` objects.  The tests use both to feed the two
+implementations the same problem.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .models import scene as S
 from .models.problem import ParamState
 from .parallel.rcs import RCSProblem
 
@@ -72,3 +79,92 @@ def state_to_torch(state, device, dtype=torch.float32) -> ParamState:
     return ParamState(*(torch.as_tensor(np.array(a, np.float64),
                                         device=device, dtype=dtype)
                         for a in state))
+
+
+class Scene(NamedTuple):
+    """The port's scene objects of `scene_from`."""
+
+    cameras: list
+    scale_bars: list
+    direct_groups: list
+    # source object (ObjectCoordinate or Parameter) -> the port's
+    coordinates: dict
+    parameters: dict
+
+
+def scene_from(cameras, scale_bars=(), direct_groups=()) -> Scene:
+    """Rebuild a scene as the port's `models.scene` objects from objects
+    with the reference's attribute names (duck-typed: the JAX package's
+    scene classes, or any others shaped like them).
+
+    Carried across: camera ids, r0, distortion models with their
+    coefficients in insertion order; every parameter's value and ``fixed``
+    flag (IO, distortion, EO, object coordinates); datum flags; images in
+    order with their image points (values, variances and rho as stored);
+    scale bars (variance as stored); direct groups with their observations
+    (value, variance, parameter type) and dispersion."""
+    params: dict = {}
+    coords: dict = {}
+
+    def param(src, dst):
+        dst.value = float(src.value)
+        dst.fixed = bool(src.fixed)
+        params[src] = dst
+        return dst
+
+    def coord(src):
+        if src not in coords:
+            oc = S.ObjectCoordinate(src.name)
+            for a in ("x", "y", "z"):
+                param(getattr(src, a), getattr(oc, a))
+            oc.set_datum(src.datum)
+            coords[src] = oc
+        return coords[src]
+
+    cams = []
+    for cam in cameras:
+        out = S.Camera(cam.id, r0=cam.r0, distortion_types=tuple(
+            S.DistortionType(int(k)) for k in cam.distortion_models))
+        for a in ("x0", "y0", "c"):
+            param(getattr(cam.interior_orientation, a),
+                  getattr(out.interior_orientation, a))
+        for kind, handle in cam.distortion_models.items():
+            dst = out.distortion(S.DistortionType(int(kind)))
+            have = {k for k, _ in dst.coefficients}
+            for key, p in handle.coefficients:
+                param(p, dst.get(key) if key in have else dst.add(key))
+        for img in cam:
+            oi = out.add_image(img.id)
+            for a in ("x0", "y0", "z0", "omega", "phi", "kappa"):
+                param(getattr(img.exterior_orientation, a),
+                      getattr(oi.exterior_orientation, a))
+            for ic in img:
+                o = oi.add(coord(ic.object_coordinate), ic.x, ic.y, 1.0, 1.0,
+                           ic.rho)
+                o.var_x, o.var_y = float(ic.var_x), float(ic.var_y)
+        cams.append(out)
+
+    bars = []
+    for sb in scale_bars:
+        bar = S.ScaleBar(coord(sb.coordinate_a), coord(sb.coordinate_b),
+                         sb.length, 1.0)
+        bar.variance = float(sb.variance)
+        bars.append(bar)
+
+    groups = []
+    for g in direct_groups:
+        obs = []
+        for o in g.observations:
+            if o.object_coordinate is not None:
+                coord(o.object_coordinate)
+            target = params.get(o.parameter)
+            if target is None:  # a parameter outside the scene
+                target = param(o.parameter, S.Parameter(name=o.parameter.name))
+            obs.append(S.DirectObservation(
+                parameter=target, value=float(o.value),
+                variance=float(o.variance), param_type=o.param_type,
+                object_coordinate=None if o.object_coordinate is None
+                else coords[o.object_coordinate]))
+        groups.append(S.DirectlyObservedParameterGroup(
+            obs, None if g.dispersion is None else np.array(g.dispersion)))
+    return Scene(cams, bars, groups, coords, params)

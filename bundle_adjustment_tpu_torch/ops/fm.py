@@ -3,8 +3,9 @@
 Port of `bundle_adjustment_tpu/ops/fm.py`: the same closed forms
 (PartialDerivativeFactory.java:58-195 and the distortion factories) with
 every per-observation scalar held as a row of length N, producing the
-Jacobian as a list of [N] feature rows.  Affinity, tangential, radial and
-distance slots are supported; Zernike slots are not yet ported.
+Jacobian as a list of [N] feature rows.  Every distortion kind is
+supported; Zernike slots take their deltas and partials from
+`ops.distortion.zernike_contribution`.
 """
 
 from __future__ import annotations
@@ -14,9 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.distortion import DistortionSpec, DistortionType
-
-_ZERNIKE_KINDS = (DistortionType.ZERNIKE_X, DistortionType.ZERNIKE_Y,
-                  DistortionType.ZERNIKE_GRADIENT)
+from .distortion import zernike_contribution
 
 
 class RotationRows(NamedTuple):
@@ -87,9 +86,6 @@ def jacobian_rows(X, Y, Z, x0, y0, c, X0, Y0, Z0, omega, phi, kappa,
     ``coeffs``: list of K [N] rows.  Returns (rows_x, rows_y, pred_x,
     pred_y): rows_* are lists of 12+K [N] rows ordered
     [X Y Z x0 y0 c X0 Y0 Z0 omega phi kappa, coeffs...]."""
-    if any(s.kind in _ZERNIKE_KINDS for s in spec.slots):
-        raise NotImplementedError(
-            "Zernike distortion slots are not ported yet")
     p = project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa, lo=lo)
     xs, ys, Ndn, R = p.xs, p.ys, p.N, p.R
     ck, sk = torch.cos(kappa), torch.sin(kappa)
@@ -148,6 +144,15 @@ def jacobian_rows(X, Y, Z, x0, y0, c, X0, Y0, Z0, omega, phi, kappa,
     dY_dN = zero
     coeff_rows_x = []
     coeff_rows_y = []
+
+    zc = zernike_contribution(xs, ys, coeffs, spec, r0)
+    if zc is not None:
+        deltaX = deltaX + zc.deltaX
+        deltaY = deltaY + zc.deltaY
+        dX_dxs = dX_dxs + zc.dX_dxs
+        dX_dys = dX_dys + zc.dX_dys
+        dY_dxs = dY_dxs + zc.dY_dxs
+        dY_dys = dY_dys + zc.dY_dys
 
     tang = [(i, s) for i, s in enumerate(spec.slots)
             if s.kind == DistortionType.TANGENTIAL_DISTORTION]
@@ -217,7 +222,11 @@ def jacobian_rows(X, Y, Z, x0, y0, c, X0, Y0, Z0, omega, phi, kappa,
                 ri = r2**slot.order
                 coeff_rows_x.append(base_x * ri)
                 coeff_rows_y.append(base_y * ri)
-        else:  # pragma: no cover - Zernike rejected above
+        elif zc is not None and i in zc.rows:
+            rx, ry = zc.rows[i]
+            coeff_rows_x.append(rx)
+            coeff_rows_y.append(ry)
+        else:  # pragma: no cover - every kind is handled above
             raise NotImplementedError(k)
 
     if tang:

@@ -77,16 +77,44 @@ def _offsets(G, with_pw=False):
                 F=lean_pad + 18 + 2 * G + (2 if with_pw else 0))
 
 
-def choose_pb(P: int, V: int) -> int:
+#: dynamic shared memory one block may opt in to on the H100 (227 KiB);
+#: the kernels read the card's own value when they launch
+MAX_SMEM_H100 = 232448
+#: shape limits of the CUDA kernels, for the errors below
+SHAPE_LIMITS = (f"the CUDA kernels take V <= {MAX_BLOCK_THREADS // 32} views "
+                f"per point, a point count divisible by 32 (engine."
+                f"pad_problem) and G <= {MAX_G} global parameters")
+
+
+def k2_tile_fits(pb: int, V: int, G: int,
+                 max_smem: int = MAX_SMEM_H100) -> bool:
+    """Whether K2 launches at this block: one ring stage (its tile of
+    38 + 4G rows x V * pb lanes, the img_pos row and six Hpp^{-1} rows of
+    pb points) beside the kernel's own shared memory at its narrowest
+    feature chunk of 8 columns (csrc/prepare_reduction.cu,
+    `prepare_user_bytes` and `ring_fit`; a 128-byte ring header).  K1's
+    tile (23 + 2G rows) fits wherever K2's does."""
+    nthr = V * pb
+    stage = ((38 + 4 * G) + 1) * nthr * 4 + 6 * pb * 4
+    warps = MAX_BLOCK_THREADS // 32
+    user = (nthr * (8 + 4) + (3 + 6 * G) * (pb + 1) + warps * MAX_G) * 4
+    return 128 + stage + user <= max_smem
+
+
+def choose_pb(P: int, V: int, G: int | None = None) -> int:
     """Largest point-block size for the CUDA kernels: a multiple of 32
-    (coalesced warps) dividing P with V * pb <= MAX_BLOCK_THREADS."""
+    (coalesced warps) dividing P with V * pb <= MAX_BLOCK_THREADS and, for
+    ``G`` global parameters, a K2 tile that fits shared memory
+    (`k2_tile_fits`)."""
     best = 0
     for pb in range(32, MAX_BLOCK_THREADS // V + 1, 32):
-        if P % pb == 0:
+        if P % pb == 0 and (G is None or k2_tile_fits(pb, V, G)):
             best = pb
     if best == 0:
-        raise ValueError(f"no block size for P={P}, V={V}: pad the problem "
-                         "so that 32 divides P, with V <= 16")
+        raise ValueError(
+            f"no block size for P={P}, V={V}" + (f", G={G}" if G else "")
+            + f": {SHAPE_LIMITS}, and K2's tile of 38 + 4G rows x V*pb "
+            "lanes must fit shared memory beside its scratch")
     return best
 
 
@@ -186,11 +214,12 @@ def _check_packed(pp: PackedFM, rows: int, image_pass: bool = False):
     f32, i32 = torch.float32, torch.int32
     N = pp.num_points * pp.views
     if pp.g > MAX_G:
-        raise ValueError(f"G={pp.g} > {MAX_G}")
+        raise ValueError(f"G={pp.g} > {MAX_G}: {SHAPE_LIMITS}")
     if pp.pb % 32 or pp.pb * pp.views > MAX_BLOCK_THREADS:
         raise ValueError(f"pb={pp.pb}, V={pp.views}: the CUDA kernels take "
                          "pb % 32 == 0 and pb * V <= "
-                         f"{MAX_BLOCK_THREADS} (kernels.choose_pb)")
+                         f"{MAX_BLOCK_THREADS} (kernels.choose_pb); "
+                         f"{SHAPE_LIMITS}")
     if pp.packed.shape[0] < rows:
         raise ValueError(f"packed has {pp.packed.shape[0]} rows, the kernel "
                          f"reads {rows}")

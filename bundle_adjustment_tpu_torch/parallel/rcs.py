@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models.problem import ParamState
+from ..ops.residuals import image_weight_2x2
 
 
 class RCSProblem(NamedTuple):
@@ -103,6 +104,138 @@ def build_image_block_layout(obs_image, num_images, block=IMG_BLOCK):
         perm[starts[m]:starts[m] + c] = order[src:src + c]
         src += c
     return perm, (starts // block).astype(np.int32)
+
+
+def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
+    """The tensor RCSProblem of a compiled dense `models.problem.BundleProblem`
+    on ``device``, in the layout the feature-major engine reads: observations
+    point-major with a uniform V = the most views any point has, each point's
+    own observations first (in their order), then zero-weight pad rows that
+    repeat its first observation (image 0 at (0, 0) for a point no image
+    sees); and the blocked image layout.  Zero weights null every pad row's
+    contribution, so the sums are those of the observations alone.
+
+    Carried over as in the JAX `rcs.rcs_from_problem`: scale bars, the
+    inner-constraint datum (``datum_mask_d`` = the problem's datum points,
+    its defect flags) and every direct observation: diagonal weights fold
+    into dp / de / dg; a group with a fully populated dispersion over point
+    coordinates becomes dpg rows.  A populated dispersion over IO / EO /
+    distortion parameters raises ValueError, as in the reference."""
+    P, M, C = bp.num_points, bp.num_images, bp.num_cameras
+    K = bp.spec.num_coefficients
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    def flt(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device,
+                               dtype=dtype)
+
+    # point-major order, padded to V views per point
+    obs_point = np.asarray(bp.obs_point, np.int64)
+    counts = np.bincount(obs_point, minlength=P)
+    V = max(int(counts.max()) if counts.size else 0, 1)
+    order = np.argsort(obs_point, kind="stable")
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    view = np.arange(obs_point.shape[0]) - first[obs_point[order]]
+    src = np.full((P, V), -1, np.int64)
+    src[obs_point[order], view] = order
+    real = src >= 0
+    fill = np.where(counts > 0, src[:, 0], -1)
+    src = np.where(real, src, fill[:, None]).reshape(-1)
+    seen = src >= 0
+    take = np.where(seen, src, 0)
+    obs_image = np.where(seen, bp.obs_image[take], 0).astype(np.int32)
+    obs_xy = np.where(seen[:, None], bp.obs_xy[take], 0.0)
+    live = real.reshape(-1)
+
+    var = flt(np.where(seen[:, None], bp.obs_var[take], 1.0))
+    w2 = image_weight_2x2(var[:, 0], var[:, 1],
+                          flt(np.where(seen, bp.obs_rho[take], 0.0)),
+                          bp.sigma2_apriori)
+    w2 = w2 * flt(live)[:, None, None]
+    img_perm, img_bstarts = build_image_block_layout(obs_image, M)
+
+    free_global = np.concatenate(
+        [np.concatenate([bp.col_io[c] >= 0, bp.col_dist[c] >= 0])
+         for c in range(C)]).astype(np.float64)
+    fields = {}
+    if bp.num_scale_bars:
+        fields.update(sb_a=idx(bp.sb_a), sb_b=idx(bp.sb_b),
+                      sb_length=flt(bp.sb_length),
+                      sb_weight=flt(bp.sigma2_apriori / bp.sb_var))
+    if bp.defect > 0:
+        fields.update(datum_mask_d=flt(bp.datum_mask),
+                      defect_flags_d=tuple(bool(f) for f in bp.defect_flags))
+    if bp.direct_groups:
+        fields.update(_direct_fields(bp, C, K, idx, flt))
+
+    return RCSProblem(
+        obs_point=idx(np.repeat(np.arange(P), V)), obs_image=idx(obs_image),
+        obs_xy=flt(obs_xy), obs_weight=w2, r0=flt(bp.r0),
+        num_points=P, num_images=M,
+        free_point=flt(bp.col_points >= 0), free_eo=flt(bp.col_eo >= 0),
+        free_global=flt(free_global),
+        img_perm=idx(img_perm), img_block_starts=idx(img_bstarts),
+        point_uniform=V, **fields)
+
+
+def _direct_fields(bp, C, K, idx, flt) -> dict:
+    """dp / de / dg (diagonal weights) and dpg (populated point groups) of
+    a BundleProblem's direct groups."""
+    G = C * (3 + K)
+    dp_w, dp_val = np.zeros((bp.num_points, 3)), np.zeros((bp.num_points, 3))
+    de_w, de_val = np.zeros((bp.num_images, 6)), np.zeros((bp.num_images, 6))
+    dg_w, dg_val = np.zeros(G), np.zeros(G)
+    dpg_idx, dpg_axis, dpg_val, dpg_cov = [], [], [], []
+    for dg in bp.direct_groups:
+        if not dg.diagonal:
+            if not (dg.kind == 0).all():
+                raise ValueError(
+                    "fully populated direct-observation dispersion over "
+                    "IO/EO/distortion parameters is the dense solver's "
+                    "domain (DirectlyObservedParameterGroup.java:67-92); "
+                    "at scale only point-coordinate groups are supported")
+            # weight = sigma0^2 Sigma^{-1}; freenet takes W^{-1}
+            dpg_idx.append(dg.flat // 3)
+            dpg_axis.append(dg.flat % 3)
+            dpg_val.append(dg.values)
+            dpg_cov.append(np.linalg.inv(dg.weight))
+            continue
+        for kind, flat, wv, val in zip(dg.kind, dg.flat,
+                                       np.diagonal(dg.weight), dg.values):
+            if kind == 0:
+                dp_w.flat[flat] += wv
+                dp_val.flat[flat] = val
+            elif kind == 3:
+                de_w.flat[flat] += wv
+                de_val.flat[flat] = val
+            elif kind == 1:  # io: per-camera global slot
+                c, k = divmod(int(flat), 3)
+                dg_w[c * (3 + K) + k] += wv
+                dg_val[c * (3 + K) + k] = val
+            else:  # dist
+                c, k = divmod(int(flat), K)
+                dg_w[c * (3 + K) + 3 + k] += wv
+                dg_val[c * (3 + K) + 3 + k] = val
+    out = {}
+    if dp_w.any():
+        out.update(dp_w=flt(dp_w), dp_val=flt(dp_val))
+    if de_w.any():
+        out.update(de_w=flt(de_w), de_val=flt(de_val))
+    if dg_w.any():
+        out.update(dg_w=flt(dg_w), dg_val=flt(dg_val))
+    if dpg_idx:
+        n = sum(len(i) for i in dpg_idx)
+        cov = np.zeros((n, n))
+        o = 0
+        for blk in dpg_cov:
+            cov[o:o + blk.shape[0], o:o + blk.shape[0]] = blk
+            o += blk.shape[0]
+        out.update(dpg_idx=idx(np.concatenate(dpg_idx)),
+                   dpg_axis=idx(np.concatenate(dpg_axis)),
+                   dpg_val=flt(np.concatenate(dpg_val)), dpg_cov=flt(cov))
+    return out
 
 
 class Precond(NamedTuple):

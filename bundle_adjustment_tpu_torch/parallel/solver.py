@@ -17,60 +17,21 @@ there; `refine.Refiner` takes the state further.
 
 from __future__ import annotations
 
-import enum
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models.problem import ParamState
+from ..solver.adjustment import BundleAdjustment as _DenseBundleAdjustment
+from ..solver.adjustment import (SQRT_EPS, EstimationState, EstimationType,
+                                 _Kernels, lm_gain_update)
 from . import engine, rcs
 
-#: sqrt of the relative machine epsilon of binary64 as the dense solver
-#: computes it (halving until 1 + eps == 1: 2^-53, half of numpy's eps)
-SQRT_EPS = math.sqrt(2.0 ** -53)
-
-
-class EstimationState(enum.IntEnum):
-    """Status ids of an estimation (the dense solver's taxonomy)."""
-
-    ERROR_FREE_ESTIMATION = 1
-    BUSY = 0
-    ITERATE = -1
-    CONVERGENCE = -2
-    LEVENBERG_MARQUARDT_STEP = -3
-    INVERT_NORMAL_EQUATION_MATRIX = -4
-    ESTIMATE_STOCHASTIC_PARAMETERS = -5
-    INTERRUPT = -6
-    SINGULAR_MATRIX = -7
-    NO_CONVERGENCE = -8
-    OUT_OF_MEMORY = -9
-    EXPORT_ADJUSTMENT_RESULTS = -10
-    EXPORT_ADJUSTMENT_RESULTS_FAILED = -11
-
-
-def lm_gain_update(adapted_damping: float, omega_prev: float,
-                   omega_cur: float):
-    """The gain-ratio damping schedule.
-
-    prevOmega >= curOmega accepts the step and relaxes lambda x0.2;
-    otherwise lambda grows x5 up to the runaway cap 1 / sqrt(eps), at
-    which point Omega is reset to 0 so that the *next* gain test
-    necessarily accepts: the escape hatch that forces a step instead of
-    diverging lambda.
-
-    Returns (new_damping, new_omega, accepted)."""
-    prev = omega_prev if omega_prev > 0 else float(torch.finfo(
-        torch.float64).max)
-    if prev >= omega_cur:
-        return adapted_damping * 0.2, omega_cur, True
-    adapted_damping *= 5.0
-    omega = omega_cur
-    if adapted_damping > 1.0 / SQRT_EPS:
-        adapted_damping = 1.0 / SQRT_EPS
-        omega = 0.0
-    return adapted_damping, omega, False
+__all__ = ["SQRT_EPS", "EstimationState", "RCSResult", "ScaleBundleAdjustment",
+           "lm_gain_update", "solve"]
 
 
 @dataclass
@@ -106,8 +67,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     device).
 
     ``use_kernels``: run every step through K3 / K2 / K1
-    (`engine.lm_step_full`); the default is True for CUDA tensors and
-    False for CPU tensors.  The point count is then padded to the kernels'
+    (`engine.lm_step_full`); the default is True for f32 CUDA tensors
+    (the kernels take f32 only) and False for every other state, so an
+    f64 solve on the card runs the plain path there.  The point count is then padded to the kernels'
     block size with dummy points (`engine.pad_problem`), which the
     returned state drops again.
     ``simulation``: the right-hand side is zeroed, so every step is
@@ -125,7 +87,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     if tolerance is None:
         tolerance = math.sqrt(torch.finfo(dtype).eps)
     if use_kernels is None:
-        use_kernels = state.points.is_cuda
+        use_kernels = (state.points.is_cuda
+                       and state.points.dtype == torch.float32)
 
     def fire(name, old, new):
         for fn in (listeners or ()):
@@ -139,7 +102,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     fmp = engine.fm_problem(problem)
     if use_kernels:
         fmp = engine.to_view_major(
-            fmp, kernels.choose_pb(fmp.num_points, fmp.views))
+            fmp, kernels.choose_pb(fmp.num_points, fmp.views,
+                                   fmp.free_global.shape[0]))
 
     def unpadded(st):
         return st._replace(points=st.points[:num_points])
@@ -234,3 +198,80 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     return RCSResult(state=unpadded(state), converged=converged,
                      iterations=it_done, omega=omega_prev, max_abs_dx=max_dx,
                      history=history)
+
+
+class ScaleBundleAdjustment(_DenseBundleAdjustment):
+    """The reference `BundleAdjustment` user API (setters, listeners,
+    interrupt, SIMULATION, result writers, checkpoints) solved by the
+    feature-major engine instead of the dense bordered factorisation.
+
+    Subclasses the dense solver and swaps its `_Kernels`:
+
+    * intermediate iterations run `engine.lm_step_full` on the problem's
+      `rcs.rcs_from_problem` (point-eliminated implicit-Schur PCG, the
+      scale bars, inner constraints and direct groups of `freenet`) in
+      float64 on the solver's device, through the plain path (the CUDA
+      kernels take f32 only), and scatter the step back into the dense
+      column layout, so the parent's LM bookkeeping, event stream,
+      interrupt, centroiding and checkpointing run unchanged;
+    * the FINAL stochastic pass (covariance by the requested
+      MatrixInversion mode) keeps the parent's dense kernel: Qxx is dense
+      by contract there.  At array scale use `solve()` +
+      `parallel.cov_direct` for block covariance recovery instead.
+
+    One camera only: the feature-major engine has no multi-camera layout
+    yet (ROADMAP.md, Queue 1 item 2, "The compact multi-camera layout").
+    `BundleAdjustment` takes any number of cameras.
+    """
+
+    cg_tol: float = 1e-12
+    cg_maxiter: int = 2000
+
+    def _build_kernels(self):
+        bp = self.problem
+        if bp.num_cameras != 1:
+            raise NotImplementedError(
+                f"ScaleBundleAdjustment takes one camera, not "
+                f"{bp.num_cameras}: the feature-major engine has no "
+                "multi-camera layout yet (ROADMAP.md, Queue 1 item 2, \"The "
+                "compact multi-camera layout\"); use BundleAdjustment")
+        base = super()._build_kernels()
+        dev, dt = self.device, self.dtype
+        rp = rcs.rcs_from_problem(bp, dev, dt)
+        fmp = engine.fm_problem(rp)
+        spec = bp.spec
+        simulation = self.estimation_type == EstimationType.SIMULATION
+        T = bp.total_size
+
+        def dump(cols):
+            cols = np.asarray(cols).ravel()
+            return torch.as_tensor(np.where(cols >= 0, cols, T).astype(np.int64),
+                                   device=dev)
+
+        cols_p = dump(bp.col_points)
+        cols_e = dump(bp.col_eo)
+        cols_g = dump(np.concatenate([np.concatenate([bp.col_io[c],
+                                                      bp.col_dist[c]])
+                                      for c in range(bp.num_cameras)]))
+
+        def solve_intermediate(state, damping):
+            if simulation:
+                return torch.zeros(T, dtype=dt, device=dev)
+            dxp, dxc, dxg, _, _, _ = engine.lm_step_full(
+                fmp, rp, state, spec, damping, cg_tol=self.cg_tol,
+                cg_maxiter=self.cg_maxiter)
+            dx = torch.zeros(T + 1, dtype=dt, device=dev)
+            dx[cols_p] = dxp.reshape(-1)
+            dx[cols_e] = dxc.reshape(-1)
+            dx[cols_g] = dxg
+            return dx[:T]
+
+        def solve_final(state, damping):
+            # dx by the scale engine, Qxx by the dense stochastic pass
+            dx = solve_intermediate(state, damping)
+            _, Q = base.solve_final(state, damping)
+            return dx, Q
+
+        return _Kernels(assemble=base.assemble, omega=base.omega,
+                        solve_intermediate=solve_intermediate,
+                        solve_final=solve_final)

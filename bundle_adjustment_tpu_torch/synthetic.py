@@ -24,29 +24,12 @@ import torch
 from .models.distortion import DistortionSpecBuilder
 from .models.problem import ParamState
 from .parallel.rcs import RCSProblem, build_image_block_layout
+from .testing import look_at_wpk
 
 #: image noise (sigma0 = sigma: unit weights)
 SIGMA = 5e-4
 #: distortion reference radius r0
 R0 = 10.0
-
-
-def look_at_wpk(cam_pos, target):
-    """omega/phi/kappa whose rotation's third column points from cam_pos
-    towards target (Luhmann convention)."""
-    f = np.asarray(target, float) - np.asarray(cam_pos, float)
-    f = f / np.linalg.norm(f)
-    up = np.array([0.0, 0.0, 1.0])
-    if abs(np.dot(up, f)) > 0.95:
-        up = np.array([0.0, 1.0, 0.0])
-    s = np.cross(up, f)
-    s /= np.linalg.norm(s)
-    u = np.cross(f, s)
-    R = np.stack([s, u, f], axis=1)  # columns
-    omega = np.arctan2(-R[1, 2], R[2, 2])
-    phi = np.arcsin(np.clip(R[0, 2], -1, 1))
-    kappa = np.arctan2(-R[0, 1], R[0, 0])
-    return omega, phi, kappa
 
 
 def scale_spec():

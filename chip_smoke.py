@@ -108,6 +108,24 @@ Phases (any failed check exits non-zero, before the result line):
      wrap_precond, CUDA events), and the launches and device time of one
      CG iteration with and without the extras (torch.profiler, 16 against
      8 iterations).
+  9. the reference API in float64 (no kernel launch: the kernels take f32):
+     testing.make_synthetic_scene(1000 points, 200 images, noise = sigma =
+     5e-4, perturb 0.01, seed 0) with its distortion model and one scale
+     bar, through `BundleAdjustment` on its default device (CUDA) in
+     REDUCED, FULL and PRE_ELIMINATION (two runs each from the same start)
+     and `ScaleBundleAdjustment` (once).  Gates: ERROR_FREE_ESTIMATION;
+     sigma0 a-posteriori / a-priori within 1% of 1; REDUCED and
+     PRE_ELIMINATION against FULL on coordinates (rtol 1e-5, atol 1e-9)
+     and on the points' cofactor blocks (rtol 2e-4, atol 1e-9 of max|Q|);
+     the scale class against the dense REDUCED estimate (coordinates rtol
+     1e-8 / atol 1e-10, Omega and sigma0^2 rtol 1e-8, Q rtol 1e-4 / atol
+     1e-6 of max|Q|); the same code on the CPU and on the card for the
+     scene cut to 100 points / 20 images within 1e-9 (relative sigma0,
+     coordinates of the field size); no kernel launched.  Printed: n, u,
+     d, dof, iterations, sigma0, the seconds of each estimate_model (CUDA
+     events), compile_problem's host seconds, peak memory, and the
+     per-iteration split at the estimate (assembly, LU solve, EO
+     reduction, reduced and full inverse; CUDA events, 3 warm calls).
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7 and 8, each between a reset and a read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
@@ -165,6 +183,22 @@ BDX_TOL = 1e-6           # max|B dxp| of an f32 step, of max|dxp|
 # refinement damping of the free network: the gate, and the one recorded
 FREE_REFINE_DAMPING = {"undamped": 0.0, "refiner_default": 1e-8}
 FREE_REFINE_GATE = "undamped"
+# phase 9: the reference API (scene model, dense f64 BundleAdjustment,
+# ScaleBundleAdjustment) on testing.make_synthetic_scene
+API_POINTS, API_IMAGES = 1000, 200
+API_CUT = (100, 20)      # the scene of the CPU-against-card check
+API_SIGMA0_TOL = 0.01    # sigma0 a-posteriori / a-priori within 1 % of 1
+# tests/test_solver_synthetic.py::test_schur_modes_match_full (np.allclose);
+# its absolute atol 1e-9 on Q is taken relative to max|Q| here: the LU and
+# the Schur routes differ at the conditioning level, which grows with u
+API_MODE_XYZ = dict(rtol=1e-5, atol=1e-9)
+API_MODE_Q_RTOL, API_MODE_Q_ATOL = 2e-4, 1e-9   # atol of max|Q|
+# tests/test_scale_driver.py::test_estimate_matches_dense
+API_SCALE_XYZ = dict(rtol=1e-8, atol=1e-10)
+API_SCALE_RTOL = 1e-8    # Omega and sigma0^2
+API_SCALE_Q_RTOL, API_SCALE_Q_ATOL = 1e-4, 1e-6  # atol of max|Q|
+API_CPU_TOL = 1e-9       # CPU against card: sigma0 and coordinates / field
+API_TIMED = 3            # repeats of each stage of the per-iteration split
 
 
 def fail(msg: str):
@@ -743,6 +777,194 @@ def free_network_phase(prob_h, state_h, spec, dev):
                                     without=it_without[1])), launches
 
 
+def reference_api_phase(dev):
+    """Phase 9 (see the module docstring).  Returns (summary dict, the
+    launch counts of the phase: none, every run is float64)."""
+    import numpy as np
+    import torch
+
+    import bundle_adjustment_tpu_torch as T
+    from bundle_adjustment_tpu_torch.models.problem import compile_problem
+    from bundle_adjustment_tpu_torch.ops.assembly import make_assembler
+    from bundle_adjustment_tpu_torch.ops.schur import reduce_eo
+    from bundle_adjustment_tpu_torch.parallel import kernels
+    from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+
+    MI, OK = T.MatrixInversion, T.EstimationState.ERROR_FREE_ESTIMATION
+
+    def scene(points, images):
+        t0 = time.time()
+        cams, bars, truth = make_synthetic_scene(
+            num_points=points, num_images=images, noise=SIGMA, sigma=SIGMA,
+            perturb=0.01, seed=0)
+        params = [q for oc in truth["coords"] for q in oc.params]
+        for cam in cams:
+            params += list(cam.io.params)
+            params += [q for h in cam.distortion_models.values() for q in h]
+            params += [q for img in cam for q in img.eo.params]
+        start = [q.value for q in params]
+
+        def restore():
+            """The start values, and every free column unassigned again (an
+            estimate numbers the columns once per scene, as the
+            reference's does)."""
+            for q, v in zip(params, start):
+                q.value = v
+                q.fixed = q.fixed
+        return cams, bars, truth, restore, time.time() - t0
+
+    def events_s(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1) / 1e3
+
+    kernels.reset_launch_counts()
+    cams, bars, truth, restore, scene_s = scene(API_POINTS, API_IMAGES)
+    t0 = time.time()
+    bp = compile_problem(cams, bars, []).problem
+    compile_s = time.time() - t0
+    n, u, d = bp.num_observation_rows, bp.num_unknowns, bp.defect
+    log(f"reference API scene: {API_POINTS} points, {API_IMAGES} images, "
+        f"{bp.num_image_obs} image points (the |xy| <= 50 cut), 1 bar; "
+        f"n={n} u={u} d={d} dof={bp.dof}; dense N {(u + d) ** 2 * 8 / 1e9:.3f}"
+        f" GB in f64; scene built in {scene_s:.2f} s, compile_problem "
+        f"{compile_s:.2f} s on the host")
+
+    def estimate(cls, mode, reps):
+        """`reps` runs of estimate_model on CUDA (the default device) from
+        the same start; the last one is kept."""
+        secs = []
+        for _ in range(reps):
+            restore()
+            adj = cls()
+            adj.add(*cams, *bars)
+            adj.set_invert_normal_equation(mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            status, sec = events_s(adj.estimate_model)
+            secs.append(sec)
+            if status != OK or adj.device.type != "cuda":
+                fail(f"{cls.__name__} {mode.name}: status {status!r} on "
+                     f"{adj.device}")
+        ratio = float(np.sqrt(adj.get_variance_factor_aposteriori()
+                              / adj.get_variance_factor_apriori()))
+        if abs(ratio - 1.0) > API_SIGMA0_TOL:
+            fail(f"{cls.__name__} {mode.name}: sigma0 a-posteriori / "
+                 f"a-priori {ratio:.6f}, not within 1 % of 1")
+        r = dict(adj=adj, seconds=secs, iterations=adj.iteration_step,
+                 sigma0_ratio=ratio,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"{cls.__name__} {mode.name}: {r['iterations']} iterations, "
+            f"sigma0 {np.sqrt(adj.get_variance_factor_aposteriori()):.6e} "
+            f"(a-posteriori / a-priori {ratio:.6f}), estimate_model "
+            + ", ".join(f"{x:.3f}" for x in secs) + " s (CUDA events; the "
+            f"first cold), peak {r['peak_gb']:.2f} GB")
+        return r
+
+    runs = {m: estimate(T.BundleAdjustment, getattr(MI, m), 2)
+            for m in ("REDUCED", "FULL", "PRE_ELIMINATION")}
+    runs["scale"] = estimate(T.ScaleBundleAdjustment, MI.REDUCED, 1)
+
+    # the three modes agree (coordinates, the points' cofactor blocks)
+    full = runs["FULL"]["adj"]
+    nR = bp.reduced_size
+    for m in ("REDUCED", "PRE_ELIMINATION"):
+        a = runs[m]["adj"]
+        if not torch.allclose(a.state.points, full.state.points,
+                              **API_MODE_XYZ):
+            fail(f"{m} coordinates differ from FULL's by "
+                 f"{float((a.state.points - full.state.points).abs().max())}")
+        qa, qf = a.Qxx[d:nR, d:nR], full.Qxx[d:nR, d:nR]
+        q_max = float(qf.abs().max())
+        q_err = float((qa - qf).abs().max())
+        log(f"{m} against FULL: max|dxyz| "
+            f"{float((a.state.points - full.state.points).abs().max()):.3e},"
+            f" point cofactor blocks max|dQ| {q_err:.3e} of max|Q| "
+            f"{q_max:.3e}")
+        if not torch.allclose(qa, qf, rtol=API_MODE_Q_RTOL,
+                              atol=API_MODE_Q_ATOL * q_max):
+            fail(f"{m} point cofactor blocks differ from FULL's: "
+                 f"{q_err} of {q_max}")
+    # the scale class against the dense REDUCED estimate
+    sa, ra = runs["scale"]["adj"], runs["REDUCED"]["adj"]
+    q_atol = API_SCALE_Q_ATOL * float(ra.Qxx.abs().max())
+    scale_ok = (
+        torch.allclose(sa.state.points, ra.state.points, **API_SCALE_XYZ)
+        and abs(sa.omega / ra.omega - 1.0) <= API_SCALE_RTOL
+        and abs(sa.get_variance_factor_aposteriori()
+                / ra.get_variance_factor_aposteriori() - 1.0) <= API_SCALE_RTOL
+        and torch.allclose(sa.Qxx, ra.Qxx, rtol=API_SCALE_Q_RTOL,
+                           atol=q_atol))
+    xyz_dev = float((sa.state.points - ra.state.points).abs().max())
+    log(f"ScaleBundleAdjustment against the dense REDUCED estimate: "
+        f"max|dxyz| {xyz_dev:.3e}, Omega ratio {sa.omega / ra.omega:.12f}")
+    if not scale_ok:
+        fail("ScaleBundleAdjustment differs from the dense estimate beyond "
+             "tests/test_scale_driver.py's tolerances")
+
+    # the per-iteration split at the REDUCED estimate (CUDA events, mean
+    # of API_TIMED after one untimed call each)
+    st = ra.state
+    assemble = make_assembler(bp, dev)
+    col_eo = torch.as_tensor(bp.col_eo.astype(np.int64), device=dev)
+
+    def timed(fn):
+        out = fn()
+        sec = [events_s(fn)[1] for _ in range(API_TIMED)]
+        return out, 1e3 * sum(sec) / len(sec)
+
+    (N, nv, V), asm_ms = timed(lambda: assemble(st, 0.0))
+    Np, npre = V[:, None] * N * V[None, :], V * nv
+    _, solve_ms = timed(lambda: torch.linalg.solve_ex(Np, npre))
+    f, reduce_ms = timed(lambda: reduce_eo(Np, npre, col_eo, nR))
+    _, inv_red_ms = timed(lambda: torch.linalg.inv_ex(f.S))
+    _, inv_full_ms = timed(lambda: torch.linalg.inv_ex(Np))
+    split = dict(assembly_ms=asm_ms, lu_solve_ms=solve_ms,
+                 eo_reduction_ms=reduce_ms, reduced_inverse_ms=inv_red_ms,
+                 full_inverse_ms=inv_full_ms)
+    log("per-iteration split at the estimate (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    # the same code on the CPU and on the card, on the cut scene
+    out = {}
+    for where in ("cpu", "cuda"):
+        c2, b2, t2, _, _ = scene(*API_CUT)
+        adj = T.BundleAdjustment(device=where)
+        adj.add(*c2, *b2)
+        adj.set_invert_normal_equation(MI.REDUCED)
+        if adj.estimate_model() != OK:
+            fail(f"the {API_CUT} scene on {where}: status {adj.status!r}")
+        out[where] = (np.sqrt(adj.get_variance_factor_aposteriori()),
+                      np.array([[o.x.value, o.y.value, o.z.value]
+                                for o in t2["coords"]]))
+    s_rel = abs(out["cuda"][0] / out["cpu"][0] - 1.0)
+    x_rel = (np.abs(out["cuda"][1] - out["cpu"][1]).max()
+             / np.abs(out["cpu"][1]).max())
+    log(f"CPU against card at {API_CUT[0]} points / {API_CUT[1]} images: "
+        f"sigma0 {s_rel:.2e} relative, coordinates {x_rel:.2e} of the field")
+    if s_rel > API_CPU_TOL or x_rel > API_CPU_TOL:
+        fail("the reference API on the card differs from the CPU's by "
+             f"{max(s_rel, x_rel):.2e} (> {API_CPU_TOL})")
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"the float64 reference API launched a CUDA kernel: {launches}")
+    summary = dict(
+        api_n=n, api_u=u, api_d=d, api_dof=bp.dof,
+        api_image_points=bp.num_image_obs, api_scene_s=scene_s,
+        api_compile_problem_s=compile_s,
+        api_cpu_vs_card=dict(sigma0_rel=s_rel, xyz_rel=x_rel),
+        api_split_ms=split, api_scale_vs_dense_xyz=xyz_dev)
+    for k, r in runs.items():
+        summary[f"api_{k.lower()}"] = dict(
+            iterations=r["iterations"], seconds=r["seconds"],
+            sigma0_ratio=r["sigma0_ratio"], peak_gb=r["peak_gb"])
+    return summary, launches
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -1191,6 +1413,11 @@ def main(profile_refinement=False):
     total = {k: total[k] + launches8[k] for k in total}
     by_phase["free_network"] = launches8
 
+    # ---- 9. the reference API: scene model, dense f64, scale class ----------
+    log(f"-- phase 9 at {time.time() - t_start:.1f} s")
+    api, launches9 = reference_api_phase(dev)
+    by_phase["reference_api"] = launches9
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -1207,7 +1434,7 @@ def main(profile_refinement=False):
         "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
-        "profile_refine_undamped": prof_ref, **cov, **free}))
+        "profile_refine_undamped": prof_ref, **cov, **free, **api}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

@@ -22,7 +22,14 @@ layout, at G = 10 and at G = 3 (the fewest a camera has: no distortion
 terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
 the same bits when run again.  The covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
-(through K3) within kappa x 2^-24 of each block's largest entry.
+(through K3) within kappa x 2^-24 of each block's largest entry.  An f64
+`solve` on the card takes the plain path (no launch); `choose_pb` with G
+picks a block whose K2 tile fits at V = 4, G = 16, where K2 and K1 then
+hold their plain versions (2e-4); so do they on the rows of a Zernike spec
+(G = 12).  The reference API (`BundleAdjustment`, `ScaleBundleAdjustment`)
+on CUDA by default against the same code on the CPU: status and
+iterations equal, sigma0 within 1e-9, coordinates within 1e-9 of the
+field, the cofactor matrix within 1e-7 of its largest entry.
 """
 
 import pytest
@@ -106,17 +113,18 @@ def test_schur_matvec_kernel_matches_plain_and_repeats(case):
     assert torch.equal(oc, oc2) and torch.equal(og, og2)
 
 
-def _random_packed(P, V, M, G, seed):
+def _random_packed(P, V, M, G, seed, pb=None):
     """A PackedFM of random rows on the GPU: N(0, 1) rows in the kernel
     layout, random Hpp^{-1} rows, uneven random images (the last tenth of
-    them empty, most images' last 512-entry block partly padding)."""
+    them empty, most images' last 512-entry block partly padding).
+    ``pb``: the point block (default: `choose_pb(P, V)`, blind to G)."""
     import numpy as np
 
     from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
 
     rng = np.random.default_rng(seed)
     N = P * V
-    pb = kernels.choose_pb(P, V)
+    pb = kernels.choose_pb(P, V) if pb is None else pb
     off = kernels._offsets(G, with_pw=True)
     f_pad = (off["F"] + 7) // 8 * 8
     packed = np.zeros((f_pad, N), np.float32)
@@ -422,3 +430,127 @@ def test_wrappers_refuse_f64_on_cuda(case):
     tbl = case["state"].eo.double().contiguous()
     with pytest.raises(ValueError, match="dtype"):
         kernels.cam_gather_rows(tbl, case["pp"].obs_img)
+
+
+def test_f64_solve_runs_without_the_kernels(case):
+    """An f64 `solve` on CUDA tensors takes the plain path by default (the
+    kernels take f32 only) and converges."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import kernels, solver
+
+    dev = torch.device("cuda", 0)
+    prob_h, state_h, spec = synthetic.build_problem(1000, 24, 8, seed=6)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+    st = convert.state_to_torch(state_h, dev, torch.float64)
+    kernels.reset_launch_counts()
+    res = solver.solve(prob, st, spec, damping=1e-2, max_iterations=20,
+                       cg_tol=1e-12, cg_maxiter=500)
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    assert res.converged and res.state.points.dtype == torch.float64
+
+
+def test_choose_pb_fits_k2_at_g16_v4(case):
+    """At V = 4, G = 16 the G-blind block (pb = 128) does not fit K2's
+    tile; `choose_pb(P, V, G)` picks one that does, and K2 and K1 run
+    there against their plain versions."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    P, V, M, G = 1280, 4, 130, 16
+    assert kernels.choose_pb(P, V) == 128
+    assert not kernels.k2_tile_fits(128, V, G)
+    pb = kernels.choose_pb(P, V, G)
+    assert pb == 64 and kernels.k2_tile_fits(pb, V, G)
+    pp = _random_packed(P, V, M, G, seed=4, pb=pb)
+    out = kernels.prepare_reduction(pp)
+    ref = kernels.prepare_reduction_plain(pp)
+    for name, a, r in zip(("red", "rg_corr", "T2", "T3"), out, ref):
+        assert _scaled(a, r) < 2e-4, name
+    gen = torch.Generator().manual_seed(5)
+    xc = torch.randn((M, 6), generator=gen).cuda()
+    xg = torch.randn((G,), generator=gen).cuda()
+    ec = torch.rand((M, 6), generator=gen).cuda()
+    eg = torch.rand((G,), generator=gen).cuda()
+    oc, og = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+    rc, rg = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
+    assert _scaled(oc, rc) < 2e-4 and _scaled(og, rg) < 2e-4
+
+
+def test_zernike_rows_through_k1_and_k2(case):
+    """A Zernike spec (gradient fringes 4 and 12, X fringe 5 beside
+    affinity, tangential and radial; G = 12): the linearised f32 rows
+    through K2 and K1 against their plain versions."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.distortion import (
+        DistortionSpecBuilder, DistortionType)
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    spec = (DistortionSpecBuilder().add_affinity().add_tangential()
+            .add_radial_order(1).add_radial_order(2)
+            .add_zernike(DistortionType.ZERNIKE_GRADIENT, 4)
+            .add_zernike(DistortionType.ZERNIKE_GRADIENT, 12)
+            .add_zernike(DistortionType.ZERNIKE_X, 5).build())
+    dev = torch.device("cuda", 0)
+    prob_h, state_h, spec = synthetic.build_problem(1000, 24, 8, seed=8,
+                                                    spec=spec)
+    G = 3 + spec.num_coefficients
+    assert G == 12
+    prob = convert.problem_to_torch(prob_h, dev, torch.float32)
+    st = convert.state_to_torch(state_h, dev, torch.float32)
+    fmp = engine.fm_problem(prob)
+    fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
+                                                     fmp.views, G))
+    b = engine.linearize(fv, st, spec, 1e-3)
+    pp = kernels.pack_fm(b, fv, with_pw=True)
+    out = kernels.prepare_reduction(pp)
+    ref = kernels.prepare_reduction_plain(pp)
+    for name, a, r in zip(("red", "rg_corr", "T2", "T3"), out, ref):
+        assert _scaled(a, r) < 2e-4, name
+    fin = engine.finish_reduction(fv, b, st, 1e-3, *ref, True)
+    ec, eg = fin[0].extra_c.contiguous(), fin[0].extra_g.contiguous()
+    gen = torch.Generator().manual_seed(6)
+    xc = torch.randn((fv.num_images, 6), generator=gen).cuda()
+    xg = torch.randn((G,), generator=gen).cuda()
+    oc, og = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+    rc, rg = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
+    assert _scaled(oc, rc) < 2e-4 and _scaled(og, rg) < 2e-4
+
+
+def _small_scene():
+    from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+
+    return make_synthetic_scene(num_points=60, num_images=10, noise=5e-4,
+                                sigma=5e-4, perturb=0.01, seed=3)
+
+
+@pytest.mark.parametrize("cls_name", ["BundleAdjustment",
+                                      "ScaleBundleAdjustment"])
+def test_reference_api_on_the_card_matches_the_cpu(case, cls_name):
+    """The dense solver (REDUCED) and the scale class on CUDA by default,
+    against the same code on the CPU: the same status and iterations,
+    sigma0 within 1e-9, coordinates within 1e-9 of the field, the cofactor
+    matrix within 1e-7 of its largest entry."""
+    import numpy as np
+
+    import bundle_adjustment_tpu_torch as T
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cams, bars, truth = _small_scene()
+        cls = getattr(T, cls_name)
+        adj = cls() if dev == "cuda" else cls(device="cpu")
+        assert adj.device.type == dev
+        adj.add(*cams, *bars)
+        adj.set_invert_normal_equation(T.MatrixInversion.REDUCED)
+        st = adj.estimate_model()
+        out[dev] = (int(st), adj.iteration_step,
+                    adj.get_variance_factor_aposteriori(),
+                    np.array([[o.x.value, o.y.value, o.z.value]
+                              for o in truth["coords"]]),
+                    adj.get_cofactor_matrix().cpu().numpy())
+        assert adj.state.points.device.type == dev
+    (s1, i1, v1, x1, q1), (s2, i2, v2, x2, q2) = out["cuda"], out["cpu"]
+    assert s1 == s2 == int(T.EstimationState.ERROR_FREE_ESTIMATION)
+    assert i1 == i2
+    assert abs(np.sqrt(v1 / v2) - 1.0) < 1e-9
+    assert np.abs(x1 - x2).max() <= 1e-9 * np.abs(x2).max()
+    assert np.abs(q1 - q2).max() <= 1e-7 * np.abs(q2).max()
