@@ -309,7 +309,70 @@ prepare_kernel(const ba::RingPlan plan, int nblk, int pb, int G, int cw,
   ba::bulk_wait();
 }
 
+// K2's ring plan and launch size, shared by the launch and `ba_prepare_fits`:
+// the tile's four sources, then the feature chunk: 32 columns if a stage fits
+// beside them, else 8; then as wide as the shared memory left over allows
+// (fewer, larger bulk copies).  False when not even one stage fits beside
+// the narrowest chunk (or a source breaks the bulk copy's alignment rules).
+bool prepare_plan(const float* packed, long long N, int P, int pb, int nthr,
+                  int G, int fs, const float* hppinv, const int* img_pos,
+                  const ba::DeviceLimits& lim, ba::RingPlan* plan, int* cw,
+                  int* smem) {
+  const long long f4 = sizeof(float);
+  const ba::Offsets off(G);
+  *plan = {};
+  if (!ba::ring_add(plan, packed, N * f4, nthr * f4, 18 + 2 * G,
+                    nthr * (int)f4) ||
+      !ba::ring_add(plan, packed + (long long)off.pjp * N, N * f4, nthr * f4,
+                    20 + 2 * G, nthr * (int)f4) ||
+      !ba::ring_add(plan, hppinv, P * f4, pb * f4, 6, pb * (int)f4) ||
+      !ba::ring_add(plan, img_pos, 0, nthr * f4, 1, nthr * (int)f4))
+    return false;
+  *cw = fs < 32 ? fs : 32;
+  if (!ba::ring_fit(plan, prepare_user_bytes(nthr, pb, G, *cw), lim, smem)) {
+    *cw = kChunkStep;
+    if (!ba::ring_fit(plan, prepare_user_bytes(nthr, pb, G, *cw), lim, smem))
+      return false;
+  }
+  while (*cw + kChunkStep <= fs &&
+         *smem + nthr * kChunkStep * (int)f4 <= lim.max_smem) {
+    *cw += kChunkStep;
+    *smem += nthr * kChunkStep * (int)f4;
+  }
+  return true;
+}
+
+bool prepare_shape_ok(int P, int V, int pb, int G) {
+  return pb > 0 && pb % 32 == 0 && V > 0 && V * pb <= ba::kMaxBlockThreads &&
+         P % pb == 0 && G >= 1 && G <= ba::kMaxG;
+}
+
 }  // namespace
+
+// Whether K2 launches at point block pb, V views and G global parameters:
+// 1 if its tile fits the shared memory a block may opt in to (max_smem
+// bytes, or the current card's own limit when max_smem <= 0), 0 if the
+// launch would refuse it, a negative CUDA error if the card cannot be
+// queried.  The same plan as the launch, on one block of aligned stand-in
+// addresses (kernels.k2_tile_fits is held against it).
+extern "C" int ba_prepare_fits(int pb, int V, int G, int max_smem) {
+  if (!prepare_shape_ok(pb, V, pb, G)) return 0;
+  ba::DeviceLimits lim = {1, max_smem};
+  if (max_smem <= 0) {
+    cudaError_t e = ba::device_limits(&lim);
+    if (e != cudaSuccess) return -(int)e;
+  }
+  const int nthr = V * pb;
+  const int fs = (39 + 6 * G + kChunkStep - 1) / kChunkStep * kChunkStep;
+  const float* base = reinterpret_cast<const float*>(alignof(float4) * 64);
+  ba::RingPlan plan;
+  int cw = 0, smem = 0;
+  return prepare_plan(base, nthr, pb, pb, nthr, G, fs, base,
+                      reinterpret_cast<const int*>(base), lim, &plan, &cw,
+                      &smem)
+             ? 1
+             : 0;
+}
 
 // Scratch (all f32): feat [n_img_blocks * 512 + n_img_blocks, fs] (the
 // image-sorted feature rows, then the block sums) with fs >= 39 + 6G a
@@ -324,37 +387,18 @@ extern "C" int ba_prepare_reduction(
     float* t23, cudaStream_t stream) {
   const int nthr = V * pb;
   const int F = 39 + 6 * G;
-  if (pb <= 0 || pb % 32 != 0 || V <= 0 || nthr > ba::kMaxBlockThreads ||
-      P % pb != 0 || G < 1 || G > ba::kMaxG || (long long)P * V != N ||
-      M <= 0 || fs < F || fs % kChunkStep != 0 || n_img_blocks <= 0)
+  if (!prepare_shape_ok(P, V, pb, G) || (long long)P * V != N || M <= 0 ||
+      fs < F || fs % kChunkStep != 0 || n_img_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const int nblk = P / pb;
-  const long long f4 = sizeof(float);
-  const ba::Offsets off(G);
   ba::DeviceLimits lim;
   cudaError_t e = ba::device_limits(&lim);
   if (e != cudaSuccess) return (int)e;
-  ba::RingPlan plan = {};
-  if (!ba::ring_add(&plan, packed, N * f4, nthr * f4, 18 + 2 * G,
-                    nthr * (int)f4) ||
-      !ba::ring_add(&plan, packed + (long long)off.pjp * N, N * f4, nthr * f4,
-                    20 + 2 * G, nthr * (int)f4) ||
-      !ba::ring_add(&plan, hppinv, P * f4, pb * f4, 6, pb * (int)f4) ||
-      !ba::ring_add(&plan, img_pos, 0, nthr * f4, 1, nthr * (int)f4))
+  ba::RingPlan plan;
+  int cw = 0, smem = 0;
+  if (!prepare_plan(packed, N, P, pb, nthr, G, fs, hppinv, img_pos, lim,
+                    &plan, &cw, &smem))
     return (int)cudaErrorInvalidValue;
-  // feature chunk: 32 columns if a stage fits beside them, else 8; then as
-  // wide as the shared memory left over allows (fewer, larger bulk copies)
-  int cw = fs < 32 ? fs : 32, smem = 0;
-  if (!ba::ring_fit(&plan, prepare_user_bytes(nthr, pb, G, cw), lim, &smem)) {
-    cw = kChunkStep;
-    if (!ba::ring_fit(&plan, prepare_user_bytes(nthr, pb, G, cw), lim, &smem))
-      return (int)cudaErrorInvalidValue;
-  }
-  while (cw + kChunkStep <= fs &&
-         smem + nthr * kChunkStep * (int)f4 <= lim.max_smem) {
-    cw += kChunkStep;
-    smem += nthr * kChunkStep * (int)f4;
-  }
   BA_ALLOW_SMEM(prepare_kernel, lim.max_smem);
   prepare_kernel<<<ba::ring_grid(lim, nblk), nthr + ba::kProducerThreads, smem,
                    stream>>>(plan, nblk, pb, G, cw, feat, fs, partial_rg,

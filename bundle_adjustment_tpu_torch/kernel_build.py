@@ -44,6 +44,7 @@ SIGNATURES = {
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,            # hpp pos valid bstarts nb
         _c_ptr, _c_int, _c_ptr, _c_ptr,                    # feat fs prg pt
         _c_ptr, _c_ptr, _c_ptr, _c_ptr],                   # red rg t23 stream
+    "ba_prepare_fits": [_c_int, _c_int, _c_int, _c_int],   # pb V G max_smem
     "ba_read_floor": [
         _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,     # packed N P V pb rows
         _c_ptr, _c_ptr, _c_ptr, _c_ptr],                   # xin part out stream

@@ -27,17 +27,30 @@ def inv_spd(N):
     return torch.cholesky_inverse(torch.linalg.cholesky(N))
 
 
+def check_factorisation(*infos) -> None:
+    """Raise LinAlgError when a factorisation reported a zero pivot in its
+    ``info`` (the `_ex` forms neither raise nor wait for the device)."""
+    if any(bool((i != 0).any()) for i in infos if i is not None):
+        raise torch.linalg.LinAlgError("singular normal-equation matrix")
+
+
 def solve_symmetric(N, n):
     """Symmetric-indefinite solve (the dspsv/Bunch-Kaufman path,
     MathExtension.java:338-366): LU factorisation gives the identical
-    solution for the bordered datum systems."""
-    return torch.linalg.solve(N, n)
+    solution for the bordered datum systems.  Raises LinAlgError on a zero
+    pivot."""
+    x, info = torch.linalg.solve_ex(N, n)
+    check_factorisation(info)
+    return x
 
 
 def inv_symmetric(N):
     """Symmetric-indefinite inverse (dsptrf/dsptri,
-    MathExtension.java:393-426), by LU."""
-    return torch.linalg.inv(N)
+    MathExtension.java:393-426), by LU.  Raises LinAlgError on a zero
+    pivot."""
+    Q, info = torch.linalg.inv_ex(N)
+    check_factorisation(info)
+    return Q
 
 
 def pinv(A, tol=None):

@@ -80,6 +80,11 @@ def _offsets(G, with_pw=False):
 #: dynamic shared memory one block may opt in to on the H100 (227 KiB);
 #: the kernels read the card's own value when they launch
 MAX_SMEM_H100 = 232448
+#: K2's shared-memory layout (csrc/prepare_reduction.cu kChunkStep and
+#: kRowPad, csrc/common.cuh kRingHeader)
+K2_CHUNK_STEP = 8
+K2_ROW_PAD = 4
+RING_HEADER = 128
 #: shape limits of the CUDA kernels, for the errors below
 SHAPE_LIMITS = (f"the CUDA kernels take V <= {MAX_BLOCK_THREADS // 32} views "
                 f"per point, a point count divisible by 32 (engine."
@@ -91,30 +96,32 @@ def k2_tile_fits(pb: int, V: int, G: int,
     """Whether K2 launches at this block: one ring stage (its tile of
     38 + 4G rows x V * pb lanes, the img_pos row and six Hpp^{-1} rows of
     pb points) beside the kernel's own shared memory at its narrowest
-    feature chunk of 8 columns (csrc/prepare_reduction.cu,
-    `prepare_user_bytes` and `ring_fit`; a 128-byte ring header).  K1's
-    tile (23 + 2G rows) fits wherever K2's does."""
+    feature chunk (csrc/prepare_reduction.cu `prepare_plan`, which the
+    library exports as `ba_prepare_fits`; tests/test_torch_cuda.py holds
+    this model against it over every block the kernels take).  K1's tile
+    (23 + 2G rows) fits wherever K2's does."""
     nthr = V * pb
     stage = ((38 + 4 * G) + 1) * nthr * 4 + 6 * pb * 4
     warps = MAX_BLOCK_THREADS // 32
-    user = (nthr * (8 + 4) + (3 + 6 * G) * (pb + 1) + warps * MAX_G) * 4
-    return 128 + stage + user <= max_smem
+    user = (nthr * (K2_CHUNK_STEP + K2_ROW_PAD) + (3 + 6 * G) * (pb + 1)
+            + warps * MAX_G) * 4
+    return RING_HEADER + stage + user <= max_smem
 
 
-def choose_pb(P: int, V: int, G: int | None = None) -> int:
+def choose_pb(P: int, V: int, G: int) -> int:
     """Largest point-block size for the CUDA kernels: a multiple of 32
     (coalesced warps) dividing P with V * pb <= MAX_BLOCK_THREADS and, for
-    ``G`` global parameters, a K2 tile that fits shared memory
-    (`k2_tile_fits`)."""
+    ``G`` global parameters (``FMProblem.free_global.shape[0]``), a K2 tile
+    that fits shared memory (`k2_tile_fits`)."""
     best = 0
     for pb in range(32, MAX_BLOCK_THREADS // V + 1, 32):
-        if P % pb == 0 and (G is None or k2_tile_fits(pb, V, G)):
+        if P % pb == 0 and k2_tile_fits(pb, V, G):
             best = pb
     if best == 0:
         raise ValueError(
-            f"no block size for P={P}, V={V}" + (f", G={G}" if G else "")
-            + f": {SHAPE_LIMITS}, and K2's tile of 38 + 4G rows x V*pb "
-            "lanes must fit shared memory beside its scratch")
+            f"no block size for P={P}, V={V}, G={G}: {SHAPE_LIMITS}, and "
+            "K2's tile of 38 + 4G rows x V*pb lanes must fit shared memory "
+            "beside its scratch")
     return best
 
 

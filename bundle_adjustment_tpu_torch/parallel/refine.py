@@ -84,9 +84,10 @@ class Refiner:
         if use_kernels:
             from . import kernels
 
+            f = self.fmp32
             self.fmp32 = engine.to_view_major(
-                self.fmp32, kernels.choose_pb(self.fmp32.num_points,
-                                              self.fmp32.views))
+                f, kernels.choose_pb(f.num_points, f.views,
+                                     f.free_global.shape[0]))
         # the f64 problem also holds the bar and group geometry of the f64
         # misclosures (tiny)
         self.problem64 = upcast_problem(problem32)

@@ -39,6 +39,7 @@ from ..constants import DEFAULT_MAX_ITERATIONS, SQRT_EPS
 from ..models.layout import assign_columns
 from ..models.problem import BundleProblem, CompiledScene, ParamState, compile_problem
 from ..models.scene import Camera, DirectlyObservedParameterGroup, ScaleBar
+from ..ops import linalg
 from ..ops.assembly import make_assembler, make_image_block_fn, make_omega_fn
 from ..ops.schur import assemble_full_dx, reduce_eo
 
@@ -113,13 +114,6 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is false; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _check_factorisation(*infos) -> None:
-    """Raise LinAlgError when a factorisation reported a zero pivot (the
-    `_ex` forms do not raise themselves)."""
-    if any(bool((i != 0).any()) for i in infos if i is not None):
-        raise torch.linalg.LinAlgError("singular normal-equation matrix")
 
 
 def _is_out_of_memory(exc: BaseException) -> bool:
@@ -283,30 +277,27 @@ class BundleAdjustment:
             Np, npre, V = system(state, damping)
             if mode == MatrixInversion.PRE_ELIMINATION:
                 f = reduce_eo(Np, npre, col_eo, nR)
-                dx1, info = torch.linalg.solve_ex(f.S, f.nr)
-                _check_factorisation(f.info, info)
+                dx1 = linalg.solve_symmetric(f.S, f.nr)
+                linalg.check_factorisation(f.info)
                 dx = assemble_full_dx(f, dx1, T)
             else:
-                dx, info = torch.linalg.solve_ex(Np, npre)
-                _check_factorisation(info)
+                dx = linalg.solve_symmetric(Np, npre)
             return V * dx
 
         def solve_final(state: ParamState, damping):
             Np, npre, V = system(state, damping)
             if mode in (MatrixInversion.REDUCED, MatrixInversion.PRE_ELIMINATION):
                 f = reduce_eo(Np, npre, col_eo, nR)
-                Q1, info = torch.linalg.inv_ex(f.S)
-                _check_factorisation(f.info, info)
+                Q1 = linalg.inv_symmetric(f.S)
+                linalg.check_factorisation(f.info)
                 dx = assemble_full_dx(f, Q1 @ f.nr, T)
                 Q = torch.zeros((T, T), dtype=dt, device=dev)
                 Q[:nR, :nR] = Q1
             elif mode == MatrixInversion.FULL:
-                Q, info = torch.linalg.inv_ex(Np)
-                _check_factorisation(info)
+                Q = linalg.inv_symmetric(Np)
                 dx = Q @ npre
             else:  # NONE
-                dx, info = torch.linalg.solve_ex(Np, npre)
-                _check_factorisation(info)
+                dx = linalg.solve_symmetric(Np, npre)
                 Q = torch.zeros((T, T), dtype=dt, device=dev)
             return V * dx, V[:, None] * Q * V[None, :]
 

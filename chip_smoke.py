@@ -578,7 +578,8 @@ def free_network_phase(prob_h, state_h, spec, dev):
     def layouts(prob):
         fmp = engine.fm_problem(prob)
         return fmp, engine.to_view_major(
-            fmp, kernels.choose_pb(fmp.num_points, fmp.views))
+            fmp, kernels.choose_pb(fmp.num_points, fmp.views,
+                                   fmp.free_global.shape[0]))
 
     def one_step(label, net_h):
         """One LM step at the start state: f32 kernels against f32 plain,
@@ -997,7 +998,19 @@ def main(profile_refinement=False):
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"  ptxas {line.strip()}")
-    kernel_build.library()
+    lib = kernel_build.library()
+    # choose_pb's model of K2's tile against the kernel's own plan, for
+    # every block the kernels take, at this card's shared-memory limit
+    grid = [(pb, V, G) for V in range(1, kernels.MAX_BLOCK_THREADS // 32 + 1)
+            for pb in range(32, kernels.MAX_BLOCK_THREADS // V + 1, 32)
+            for G in range(1, kernels.MAX_G + 1)]
+    off = [x for x in grid
+           if lib.ba_prepare_fits(*x, 0) != int(kernels.k2_tile_fits(*x))]
+    log(f"K2 tile fit: model vs kernel on {len(grid)} (pb, V, G), "
+        f"{len(off)} differ")
+    if off:
+        fail(f"kernels.k2_tile_fits disagrees with ba_prepare_fits at "
+             f"(pb, V, G) {off[:8]}")
 
     # ---- 2. kernels vs plain versions at the main-path shapes -------------
     log(f"-- phase 2 at {time.time() - t_start:.1f} s")
@@ -1007,9 +1020,9 @@ def main(profile_refinement=False):
     prob = convert.problem_to_torch(prob_h, dev, torch.float32)
     state0 = convert.state_to_torch(state_h, dev, torch.float32)
     fmp = engine.fm_problem(prob)
-    pb = kernels.choose_pb(fmp.num_points, fmp.views)
-    fv = engine.to_view_major(fmp, pb)
     G = 3 + spec.num_coefficients
+    pb = kernels.choose_pb(fmp.num_points, fmp.views, G)
+    fv = engine.to_view_major(fmp, pb)
     N = fv.num_points * fv.views
     log(f"problem: P={fv.num_points} M={fv.num_images} V={fv.views} G={G} "
         f"N={N} pb={pb}; built in {time.time() - t0:.1f} s")

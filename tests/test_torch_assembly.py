@@ -166,3 +166,14 @@ def test_linalg_matches_jax(reduced):
     # eigenvectors up to sign
     dots = np.abs(np.sum(np_(vt) * np.asarray(vj), axis=0))
     np.testing.assert_allclose(dots, 1.0, rtol=1e-10)
+
+
+@pytest.mark.parametrize("fn", ["solve_symmetric", "inv_symmetric"])
+def test_linalg_raises_on_a_zero_pivot(fn):
+    """The LU forms report a zero pivot as LinAlgError (the dense solver
+    maps it to SINGULAR_MATRIX)."""
+    N = torch.ones((4, 4), dtype=torch.float64)
+    args = (N, torch.ones(4, dtype=torch.float64))[:2 if fn.startswith("s")
+                                                   else 1]
+    with pytest.raises(torch.linalg.LinAlgError):
+        getattr(TL, fn)(*args)

@@ -23,9 +23,12 @@ terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
 the same bits when run again.  The covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
 (through K3) within kappa x 2^-24 of each block's largest entry.  An f64
-`solve` on the card takes the plain path (no launch); `choose_pb` with G
+`solve` on the card takes the plain path (no launch); `k2_tile_fits`, the
+model `choose_pb` consults, agrees with the kernel's own plan
+(`ba_prepare_fits`) on every block the kernels take; `choose_pb` with G
 picks a block whose K2 tile fits at V = 4, G = 16, where K2 and K1 then
-hold their plain versions (2e-4); so do they on the rows of a Zernike spec
+hold their plain versions (2e-4) and a Refiner step runs through them; so
+do they on the rows of a Zernike spec
 (G = 12).  The reference API (`BundleAdjustment`, `ScaleBundleAdjustment`)
 on CUDA by default against the same code on the CPU: status and
 iterations equal, sigma0 within 1e-9, coordinates within 1e-9 of the
@@ -50,8 +53,8 @@ def case():
     prob = convert.problem_to_torch(prob_h, dev, torch.float32)
     state = convert.state_to_torch(state_h, dev, torch.float32)
     fmp = engine.fm_problem(prob)
-    fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
-                                                     fmp.views))
+    fv = engine.to_view_major(fmp, kernels.choose_pb(
+        fmp.num_points, fmp.views, fmp.free_global.shape[0]))
     b = engine.linearize(fv, state, spec, 1e-3)
     pp = kernels.pack_fm(b, fv, with_pw=True)
     return dict(prob=prob, fv=fv, state=state, spec=spec, b=b, pp=pp)
@@ -117,14 +120,14 @@ def _random_packed(P, V, M, G, seed, pb=None):
     """A PackedFM of random rows on the GPU: N(0, 1) rows in the kernel
     layout, random Hpp^{-1} rows, uneven random images (the last tenth of
     them empty, most images' last 512-entry block partly padding).
-    ``pb``: the point block (default: `choose_pb(P, V)`, blind to G)."""
+    ``pb``: the point block (default: `choose_pb(P, V, G)`)."""
     import numpy as np
 
     from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
 
     rng = np.random.default_rng(seed)
     N = P * V
-    pb = kernels.choose_pb(P, V) if pb is None else pb
+    pb = kernels.choose_pb(P, V, G) if pb is None else pb
     off = kernels._offsets(G, with_pw=True)
     f_pad = (off["F"] + 7) // 8 * 8
     packed = np.zeros((f_pad, N), np.float32)
@@ -212,7 +215,7 @@ def test_kernels_refuse_a_tile_that_does_not_fit(case):
     room for its scratch; the wrapper raises and names the sizes."""
     from bundle_adjustment_tpu_torch.parallel import kernels
 
-    pp = _random_packed(1024, 16, 24, 16, seed=3)
+    pp = _random_packed(1024, 16, 24, 16, seed=3, pb=32)
     assert pp.views * pp.pb == 512
     with pytest.raises(RuntimeError, match="V\\*pb=512"):
         kernels.prepare_reduction(pp)
@@ -325,7 +328,7 @@ def test_lm_step_full_through_kernels_matches_plain(case, G):
     assert prob.free_global.shape[0] == G and prob.has_extras
     fmp = engine.fm_problem(prob)
     fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
-                                                     fmp.views))
+                                                     fmp.views, G))
     kw = dict(cg_tol=1e-8, cg_maxiter=300)
     kernels.reset_launch_counts()
     out = engine.lm_step_full(fv, prob, st, spec, 1e-2, use_kernels=True,
@@ -449,14 +452,61 @@ def test_f64_solve_runs_without_the_kernels(case):
     assert res.converged and res.state.points.dtype == torch.float64
 
 
-def test_choose_pb_fits_k2_at_g16_v4(case):
-    """At V = 4, G = 16 the G-blind block (pb = 128) does not fit K2's
-    tile; `choose_pb(P, V, G)` picks one that does, and K2 and K1 run
-    there against their plain versions."""
+def test_k2_tile_fits_matches_the_kernel(case):
+    """`kernels.k2_tile_fits`, the Python model that `choose_pb` consults,
+    against the kernel's own plan (`ba_prepare_fits`, the launch's code)
+    for every block the kernels take (pb a multiple of 32, V * pb <= 512,
+    G = 1 .. 16), at the H100's limit and, on an H100, at the card's own."""
+    from bundle_adjustment_tpu_torch import kernel_build
     from bundle_adjustment_tpu_torch.parallel import kernels
 
+    fits = kernel_build.library().ba_prepare_fits
+    assert fits(32, 1, 1, 0) == 1
+    h100 = "H100" in torch.cuda.get_device_name(0)
+    seen = set()
+    for V in range(1, kernels.MAX_BLOCK_THREADS // 32 + 1):
+        for pb in range(32, kernels.MAX_BLOCK_THREADS // V + 1, 32):
+            for G in range(1, kernels.MAX_G + 1):
+                model = kernels.k2_tile_fits(pb, V, G)
+                assert fits(pb, V, G, kernels.MAX_SMEM_H100) == int(model), \
+                    (pb, V, G)
+                if h100:
+                    assert fits(pb, V, G, 0) == int(model), (pb, V, G)
+                seen.add(model)
+    assert seen == {True, False}
+
+
+def _g16_v4_problem(dev):
+    """1,280 points seen 4 times each by 130 images, with 13 distortion
+    terms (affinity, tangential, radial 1-3, Zernike-gradient fringes 4, 5,
+    6, 12, Zernike-X 5, 7): G = 16 at V = 4."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.distortion import (
+        DistortionSpecBuilder, DistortionType)
+
+    zg, zx = DistortionType.ZERNIKE_GRADIENT, DistortionType.ZERNIKE_X
+    spec = (DistortionSpecBuilder().add_affinity().add_tangential()
+            .add_radial_order(1).add_radial_order(2).add_radial_order(3)
+            .add_zernike(zg, 4).add_zernike(zg, 5).add_zernike(zg, 6)
+            .add_zernike(zg, 12).add_zernike(zx, 5).add_zernike(zx, 7)
+            .build())
+    prob_h, state_h, spec = synthetic.build_problem(1280, 130, 4, seed=9,
+                                                    spec=spec)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float32)
+    st = convert.state_to_torch(state_h, dev, torch.float32)
+    assert prob.free_global.shape[0] == 3 + spec.num_coefficients == 16
+    return prob, st, spec
+
+
+def test_choose_pb_fits_k2_at_g16_v4(case):
+    """At V = 4, G = 16 the largest block the thread limit allows (pb = 128)
+    does not fit K2's tile; `choose_pb(P, V, G)` picks one that does, and K2
+    and K1 run there against their plain versions.  The Refiner lays its
+    f32 problem out through `choose_pb` with its own G, and its step runs
+    through K2 and K1 at that block."""
+    from bundle_adjustment_tpu_torch.parallel import hilo, kernels, refine
+
     P, V, M, G = 1280, 4, 130, 16
-    assert kernels.choose_pb(P, V) == 128
     assert not kernels.k2_tile_fits(128, V, G)
     pb = kernels.choose_pb(P, V, G)
     assert pb == 64 and kernels.k2_tile_fits(pb, V, G)
@@ -473,6 +523,16 @@ def test_choose_pb_fits_k2_at_g16_v4(case):
     oc, og = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
     rc, rg = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
     assert _scaled(oc, rc) < 2e-4 and _scaled(og, rg) < 2e-4
+
+    prob, st, spec = _g16_v4_problem(torch.device("cuda", 0))
+    r = refine.Refiner(prob, spec, use_kernels=True)
+    assert r.fmp32.vm_pb == 96
+    kernels.reset_launch_counts()
+    s, max_dx, omega0, it = r.step(hilo.from_f32(st), cg_maxiter=50)
+    counts = kernels.launch_counts()
+    assert counts["prepare_reduction"] > 0 and counts["schur_matvec"] > 0
+    assert torch.isfinite(max_dx) and torch.isfinite(omega0)
+    assert bool(torch.isfinite(hilo.to_f64(s).points).all())
 
 
 def test_zernike_rows_through_k1_and_k2(case):

@@ -237,11 +237,44 @@ def test_pack_fm_layout_matches_jax(small32):
 
 
 def test_choose_pb():
-    assert TK.choose_pb(100352, 12) == 32
-    assert TK.choose_pb(512, 4) == 128
-    assert TK.choose_pb(512, 8) == 64
-    with pytest.raises(ValueError):
-        TK.choose_pb(100, 4)
+    assert TK.choose_pb(100352, 12, 10) == 32
+    assert TK.choose_pb(512, 4, 10) == 128
+    assert TK.choose_pb(512, 8, 10) == 64
+    # G = 16: K2's tile of 102 rows leaves no room for its scratch at
+    # V * pb = 512, so the block halves
+    assert not TK.k2_tile_fits(128, 4, 16) and TK.k2_tile_fits(64, 4, 16)
+    assert TK.choose_pb(512, 4, 16) == 64
+    assert TK.choose_pb(512, 8, 16) == 32
+    with pytest.raises(ValueError, match="G=10"):
+        TK.choose_pb(100, 4, 10)
+    with pytest.raises(ValueError, match="G=16"):
+        TK.choose_pb(512, 16, 16)
+
+
+def test_k2_tile_model_reads_the_kernels_constants():
+    """`k2_tile_fits` models K2's shared memory from csrc: its chunk step,
+    row pad, ring header, thread and G limits and the formula of
+    `prepare_user_bytes` (tests/test_torch_cuda.py also holds the model
+    against the built kernel's own plan)."""
+    import re
+
+    from bundle_adjustment_tpu_torch import kernel_build
+
+    src = {s.name: s.read_text() for s in kernel_build.sources()}
+    k2, common = src["prepare_reduction.cu"], src["common.cuh"]
+
+    def const(text, name):
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert m, name
+        return int(m.group(1))
+
+    assert const(k2, "kChunkStep") == TK.K2_CHUNK_STEP
+    assert const(k2, "kRowPad") == TK.K2_ROW_PAD
+    assert const(common, "kRingHeader") == TK.RING_HEADER
+    assert const(common, "kMaxBlockThreads") == TK.MAX_BLOCK_THREADS
+    assert const(common, "kMaxG") == TK.MAX_G
+    assert ("(nthr * (cw + kRowPad) + (3 + 6 * G) * (pb + 1) + "
+            "kMaxWarps * kMaxG)") in " ".join(k2.split())
 
 
 # (N, M, images used, seed): uneven images, M = 130, empty images, images of

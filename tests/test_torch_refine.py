@@ -166,7 +166,8 @@ def test_converge_from_synthetic_reaches_tolerance():
     prob = convert.problem_to_torch(prob_h, CPU, torch.float32)
     st = convert.state_to_torch(state_h, CPU, torch.float32)
     fmp = TE.fm_problem(prob)
-    fv = TE.to_view_major(fmp, kernels.choose_pb(fmp.num_points, fmp.views))
+    fv = TE.to_view_major(fmp, kernels.choose_pb(
+        fmp.num_points, fmp.views, fmp.free_global.shape[0]))
     lm_result = lm.run(fv, st, spec)
     refiner = refine.Refiner(prob, spec, use_kernels=True)
     prob64 = convert.problem_to_torch(prob_h, CPU, torch.float64)
@@ -305,3 +306,17 @@ def test_refinement_with_extras_reaches_the_f64_optimum(case, use_kernels):
     omega0 = float(r.gradient64(r.fmp64, full)[3])
     assert abs(omega0 - om_ref) / om_ref < 1e-6
     _assert_distances(np_(full.points), np_(st.points))
+
+
+def test_refiner_layout_fits_k2_at_g16_v4():
+    """The Refiner lays its f32 problem out through `choose_pb` with its
+    own G: at V = 4, G = 16 (1,536 points after the engine's padding) the
+    largest block whose K2 tile fits (96), not the largest the thread
+    limit allows (128, whose tile K2 refuses)."""
+    from test_torch_cuda import _g16_v4_problem
+
+    prob, _, spec = _g16_v4_problem(CPU)
+    r = refine.Refiner(prob, spec, use_kernels=True)
+    assert r.fmp32.num_points % 128 == 0
+    assert r.fmp32.vm_pb == 96 and kernels.k2_tile_fits(96, 4, 16)
+    assert not kernels.k2_tile_fits(128, 4, 16)
