@@ -25,9 +25,11 @@ from .parallel.rcs import RCSProblem
 _INDEX_FIELDS = ("obs_point", "obs_image", "img_perm", "img_block_starts")
 _FLOAT_FIELDS = ("obs_xy", "obs_weight", "r0", "free_point", "free_eo",
                  "free_global")
-# optional fields (None = absent): scale bars, Helmert datum, direct
-# observations (see parallel/rcs.RCSProblem)
-_OPT_INDEX_FIELDS = ("sb_a", "sb_b", "dpg_idx", "dpg_axis")
+# optional fields (None = absent): the camera of each image (absent: one
+# camera), scale bars, Helmert datum, direct observations (see
+# parallel/rcs.RCSProblem)
+_OPT_INDEX_FIELDS = ("cam_of_image", "sb_a", "sb_b", "dpg_idx",
+                     "dpg_axis")
 _OPT_FLOAT_FIELDS = ("sb_length", "sb_weight", "datum_mask_d", "dp_w",
                      "dp_val", "de_w", "de_val", "dg_w", "dg_val", "dpg_val",
                      "dpg_cov")
@@ -37,10 +39,8 @@ _UNSUPPORTED = ("point2obs", "img2obs")
 
 
 def refuse_unsupported(problem) -> None:
-    """Raise NotImplementedError for a problem with more than one camera
-    or with the block-layout engine's visibility tables."""
-    if tuple(problem.r0.shape) != (1,):
-        raise NotImplementedError("the port takes single-camera problems")
+    """Raise NotImplementedError for a problem with the block-layout
+    engine's visibility tables."""
     for name in _UNSUPPORTED:
         if getattr(problem, name, None) is not None:
             raise NotImplementedError(

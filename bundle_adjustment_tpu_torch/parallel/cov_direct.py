@@ -1,5 +1,5 @@
 """Direct (dense factored) posterior covariance: the one-program (fused)
-path of `bundle_adjustment_tpu/parallel/cov_direct.py`, single camera.
+path of `bundle_adjustment_tpu/parallel/cov_direct.py`.
 
 The reduced camera + global system S (u = 6M + G; 3,010 at 500 images) is
 small, so it is assembled densely once, factorised, inverted, and every
@@ -23,9 +23,11 @@ camera-major by indexed adds, the corrections are pair blocks (see
 
 Every function takes the feature-major `engine.FMProblem` in the uniform
 point-major layout (observation n = point * V + view): the chunked passes
-slice observations by point.  Single camera only (`linearize` refuses
-more).  Diagonal direct observations enter through the lineariser (Hpp,
-extra_g) and extra_c; scale bars, an inner-constraint datum and populated
+slice observations by point.  Multi-camera blocks (the engine's compact
+rows) are materialised to the masked global rows first
+(`engine.materialize_global_rows`, O(C Gp N): ~1.5 GB in f64 at 100k
+points with C = 4), as in the JAX module.  Diagonal direct observations
+enter through the lineariser (Hpp, extra_g) and extra_c; scale bars, an inner-constraint datum and populated
 direct groups (`FMProblem.has_extras`) have no branch here, as in the JAX
 module, and are refused.
 
@@ -132,6 +134,7 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
         raise NotImplementedError(
             "cov_direct has no branch for scale bars, an inner-constraint "
             "datum or a populated direct group")
+    b = engine.materialize_global_rows(p, b)
     M, G2 = p.num_images, len(b.Jg) // 2
     K = 6 * M
     dt, dev = b.Jp[0].dtype, b.Jp[0].device
@@ -179,6 +182,7 @@ def panel_rows(p: engine.FMProblem, b: engine.FMBlocks):
     """(hpc2 [18, N], brow2 [18, N], W_rows [3G, P]): Hpc as rows, its
     Hpp^{-1}-applied twin (row a*6 + e of Hpp^{-1} Hpc per observation),
     and W = Hpp^{-1} Hpg as rows."""
+    b = engine.materialize_global_rows(p, b)
     G2 = len(b.Jg) // 2
     hpc2 = _hpc_rows2d(b)
     hinv_obs = [engine._point_expand(p, h) for h in b.Hpp_inv]
@@ -218,6 +222,7 @@ def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
     reproducible bit for bit (the covariance feeds no stall rule).  With
     ``S0`` returns the corrected S (`apply_corrections`, in place on S0),
     else (Acc [K, K], Acg [K, G])."""
+    b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
     M, V, G2 = p.num_images, p.views, len(b.Jg) // 2
     K = 6 * M
@@ -323,6 +328,7 @@ def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int, chunk: int):
 def recovery_rows(p: engine.FMProblem, b: engine.FMBlocks):
     """(hpc2 [18, N], hinv_rows [6, P], hpg_rows [3G, P]): the rows the
     row-gather recovery (`_pcd_chunk`) reads."""
+    b = engine.materialize_global_rows(p, b)
     return _hpc_rows2d(b), torch.stack(list(b.Hpp_inv)), _hpg_rows2d(p, b)
 
 
@@ -371,6 +377,7 @@ def point_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks, Qred,
     DENSE_RECOVERY_U_MAX and no ``chunk``: dense panels
     (`_pcd_dense_all`); otherwise row gathers of Qred (`_pcd_chunk`),
     ``chunk`` points at a time.  Returns [k, 3, 3]."""
+    b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
     G2 = len(b.Jg) // 2
     u = Qred.shape[0]
@@ -408,6 +415,7 @@ def point_pair_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks,
     """Cross-point 3x3 cofactor blocks Q[p, q] = C_p^T S^{-1} C_q of the
     given (p, q) pairs [k, 2]: the off-diagonal dispersion structure.
     Returns [k, 3, 3]."""
+    b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
     M, G2, V = p.num_images, len(b.Jg) // 2, p.views
     K = 6 * M
@@ -442,7 +450,8 @@ def cov_all(fmp: engine.FMProblem, state, spec, cam_gather=None):
     ``fmp``: linearise at damping 0 (``cam_gather``: the K3 wrapper,
     `kernels.make_cam_gather`, f32 only), the dense reduced system, its
     inverse and the recovery (`bench.py`'s fused covariance program)."""
-    b = engine.linearize(fmp, state, spec, 0.0, cam_gather=cam_gather)
+    b = engine.materialize_global_rows(
+        fmp, engine.linearize(fmp, state, spec, 0.0, cam_gather=cam_gather))
     S = assemble_reduced_dense(fmp, b)
     Qred = reduced_inverse(S)
     del S

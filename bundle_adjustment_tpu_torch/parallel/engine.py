@@ -1,5 +1,5 @@
 """Feature-major RCS engine (PyTorch port of
-`bundle_adjustment_tpu/parallel/engine.py`, single-camera scale path).
+`bundle_adjustment_tpu/parallel/engine.py`).
 
 Every per-observation quantity is a feature row of length N.  Reductions:
 
@@ -7,7 +7,17 @@ Every per-observation quantity is a feature row of length N.  Reductions:
               order [P/pb, V, pb]) -> sum over views
   per image : static permutation to image-sorted order (pad row N), 512-row
               block sums, cumsum-diff over block boundaries
+  per camera: the per-image sums times the [C, M] image -> camera one-hot
+              (a fixed-order product: no atomics)
   global    : plain row sums / small matrix products
+
+A network of C > 1 cameras runs in the COMPACT layout (`FMBlocks`): the
+2 Gp unmasked local rows of the global parameters (Gp = 3 + K per camera)
+plus each observation's camera id, O(Gp N) memory instead of the
+O(C Gp N) masked rows; `materialize_global_rows` builds the masked rows
+for consumers that index them (`cov_direct`).  The CUDA kernels take the
+single-camera packed rows only: ``use_kernels=True`` on a multi-camera
+problem raises ValueError.
 
 ``lm_step(use_kernels=True)`` runs the hand-written CUDA kernels of
 `kernels.py` for CUDA tensors (K3 camera gather, K2 fused assembly, K1
@@ -67,17 +77,26 @@ class FMProblem(NamedTuple):
     # the RCSProblem's has_extras (scale bars, inner constraints or a
     # populated direct group): the rows here do not carry those
     has_extras: bool = False
+    # camera of each image; C = r0.shape[0]
+    cam_of_image: torch.Tensor | None = None  # [M] int32
 
 
 class FMBlocks(NamedTuple):
-    """Linearisation in feature rows.  J*/PJ* are tuples of [N] rows."""
+    """Linearisation in feature rows.  J*/PJ* are tuples of [N] rows.
+
+    COMPACT mode (C > 1): ``Jg`` / ``PJg`` are None and the global rows are
+    carried per LOCAL slot (2 Gp rows, Gp = 3 + K) in ``Jg_loc`` /
+    ``PJg_loc`` plus the camera of each observation ``cam_obs``.  The
+    masked global row of slot g = c Gp + g' is Jg_loc[g'] * (cam_obs == c)
+    * free_global[g]; consumers reduce per image and sum per camera (each
+    image belongs to one camera) instead of materialising it."""
 
     Jp: tuple        # 6 rows: (i, a) for i in (x,y), a in (X,Y,Z)
     PJp: tuple       # 6 rows
     Jc: tuple        # 12 rows: (i, a) over EO
     PJc: tuple       # 12 rows
-    Jg: tuple        # 2G rows: (i, g) over IO+distortion
-    PJg: tuple       # 2G rows
+    Jg: tuple | None   # 2G rows: (i, g) over IO+distortion (None = compact)
+    PJg: tuple | None  # 2G rows (None = compact)
     w: tuple         # 2 rows (misclosure)
     Pw: tuple        # 2 rows
     Hpp_inv: tuple   # 6 rows [P]: symmetric 3x3 inverse (00,01,02,11,12,22)
@@ -87,6 +106,40 @@ class FMBlocks(NamedTuple):
     extra_c: torch.Tensor | None  # [M, 6]
     extra_g: torch.Tensor         # [G]
     omega0: torch.Tensor          # scalar
+    # compact multi-camera fields (None in the single-camera layout)
+    Jg_loc: tuple | None = None          # 2 Gp unmasked local-slot rows
+    PJg_loc: tuple | None = None         # 2 Gp rows
+    cam_obs: torch.Tensor | None = None  # [N] int64
+
+
+def num_cameras(p) -> int:
+    """C of an FMProblem or RCSProblem (its r0 entries)."""
+    return int(p.r0.shape[0])
+
+
+def refuse_kernels(p) -> None:
+    """The CUDA kernels take the single-camera packed rows: raise
+    ValueError for a multi-camera problem (FMProblem or RCSProblem), whose
+    compact rows they do not read (as the JAX `kernels.pack_fm` does)."""
+    if num_cameras(p) > 1:
+        raise ValueError(
+            f"the CUDA kernels take single-camera problems; this one has "
+            f"{num_cameras(p)} cameras (the compact multi-camera rows run "
+            "the plain path: use_kernels=False)")
+
+
+def _camera_onehot(p: FMProblem, dtype):
+    """[C, M] image -> camera one-hot."""
+    C = num_cameras(p)
+    cams = torch.arange(C, device=p.cam_of_image.device)
+    return (p.cam_of_image.long()[None, :] == cams[:, None]).to(dtype)
+
+
+def _camera_sum(p: FMProblem, per_image):
+    """[M, F] per-image sums -> [C, F] per-camera sums, as one fixed-order
+    product with the image -> camera one-hot (deterministic, unlike an
+    indexed add with atomics)."""
+    return _camera_onehot(p, per_image.dtype) @ per_image
 
 
 def image_positions(img_perm, N: int):
@@ -116,6 +169,12 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
     w = p.obs_weight
     img_pos, img_block_valid = image_positions(p.img_perm,
                                                p.obs_image.shape[0])
+    cam_of_image = p.cam_of_image
+    if cam_of_image is None:
+        if num_cameras(p) != 1:
+            raise ValueError("a multi-camera RCSProblem needs cam_of_image")
+        cam_of_image = torch.zeros(p.num_images, dtype=torch.int32,
+                                   device=p.obs_image.device)
     return FMProblem(
         obs_image=p.obs_image,
         obs_x=p.obs_xy[:, 0].contiguous(), obs_y=p.obs_xy[:, 1].contiguous(),
@@ -129,6 +188,7 @@ def fm_problem(p: rcs.RCSProblem) -> FMProblem:
         img_pos=img_pos, img_block_valid=img_block_valid,
         dp_w=p.dp_w, dp_val=p.dp_val, de_w=p.de_w, de_val=p.de_val,
         dg_w=p.dg_w, dg_val=p.dg_val, has_extras=p.has_extras,
+        cam_of_image=cam_of_image,
     )
 
 
@@ -191,20 +251,43 @@ def pad_problem(problem: rcs.RCSProblem, state: ParamState,
 # ---------------------------------------------------------------------------
 
 def _point_sum(p: FMProblem, row):
-    """[N] -> [P] over the uniform views (layout-aware)."""
+    """[..., N] -> [..., P] over the uniform views (layout-aware)."""
+    lead = row.shape[:-1]
     if p.vm_pb is None:
-        return row.reshape(p.num_points, p.views).sum(dim=1)
+        return row.reshape(*lead, p.num_points, p.views).sum(dim=-1)
     nb = p.num_points // p.vm_pb
-    return row.reshape(nb, p.views, p.vm_pb).sum(dim=1).reshape(-1)
+    return row.reshape(*lead, nb, p.views, p.vm_pb).sum(dim=-2).reshape(
+        *lead, -1)
 
 
 def _point_expand(p: FMProblem, col):
-    """[P] -> [N] broadcast over views (layout-aware)."""
+    """[..., P] -> [..., N] broadcast over views (layout-aware)."""
+    lead = col.shape[:-1]
     if p.vm_pb is None:
-        return col[:, None].expand(p.num_points, p.views).reshape(-1)
+        return col[..., None].expand(*lead, p.num_points, p.views).reshape(
+            *lead, -1)
     nb = p.num_points // p.vm_pb
-    return col.reshape(nb, 1, p.vm_pb).expand(
-        nb, p.views, p.vm_pb).reshape(-1)
+    return col.reshape(*lead, nb, 1, p.vm_pb).expand(
+        *lead, nb, p.views, p.vm_pb).reshape(*lead, -1)
+
+
+def point_lanes(p: FMProblem, point_ids):
+    """Lanes [k, V] of the observations of the points ``point_ids`` [k]
+    (int64) in either lane layout."""
+    v = torch.arange(p.views, device=point_ids.device)
+    if p.vm_pb is None:
+        return point_ids[:, None] * p.views + v[None, :]
+    pb = p.vm_pb
+    return ((point_ids // pb) * (pb * p.views) + point_ids % pb)[:, None] \
+        + v[None, :] * pb
+
+
+def lane_points(p: FMProblem, lanes):
+    """Point id of each lane (int64), either lane layout."""
+    if p.vm_pb is None:
+        return lanes // p.views
+    pb = p.vm_pb
+    return (lanes // (pb * p.views)) * pb + lanes % pb
 
 
 def view_major_perm(P: int, V: int, pb: int) -> np.ndarray:
@@ -250,17 +333,26 @@ def to_view_major(p: FMProblem, pb: int) -> FMProblem:
 
 
 def _image_sum_stack(p: FMProblem, rows):
-    """Per-image sums of F feature rows: returns [M, F].  One row gather
-    into image-sorted order + 512-block sums + cumsum-diff (the numerics
-    of the reference's blocked image reduction)."""
-    x = torch.stack(rows, dim=1)  # [N, F]
-    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-    xi = xp[p.img_perm.long()]  # [Nip, F]
-    nb = xi.shape[0] // rcs.IMG_BLOCK
-    bl = xi.reshape(nb, rcs.IMG_BLOCK, -1).sum(dim=1)
-    cs = torch.cat([bl.new_zeros((1, bl.shape[1])), torch.cumsum(bl, dim=0)])
+    """Per-image sums of F feature rows [..., N]: returns [..., M, F].  One
+    row gather into image-sorted order + 512-block sums + cumsum-diff (the
+    numerics of the reference's blocked image reduction)."""
+    x = torch.stack(rows, dim=-1)  # [..., N, F]
+    lead = x.shape[:-2]
+    xp = torch.cat([x, x.new_zeros((*lead, 1, x.shape[-1]))], dim=-2)
+    xi = xp[..., p.img_perm.long(), :]  # [..., Nip, F]
+    nb = xi.shape[-2] // rcs.IMG_BLOCK
+    return _blocks_to_images(p, xi.reshape(
+        *lead, nb, rcs.IMG_BLOCK, x.shape[-1]).sum(dim=-2))
+
+
+def _blocks_to_images(p: FMProblem, bl):
+    """512-block sums [..., Nip / 512, F] of the image-sorted layout ->
+    per-image sums [..., M, F] by cumsum-diff over the block boundaries."""
+    lead = bl.shape[:-2]
+    cs = torch.cat([bl.new_zeros((*lead, 1, bl.shape[-1])),
+                    torch.cumsum(bl, dim=-2)], dim=-2)
     bs = p.img_block_starts.long()
-    return cs[bs[1:]] - cs[bs[:-1]]
+    return cs[..., bs[1:], :] - cs[..., bs[:-1], :]
 
 
 def _sym3_inverse(m00, m01, m02, m11, m12, m22):
@@ -295,26 +387,26 @@ def _global_vector(state: ParamState):
 
 
 def _gather_rows(p: FMProblem, tbl, ncols, cam_gather=None):
-    """tbl [M, c] -> ``ncols`` rows [N] of tbl[obs_image]."""
+    """tbl [..., M, c] -> ``ncols`` rows [..., N] of tbl[obs_image]
+    (``cam_gather`` takes an [M, c] table only)."""
     if cam_gather is not None:
         rows = cam_gather(tbl)
         return [rows[a] for a in range(ncols)]
     idx = p.obs_image.long()
-    return [tbl[:, a][idx] for a in range(ncols)]
+    return [tbl[..., a][..., idx] for a in range(ncols)]
 
 
 def linearize(p: FMProblem, state: ParamState, spec, damping,
               state_lo: ParamState | None = None,
               cam_gather=None) -> FMBlocks:
     """Jacobian rows, misclosures, point blocks and global diagonal at
-    ``state`` (single camera).  ``cam_gather``: optional
-    fn(tbl [M, c<=8]) -> [8, N] replacing the per-row gathers (the K3
-    wrapper, `kernels.make_cam_gather`).  ``state_lo``: low-order part of
-    a two-float state (see ops.fm.project_rows)."""
+    ``state``; C > 1 cameras give the compact global rows (`FMBlocks`).
+    ``cam_gather``: optional fn(tbl [M, c<=8]) -> [8, N] replacing the
+    per-row EO gathers (the K3 wrapper, `kernels.make_cam_gather`).
+    ``state_lo``: low-order part of a two-float state (see
+    ops.fm.project_rows)."""
     from ..ops import fm
 
-    if state.io.shape[0] != 1:
-        raise NotImplementedError("the port takes single-camera problems")
     pts = state.points
     X = _point_expand(p, pts[:, 0])
     Y = _point_expand(p, pts[:, 1])
@@ -326,11 +418,19 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
         lo = tuple(_point_expand(p, state_lo.points[:, a]) for a in range(3))
         lo = lo + tuple(_gather_rows(p, state_lo.eo[:, :3], 3, cam_gather))
 
+    C = state.io.shape[0]
     K = state.dist.shape[1]
-    G = 3 + K
-    iog = [state.io[0, a].expand_as(X) for a in range(3)]
-    cg = [state.dist[0, k].expand_as(X) for k in range(K)]
-    r0 = p.r0[0].expand_as(X)
+    Gp = 3 + K
+    if C == 1:
+        iog = [state.io[0, a].expand_as(X) for a in range(3)]
+        cg = [state.dist[0, k].expand_as(X) for k in range(K)]
+        r0 = p.r0[0].expand_as(X)
+        cams = None
+    else:
+        cams = p.cam_of_image.long()[p.obs_image.long()]
+        iog = [state.io[:, a][cams] for a in range(3)]
+        cg = [state.dist[:, k][cams] for k in range(K)]
+        r0 = p.r0[cams]
 
     rows_x, rows_y, pred_x, pred_y = fm.jacobian_rows(
         X, Y, Z, iog[0], iog[1], iog[2],
@@ -361,9 +461,17 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
             + tuple(p.wxy * rows[a] + p.wyy * rows[n + a] for a in range(n))
 
     fg = p.free_global
-    Jg = tuple(gx[g] * fg[g] for g in range(G)) \
-        + tuple(gy[g] * fg[g] for g in range(G))
-    PJg = apply_w(Jg)
+    if C == 1:
+        Jg = tuple(gx[g] * fg[g] for g in range(Gp)) \
+            + tuple(gy[g] * fg[g] for g in range(Gp))
+        PJg = apply_w(Jg)
+        Jg_loc = PJg_loc = None
+    else:
+        # compact: the 2 Gp unmasked local rows + the camera of each
+        # observation (FMBlocks)
+        Jg = PJg = None
+        Jg_loc = tuple(gx) + tuple(gy)
+        PJg_loc = apply_w(Jg_loc)
     PJp = apply_w(Jp)
     PJc = apply_w(Jc)
     Pw = (p.wxx * w0 + p.wxy * w1, p.wxy * w0 + p.wyy * w1)
@@ -395,10 +503,22 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     bp = tuple(bp)
     Hpp_inv = _sym3_inverse(m00 + e0, m01, m02, m11 + e1, m12, m22 + e2)
 
-    Hgg_diag = torch.stack([torch.sum(Jg[g] * PJg[g] + Jg[G + g] * PJg[G + g])
-                            for g in range(G)])
-    bg = torch.stack([torch.sum(Jg[g] * Pw[0] + Jg[G + g] * Pw[1])
-                      for g in range(G)])
+    if C == 1:
+        Hgg_diag = torch.stack([
+            torch.sum(Jg[g] * PJg[g] + Jg[Gp + g] * PJg[Gp + g])
+            for g in range(Gp)])
+        bg = torch.stack([torch.sum(Jg[g] * Pw[0] + Jg[Gp + g] * Pw[1])
+                          for g in range(Gp)])
+    else:
+        # per-image sums of the Gp diagonal / rhs rows, summed per camera;
+        # free applied once (0/1 mask)
+        rows_d = [Jg_loc[g] * PJg_loc[g] + Jg_loc[Gp + g] * PJg_loc[Gp + g]
+                  for g in range(Gp)]
+        rows_b = [Jg_loc[g] * Pw[0] + Jg_loc[Gp + g] * Pw[1]
+                  for g in range(Gp)]
+        camsum = _camera_sum(p, _image_sum_stack(p, rows_d + rows_b))
+        Hgg_diag = camsum[:, :Gp].reshape(-1) * fg
+        bg = camsum[:, Gp:].reshape(-1) * fg
     extra_g = damping * Hgg_diag + (1.0 - fg)
     if p.dg_w is not None:
         w_dg = p.dg_val - _global_vector(state)
@@ -409,24 +529,45 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     return FMBlocks(Jp=Jp, PJp=PJp, Jc=Jc, PJc=PJc, Jg=Jg, PJg=PJg,
                     w=(w0, w1), Pw=Pw, Hpp_inv=Hpp_inv, bp=bp,
                     bc=None, bg=bg, extra_c=None, extra_g=extra_g,
-                    omega0=omega0)
+                    omega0=omega0, Jg_loc=Jg_loc, PJg_loc=PJg_loc,
+                    cam_obs=cams)
 
 
 # ---------------------------------------------------------------------------
 # reduced system
 # ---------------------------------------------------------------------------
 
+def _xg_obs_rows(p: FMProblem, b: FMBlocks, xg):
+    """Compact mode: Gp rows [..., N] of (free * xg) at each observation's
+    camera slot, so that Sum_g PJg[g] xg[g] == Sum_g' PJg_loc[g'] xs[g']."""
+    Gp = len(b.Jg_loc) // 2
+    xg_eff = (xg * p.free_global).reshape(*xg.shape[:-1], -1, Gp)
+    return [xg_eff[..., b.cam_obs, g] for g in range(Gp)]
+
+
+def _global_terms(p: FMProblem, b: FMBlocks, xg, weighted: bool):
+    """(rows, factors) with Sum_g rows[i Gn + g] * factors[g] = (P) Jg xg
+    per observation, i in (x, y): the masked rows and xg[g] (single
+    camera), or the compact local rows and `_xg_obs_rows`."""
+    if b.Jg is None:
+        return (b.PJg_loc if weighted else b.Jg_loc), _xg_obs_rows(p, b, xg)
+    rows = b.PJg if weighted else b.Jg
+    return rows, [xg[..., g, None] for g in range(len(rows) // 2)]
+
+
 def _t_rows(p: FMProblem, b: FMBlocks, xc, xg, cam_gather=None):
-    """t = P (Jc xc + Jg xg) per observation: 2 rows [N]."""
+    """t = P (Jc xc + Jg xg) per observation: 2 rows [..., N] for xc
+    [..., M, 6], xg [..., G]."""
     xcg = _gather_rows(p, xc, 6, cam_gather)
-    G2 = len(b.Jg) // 2
+    rows, xs = _global_terms(p, b, xg, weighted=True)
+    Gn = len(xs)
     t = []
     for i in (0, 1):
         acc = 0.0
         for a in range(6):
             acc = acc + b.PJc[i * 6 + a] * xcg[a]
-        for g in range(G2):
-            acc = acc + b.PJg[i * G2 + g] * xg[g]
+        for g in range(Gn):
+            acc = acc + rows[i * Gn + g] * xs[g]
         t.append(acc)
     return t
 
@@ -438,8 +579,29 @@ def _point_solve_expand(p: FMProblem, b: FMBlocks, t):
     return [_point_expand(p, z[a]) for a in range(3)]
 
 
+def _global_out(p: FMProblem, b: FMBlocks, u, qc):
+    """(Hcx-type per-image sums [..., M, 6] of the rows ``qc``, Jg^T u
+    [..., G]) for the observation rows u = (u_x, u_y): single camera by
+    row sums; compact by the Gp local rows reduced per image beside
+    ``qc``, summed per camera and masked by free_global."""
+    if b.Jg is None:
+        Gp = len(b.Jg_loc) // 2
+        qg = [b.Jg_loc[g] * u[0] + b.Jg_loc[Gp + g] * u[1]
+              for g in range(Gp)]
+        stack = _image_sum_stack(p, qc + qg)
+        og = _camera_sum(p, stack[..., 6:])
+        return stack[..., :6], \
+            og.reshape(*og.shape[:-2], -1) * p.free_global
+    G2 = len(b.Jg) // 2
+    og = torch.stack([torch.sum(b.Jg[g] * u[0] + b.Jg[G2 + g] * u[1], dim=-1)
+                      for g in range(G2)], dim=-1)
+    return _image_sum_stack(p, qc), og
+
+
 def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg):
-    """Implicit S @ [xc; xg], feature-major: returns ([M, 6], [G])."""
+    """Implicit S @ [xc; xg], feature-major: returns ([..., M, 6],
+    [..., G]); a leading axis of xc [..., M, 6] / xg [..., G] runs several
+    right-hand sides in one pass (temporaries [..., N] per row)."""
     t = _t_rows(p, b, xc, xg)
     zo = _point_solve_expand(p, b, t)
     tv = []
@@ -447,10 +609,7 @@ def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg):
         u = sum(b.PJp[i * 3 + a] * zo[a] for a in range(3))
         tv.append(t[i] - u)
     qc = [b.Jc[a] * tv[0] + b.Jc[6 + a] * tv[1] for a in range(6)]
-    G2 = len(b.Jg) // 2
-    og = torch.stack([torch.sum(b.Jg[g] * tv[0] + b.Jg[G2 + g] * tv[1])
-                      for g in range(G2)])
-    oc = _image_sum_stack(p, qc)
+    oc, og = _global_out(p, b, tv, qc)
     return oc + b.extra_c * xc, og + b.extra_g * xg
 
 
@@ -466,18 +625,36 @@ def prepare(p: FMProblem, state: ParamState, spec, damping,
 def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
                   couple_global: bool = False):
     """`prepare` minus the linearisation: the fused per-image reduction of
-    39 (+ 6G with ``couple_global``) feature rows, the global rhs
-    correction and the Sgg product pieces, finished by
-    `finish_reduction`."""
-    G2 = len(b.Jg) // 2
+    39 (+ 6G with ``couple_global``; compact: + 6 Gp local Hcg rows)
+    feature rows, the global rhs correction and the Sgg product pieces,
+    finished by `finish_reduction`."""
+    G2 = p.free_global.shape[0]
+    compact = b.Jg is None
+    fg = p.free_global
 
     # z0 = Hpp^{-1} bp expanded; u0 = P Jp z0
     z0o = [_point_expand(p, z) for z in _hinv_apply(b.Hpp_inv, *b.bp)]
     u0 = [sum(b.PJp[i * 3 + a] * z0o[a] for a in range(3)) for i in (0, 1)]
 
     # Hpg per point [3][G][P] and W = Hpp^{-1} Hpg [G][3][P]
-    hpg = [[_point_sum(p, b.Jp[a] * b.PJg[g] + b.Jp[3 + a] * b.PJg[G2 + g])
-            for g in range(G2)] for a in range(3)]
+    if compact:
+        # per-camera point sums of the Gp local products: O(Gp P) output,
+        # the [C, N] masked products transient; free applied once
+        Gp = len(b.Jg_loc) // 2
+        C = G2 // Gp
+        sel = torch.stack([(b.cam_obs == c).to(b.Jp[0].dtype)
+                           for c in range(C)])                    # [C, N]
+        hpg = [[None] * G2 for _ in range(3)]
+        for a in range(3):
+            for g in range(Gp):
+                q = b.Jp[a] * b.PJg_loc[g] + b.Jp[3 + a] * b.PJg_loc[Gp + g]
+                per_cam = _point_sum(p, q * sel)                  # [C, P]
+                for c in range(C):
+                    hpg[a][c * Gp + g] = per_cam[c] * fg[c * Gp + g]
+    else:
+        hpg = [[_point_sum(p, b.Jp[a] * b.PJg[g]
+                           + b.Jp[3 + a] * b.PJg[G2 + g])
+                for g in range(G2)] for a in range(3)]
     W = [_hinv_apply(b.Hpp_inv, hpg[0][g], hpg[1][g], hpg[2][g])
          for g in range(G2)]
 
@@ -500,7 +677,20 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
             jpj = b.Jc[e] * b.PJc[f] + b.Jc[6 + e] * b.PJc[6 + f]
             corr = sum(he[a] * hp[a][f] for a in range(3))
             rows.append(jpj - corr)
-    if couple_global:
+    scg_corr = None
+    if couple_global and compact:
+        # Hcg is camera-local (an image's rows touch its own camera's
+        # slots only): 6 Gp local rows in the image stack, expanded in
+        # finish_reduction.  The Schur correction Hcp Hpp^{-1} Hpg is not
+        # local (shared points couple images to other cameras' slots):
+        # `_scg_correction`
+        fg_obs = [fg.reshape(C, Gp)[:, g][b.cam_obs] for g in range(Gp)]
+        for e in range(6):
+            for g in range(Gp):
+                rows.append((b.Jc[e] * b.PJg_loc[g]
+                             + b.Jc[6 + e] * b.PJg_loc[Gp + g]) * fg_obs[g])
+        scg_corr = _scg_correction(p, hp, W)
+    elif couple_global:
         # Scg rows (6G): Hcg - Hcp Hpp^{-1} Hpg, exact per observation
         Wobs = [[_point_expand(p, W[g][a]) for a in range(3)]
                 for g in range(G2)]
@@ -509,28 +699,85 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
                 hcg = b.Jc[e] * b.PJg[g] + b.Jc[6 + e] * b.PJg[G2 + g]
                 corr = sum(hp[a][e] * Wobs[g][a] for a in range(3))
                 rows.append(hcg - corr)
-    red = _image_sum_stack(p, rows)  # [M, 39 (+ 6G)]
+    red = _image_sum_stack(p, rows)  # [M, 39 (+ 6G | 6Gp)]
 
-    rg_corr = torch.stack([torch.sum(b.Jg[g] * u0[0] + b.Jg[G2 + g] * u0[1])
-                           for g in range(G2)])
-    T2 = torch.stack(b.Jg) @ torch.stack(b.PJg).T      # [2G, 2G]
+    if compact:
+        # rg correction: image sums of the Gp local rows, per camera; T2
+        # block-diagonal per camera [C, 2Gp, 2Gp]
+        rgm = _image_sum_stack(p, [b.Jg_loc[g] * u0[0]
+                                   + b.Jg_loc[Gp + g] * u0[1]
+                                   for g in range(Gp)])
+        rg_corr = _camera_sum(p, rgm).reshape(-1) * fg
+        JglM = torch.stack(b.Jg_loc)
+        PJglM = torch.stack(b.PJg_loc).T
+        T2 = torch.stack([(JglM * sel[c]) @ PJglM for c in range(C)])
+    else:
+        rg_corr = torch.stack([
+            torch.sum(b.Jg[g] * u0[0] + b.Jg[G2 + g] * u0[1])
+            for g in range(G2)])
+        T2 = torch.stack(b.Jg) @ torch.stack(b.PJg).T      # [2G, 2G]
     HpgM = torch.stack([hpg[a][g] for a in range(3) for g in range(G2)])
     WM = torch.stack([W[g][a] for a in range(3) for g in range(G2)])
     T3 = WM @ HpgM.T                                      # [3G, 3G]
     return finish_reduction(p, b, state, damping, red, rg_corr, T2, T3,
-                            couple_global)
+                            couple_global, scg_corr=scg_corr)
+
+
+def _div_chunk(P: int, target: int) -> int:
+    """Largest chunk <= target dividing P."""
+    best = 1
+    for c in range(1, min(P, target) + 1):
+        if P % c == 0:
+            best = c
+    return best
+
+
+def _scg_correction(p: FMProblem, hp, W):
+    """Compact-mode Schur correction of Scg, Hcp Hpp^{-1} Hpg as
+    [M, 6, G] (it couples images to every camera's slots through shared
+    points): the per-observation products Sum_a Hpc[n, a, e] W[pt(n), a, g]
+    summed per image.  The products are formed chunk by chunk of the
+    image-sorted blocked layout (the JAX chunk rule: ~3e8 bytes of
+    transients at 4 bytes per value), summed per 512-entry block and
+    finished by the cumsum-diff of `_image_sum_stack`: no indexed add, so
+    the bits do not depend on the order in which atomics land (the CG
+    stall rules react to the preconditioner's noise)."""
+    V, P_, G2 = p.views, p.num_points, len(W)
+    hpc2 = torch.stack([hp[a][e] for a in range(3) for e in range(6)])
+    W2 = torch.stack([W[g][a] for a in range(3) for g in range(G2)])
+    N = hpc2.shape[1]
+    chunk = _div_chunk(P_, min(2048, max(64, int(3.0e8
+                                                  / (V * 6 * G2 * 4)))))
+    step = max(1, chunk * V // rcs.IMG_BLOCK) * rcs.IMG_BLOCK
+    perm = p.img_perm.long()
+    blocks = []
+    for s0 in range(0, perm.shape[0], step):
+        n = perm[s0:s0 + step]
+        valid = n < N
+        lane = torch.where(valid, n, 0)
+        h = (hpc2[:, lane] * valid).reshape(3, 6, -1)
+        w = W2[:, lane_points(p, lane)].reshape(3, G2, -1)
+        pg = torch.einsum("ael,agl->egl", h, w)           # [6, G, L]
+        blocks.append(pg.reshape(6 * G2, -1, rcs.IMG_BLOCK).sum(dim=-1))
+    bl = torch.cat(blocks, dim=1).T                       # [Nip / 512, 6G]
+    return _blocks_to_images(p, bl).reshape(p.num_images, 6, G2)
 
 
 def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
-                     red, rg_corr, T2, T3, couple_global):
+                     red, rg_corr, T2, T3, couple_global, scg_corr=None):
     """Shared tail of `prepare`: turn the fused per-image reduction ``red``
     [M, 39 (+ 6G)], the global rhs correction ``rg_corr`` [G] and the Sgg
     pieces ``T2`` [2G, 2G] / ``T3`` [3G, 3G] into (blocks, rc, rg,
     Precond).  Used by the plain reduction above and by the K2 path
     (`kernels.prepare_kernels`).  The inverses do not check for
     singularity (as jnp.linalg.inv; no device sync): a singular block gives
-    non-finite entries."""
-    G2 = len(b.Jg) // 2
+    non-finite entries.
+
+    Compact mode (b.Jg is None): ``T2`` is the per-camera stack
+    [C, 2Gp, 2Gp] (Hgg is block-diagonal), ``red`` carries 6 Gp local Hcg
+    columns and ``scg_corr`` [M, 6, G] is `_scg_correction`'s."""
+    G2 = p.free_global.shape[0]
+    compact = b.Jg is None
     m_rows = red.shape[0]
     bc = red[:, :6]
     extra_c = damping * red[:, 6:12] + (1.0 - p.free_eo)
@@ -552,17 +799,54 @@ def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
     b = b._replace(bc=bc, extra_c=extra_c)
 
     rg = b.bg - rg_corr
-    Hgg = T2[:G2, :G2] + T2[G2:, G2:] + torch.diag(b.extra_g)
+    if compact:
+        # Hgg is block-diagonal per camera (an image has one camera)
+        Gp = len(b.Jg_loc) // 2
+        fg2 = p.free_global.reshape(-1, Gp)
+        Hblk = (T2[:, :Gp, :Gp] + T2[:, Gp:, Gp:]) \
+            * fg2[:, :, None] * fg2[:, None, :]           # [C, Gp, Gp]
+        Hgg = torch.block_diag(*Hblk.unbind(0)) + torch.diag(b.extra_g)
+    else:
+        Hgg = T2[:G2, :G2] + T2[G2:, G2:] + torch.diag(b.extra_g)
     corr_g = sum(T3[a * G2:(a + 1) * G2, a * G2:(a + 1) * G2]
                  for a in range(3))
     Sgg = Hgg - corr_g
     Minv_g = torch.linalg.inv_ex(Sgg)[0]
     if not couple_global:
         return b, rc, rg, rcs.Precond(Minv_c=Minv_c, Minv_g=Minv_g)
-    Scg = red[:, 39:39 + 6 * G2].reshape(m_rows, 6, G2)
+    if compact:
+        # the 6 Gp local Hcg columns at the image's own camera (the
+        # image -> camera one-hot), minus the non-local correction
+        hcg_loc = red[:, 39:39 + 6 * Gp].reshape(m_rows, 6, Gp)
+        oh = _camera_onehot(p, red.dtype).T               # [M, C]
+        Scg = torch.einsum("meg,mc->mecg", hcg_loc, oh).reshape(
+            m_rows, 6, G2) - scg_corr
+    else:
+        Scg = red[:, 39:39 + 6 * G2].reshape(m_rows, 6, G2)
     Minv = rcs.finish_coupling(rcs.Precond(Minv_c=Minv_c, Minv_g=Minv_g),
                                Scg, Sgg)
     return b, rc, rg, Minv
+
+
+def materialize_global_rows(p: FMProblem, b: FMBlocks) -> FMBlocks:
+    """Compact (multi-camera) FMBlocks -> the masked global rows Jg / PJg,
+    O(C Gp N) memory, for consumers that index the global rows directly
+    (`cov_direct`); the solve never calls it.  Single-camera blocks pass
+    through."""
+    if b.Jg is not None:
+        return b
+    Gp = len(b.Jg_loc) // 2
+    C = p.free_global.shape[0] // Gp
+    dt = b.Jp[0].dtype
+    Jg, PJg = [], []
+    for i in (0, 1):
+        for c in range(C):
+            s = (b.cam_obs == c).to(dt)
+            for g in range(Gp):
+                f = p.free_global[c * Gp + g]
+                Jg.append(b.Jg_loc[i * Gp + g] * s * f)
+                PJg.append(b.PJg_loc[i * Gp + g] * s * f)
+    return b._replace(Jg=tuple(Jg), PJg=tuple(PJg))
 
 
 def back_substitute_points(p: FMProblem, b: FMBlocks, xc, xg,
@@ -580,12 +864,13 @@ def omega_at(p: FMProblem, b: FMBlocks, dxp, dxc, dxg):
     BundleAdjustment.java:472-491)."""
     dxp_o = [_point_expand(p, dxp[:, a]) for a in range(3)]
     dxc_o = _gather_rows(p, dxc, 6)
-    G2 = len(b.Jg) // 2
+    rows, xs = _global_terms(p, b, dxg, weighted=False)
+    Gn = len(xs)
     v = []
     for i in (0, 1):
         jdx = sum(b.Jp[i * 3 + a] * dxp_o[a] for a in range(3))
         jdx = jdx + sum(b.Jc[i * 6 + a] * dxc_o[a] for a in range(6))
-        jdx = jdx + sum(b.Jg[i * G2 + g] * dxg[g] for g in range(G2))
+        jdx = jdx + sum(rows[i * Gn + g] * xs[g] for g in range(Gn))
         v.append(b.w[i] - jdx)
     pv0 = p.wxx * v[0] + p.wxy * v[1]
     pv1 = p.wxy * v[0] + p.wyy * v[1]
@@ -602,14 +887,13 @@ class PointOps(NamedTuple):
 
 
 def point_ops(p: FMProblem, b: FMBlocks, cam_gather=None) -> PointOps:
-    """The single-camera point-block products that the mixed-precision
-    refinement and `freenet` need (port of the JAX `engine.point_ops`; its
-    multi-camera branch is not ported, as `linearize` refuses such
-    problems).  Every [P, 3] argument and result is indexed by point id in
-    either lane layout: `_point_sum` and `_point_expand` map between point
-    ids and lanes, and Hpp^{-1} is held per point id.  ``hinv`` also takes
-    a leading batch axis.  ``cam_gather``: the K3 wrapper for the camera
-    rows of ``hpx``."""
+    """The point-block products that the mixed-precision refinement and
+    `freenet` need (port of the JAX `engine.point_ops`, both layouts of the
+    global rows).  Every [P, 3] argument and result is indexed by point id
+    in either lane layout: `_point_sum` and `_point_expand` map between
+    point ids and lanes, and Hpp^{-1} is held per point id.  ``hinv`` also
+    takes a leading batch axis.  ``cam_gather``: the K3 wrapper for the
+    camera rows of ``hpx``."""
 
     def hinv(v):
         return torch.stack(_hinv_apply(b.Hpp_inv, v[..., 0], v[..., 1],
@@ -627,11 +911,7 @@ def point_ops(p: FMProblem, b: FMBlocks, cam_gather=None) -> PointOps:
         vo = [_point_expand(p, v[:, a]) for a in range(3)]
         u = [sum(b.PJp[i * 3 + a] * vo[a] for a in range(3)) for i in (0, 1)]
         qc = [b.Jc[a] * u[0] + b.Jc[6 + a] * u[1] for a in range(6)]
-        oc = _image_sum_stack(p, qc)
-        G2 = len(b.Jg) // 2
-        og = torch.stack([torch.sum(b.Jg[g] * u[0] + b.Jg[G2 + g] * u[1])
-                          for g in range(G2)])
-        return oc, og
+        return _global_out(p, b, u, qc)
 
     def hpx(xc, xg):
         t = _t_rows(p, b, xc, xg, cam_gather)
@@ -686,6 +966,7 @@ def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
     if use_kernels:
         from . import kernels
 
+        refuse_kernels(p)
         cgf = kernels.make_cam_gather(p)
         b, rc, rg, Minv, pp = kernels.prepare_kernels(
             p, state, spec, damping, couple_global=couple_global,
@@ -722,12 +1003,15 @@ def lm_step(p: FMProblem, state: ParamState, spec, damping,
     rows are packed once per step and shared by K2 and K1.  ``p`` must
     then be view-major (`to_view_major`).  The wrappers launch the CUDA
     kernels for CUDA tensors and take their plain versions for CPU
-    tensors.  ``couple_global``: precondition with the exact
-    camera-global blocks, assembled inside the fused reduction."""
+    tensors.  The kernels take one camera: with C > 1 (the compact rows)
+    ``use_kernels=True`` raises ValueError, and the step runs the plain
+    path.  ``couple_global``: precondition with the exact camera-global
+    blocks, assembled inside the fused reduction."""
     cgf = None
     if use_kernels:
         from . import kernels
 
+        refuse_kernels(p)
         cgf = kernels.make_cam_gather(p)
         b, rc, rg, Minv, pp = kernels.prepare_kernels(
             p, state, spec, damping, couple_global=couple_global,

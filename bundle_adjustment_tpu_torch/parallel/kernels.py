@@ -134,6 +134,11 @@ def pack_fm(b, p, dtype=torch.float32, with_pw: bool = False,
     if p.vm_pb is None:
         raise ValueError("pack_fm requires the view-major layout; apply "
                          "engine.to_view_major to the FMProblem first")
+    if b.Jg is None:
+        raise ValueError(
+            "the CUDA kernels take the single-camera packed rows; the "
+            "compact multi-camera rows run the plain path (use_kernels="
+            "False)")
     G = len(b.Jg) // 2
     off = _offsets(G, with_pw)
     lean_rows = list(b.Jp) + list(b.Jc) + list(b.Jg) + [p.wxx, p.wxy, p.wyy]

@@ -34,7 +34,7 @@ class RCSProblem(NamedTuple):
     obs_image: object      # [N] int32
     obs_xy: object         # [N, 2]
     obs_weight: object     # [N, 2, 2] (already includes validity mask)
-    r0: object             # [C] (the port takes C = 1)
+    r0: object             # [C]
     num_points: int
     num_images: int
     free_point: object     # [P, 3] 1.0 = free, 0.0 = fixed
@@ -46,6 +46,8 @@ class RCSProblem(NamedTuple):
     img_block_starts: object = None  # [M+1] int32 (block units)
     # uniform views per point in point-major order (static int)
     point_uniform: int | None = None
+    # camera of each image (None: every image on camera 0, C = 1 only)
+    cam_of_image: object = None     # [M] int32
     # ---- free-network extensions (parallel/freenet.py) ----
     # scale bars: rank-1 rows over two points, folded into the reduced
     # system by Woodbury
@@ -177,7 +179,7 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
         free_point=flt(bp.col_points >= 0), free_eo=flt(bp.col_eo >= 0),
         free_global=flt(free_global),
         img_perm=idx(img_perm), img_block_starts=idx(img_bstarts),
-        point_uniform=V, **fields)
+        point_uniform=V, cam_of_image=idx(bp.cam_of_image), **fields)
 
 
 def _direct_fields(bp, C, K, idx, flt) -> dict:
@@ -295,7 +297,9 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None):
     Returns the best-residual iterate (long f32 runs can wander past the
     rounding floor) and the iteration count.  ``stall_limit``: stop once
     no iteration in a window of this many improves the best residual by
-    >= 10%; default 8 for f32, disabled for f64.
+    >= 10%; default 8 for f32, disabled for f64.  Where no iterate
+    lowers |r|_2 below the first residual, the best iterate is the zero
+    start.
 
     The loop runs on the host and reads the residual norm once per
     iteration (one device synchronisation each)."""

@@ -1,7 +1,7 @@
 """Mixed-precision refinement: f64 gradient + hi/lo state + f32 solve.
 
-Port of `bundle_adjustment_tpu/parallel/refine.py` (single camera) and of
-the time-to-converged loop of `bench.py` (`converge`).
+Port of `bundle_adjustment_tpu/parallel/refine.py` and of the
+time-to-converged loop of `bench.py` (`converge`).
 
 The f32 LM phase floors at max|dx| ~ 1e-3 because the gradient
 g = J^T P w is a massively cancelling reduction: near the optimum it is
@@ -27,6 +27,7 @@ relative residual, which is the contraction rate itself.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import NamedTuple
 
@@ -72,18 +73,34 @@ class Refiner:
     ``use_kernels``: each step runs K3 in linearise and back-substitution,
     K2 for the assembly and K1 on every CG iteration
     (`kernels.prepare_kernels` + `kernels.make_matvec`); for CPU tensors
-    the wrappers take their plain versions."""
+    the wrappers take their plain versions.  The kernels take one camera:
+    a multi-camera problem (the compact rows) refines on the plain path,
+    and ``use_kernels=True`` raises ValueError for it.
+
+    ``couple_global`` (the JAX Refiner's option): precondition the f32 CG
+    with the exact camera-global blocks (default), or with the camera and
+    global blocks alone (block Jacobi).
+
+    A step whose f32 CG returns its zero start on a nonzero right-hand
+    side (no iterate lowered |r|_2) solved nothing: the cameras and
+    globals stay, only the points take their back-substituted step, and
+    its max|dx| reads inf, never 0, so `refine` and `converge` stop and
+    report no convergence.  That is the case on camera rigs (`PERF.md`,
+    ROADMAP Queue 3), whose route to the optimum is `solver.solve` in
+    f64."""
 
     def __init__(self, problem32: rcs.RCSProblem, spec,
-                 use_kernels: bool = False):
+                 use_kernels: bool = False, couple_global: bool = True):
         convert.refuse_unsupported(problem32)
         self.problem32 = problem32
         self.spec = spec
         self.use_kernels = use_kernels
+        self.couple_global = couple_global
         self.fmp32 = engine.fm_problem(problem32)
         if use_kernels:
             from . import kernels
 
+            engine.refuse_kernels(self.fmp32)
             f = self.fmp32
             self.fmp32 = engine.to_view_major(
                 f, kernels.choose_pb(f.num_points, f.views,
@@ -134,12 +151,13 @@ class Refiner:
 
             cam_gather = kernels.make_cam_gather(p32)
             b, _rc, _rg, Minv, pp = kernels.prepare_kernels(
-                p32, s.hi, self.spec, damping, state_lo=s.lo,
+                p32, s.hi, self.spec, damping,
+                couple_global=self.couple_global, state_lo=s.lo,
                 cam_gather=cam_gather)
         else:
-            b, _rc, _rg, Minv = engine.prepare(p32, s.hi, self.spec, damping,
-                                               couple_global=True,
-                                               state_lo=s.lo)
+            b, _rc, _rg, Minv = engine.prepare(
+                p32, s.hi, self.spec, damping,
+                couple_global=self.couple_global, state_lo=s.lo)
         ops = engine.point_ops(p32, b, cam_gather=cam_gather)
         z0 = ops.hinv(bp32)
         dc, dg = ops.hxp(z0)
@@ -166,6 +184,8 @@ class Refiner:
             Minv = freenet.wrap_precond(rcs.make_apply_M(Minv), ext)
         xc, xg, it = rcs.pcg(rc, rg, Minv, matvec, tol=cg_tol,
                              maxiter=cg_maxiter, stall_limit=stall_limit)
+        failed = not (bool(xc.any()) or bool(xg.any())) \
+            and (bool(rc.any()) or bool(rg.any()))
         if ext is not None:
             dxp, _lam = freenet.back_substitute(self.problem32, ext, ops,
                                                 xc, xg)
@@ -173,12 +193,15 @@ class Refiner:
             dxp = engine.back_substitute_points(p32, b, xc, xg,
                                                 cam_gather=cam_gather)
         new_s, max_dx = hilo.apply_step(s, dxp, xc, xg)
+        if failed:
+            max_dx = torch.full_like(max_dx, float("inf"))
         return new_s, max_dx, it
 
     def step(self, s: hilo.HiLoState, damping=1e-8,
              cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
         """One refinement step from ``s``: returns (HiLoState, max|dx| 0-d
-        tensor, f64 Omega at ``s``, CG iterations)."""
+        tensor, inf where the CG failed, f64 Omega at ``s``, CG
+        iterations)."""
         bp64, bc64, bg64, omega0, wsb, wdpg = self.gradient64(
             self.fmp64, hilo.to_f64(s))
         f32 = torch.float32
@@ -189,14 +212,15 @@ class Refiner:
 
     def refine(self, state32: ParamState, tolerance: float = 1e-6,
                max_iterations: int = 12, **kw):
-        """Drive refinement until max|dx| <= tolerance.  Returns
-        (HiLoState, history list of max|dx|)."""
+        """Drive refinement until max|dx| <= tolerance, or a step's CG
+        fails (max|dx| inf, `Refiner`).
+        Returns (HiLoState, history list of max|dx|)."""
         s = hilo.from_f32(state32)
         history = []
         for _ in range(max_iterations):
             s, max_dx, omega0, it = self.step(s, **kw)
             history.append(float(max_dx))
-            if history[-1] <= tolerance:
+            if history[-1] <= tolerance or math.isinf(history[-1]):
                 break
         return s, history
 
@@ -210,6 +234,7 @@ class Convergence(NamedTuple):
     refine_seconds: float
     max_dx: list          # max|dx| after each refinement step
     cg_iterations: list   # CG iterations of each refinement step
+    converged: bool       # the last max|dx| <= tolerance (a failed CG: no)
 
     @property
     def time_to_converged_s(self) -> float:
@@ -220,7 +245,8 @@ def converge(refiner: Refiner, lm_result, tolerance=1e-6, max_steps=15,
              damping=1e-7, cg_tol=1e-12, cg_maxiter=800, stall_limit=300):
     """The time-to-converged loop of `bench.py` after its f32 LM phase:
     from ``lm_result`` = `lm.run`'s (state, LMPhase), refine a hi/lo state
-    until max|dx| <= ``tolerance`` or ``max_steps`` steps.
+    until max|dx| <= ``tolerance``, ``max_steps`` steps or a step whose CG
+    failed (`Refiner`; the record's ``converged`` is then False).
 
     The defaults are the bench's settings.  ``cg_tol`` is unreachably
     tight on purpose: the refinement system is ill-conditioned, a
@@ -249,9 +275,10 @@ def converge(refiner: Refiner, lm_result, tolerance=1e-6, max_steps=15,
             stall_limit=stall_limit)
         history.append(float(max_dx))  # a host read: the step has ended
         its.append(it)
-        if history[-1] <= tolerance:
+        if history[-1] <= tolerance or math.isinf(history[-1]):
             break
     seconds = time.perf_counter() - t0
     return s, Convergence(f32_steps=phase.steps, f32_seconds=phase.seconds,
                           refine_steps=len(history), refine_seconds=seconds,
-                          max_dx=history, cg_iterations=its)
+                          max_dx=history, cg_iterations=its,
+                          converged=history[-1] <= tolerance)

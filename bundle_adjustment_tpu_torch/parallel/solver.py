@@ -67,11 +67,13 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     device).
 
     ``use_kernels``: run every step through K3 / K2 / K1
-    (`engine.lm_step_full`); the default is True for f32 CUDA tensors
-    (the kernels take f32 only) and False for every other state, so an
-    f64 solve on the card runs the plain path there.  The point count is then padded to the kernels'
-    block size with dummy points (`engine.pad_problem`), which the
-    returned state drops again.
+    (`engine.lm_step_full`); the default is True for a single-camera
+    problem in f32 CUDA tensors and False otherwise: the kernels take f32
+    and one camera only, so an f64 solve and a multi-camera (compact)
+    solve on the card run the plain path (``use_kernels=True`` raises
+    ValueError for more than one camera).  With the kernels the point
+    count is padded to their block size with dummy points
+    (`engine.pad_problem`), which the returned state drops again.
     ``simulation``: the right-hand side is zeroed, so every step is
     exactly 0 and Omega = 0; one linearisation still runs, so that
     singular geometry surfaces (pure variance propagation for network
@@ -88,7 +90,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         tolerance = math.sqrt(torch.finfo(dtype).eps)
     if use_kernels is None:
         use_kernels = (state.points.is_cuda
-                       and state.points.dtype == torch.float32)
+                       and state.points.dtype == torch.float32
+                       and state.io.shape[0] == 1)
 
     def fire(name, old, new):
         for fn in (listeners or ()):
@@ -98,6 +101,7 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     if use_kernels:
         from . import kernels
 
+        engine.refuse_kernels(problem)
         problem, state, _ = engine.pad_problem(problem, state, 128)
     fmp = engine.fm_problem(problem)
     if use_kernels:
@@ -213,15 +217,13 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
       float64 on the solver's device, through the plain path (the CUDA
       kernels take f32 only), and scatter the step back into the dense
       column layout, so the parent's LM bookkeeping, event stream,
-      interrupt, centroiding and checkpointing run unchanged;
+      interrupt, centroiding and checkpointing run unchanged; any number
+      of cameras (more than one: the engine's compact global rows);
     * the FINAL stochastic pass (covariance by the requested
       MatrixInversion mode) keeps the parent's dense kernel: Qxx is dense
       by contract there.  At array scale use `solve()` +
-      `parallel.cov_direct` for block covariance recovery instead.
-
-    One camera only: the feature-major engine has no multi-camera layout
-    yet (ROADMAP.md, Queue 1 item 2, "The compact multi-camera layout").
-    `BundleAdjustment` takes any number of cameras.
+      `parallel.cov_direct` or `parallel.covariance` for block covariance
+      recovery instead.
     """
 
     cg_tol: float = 1e-12
@@ -229,12 +231,6 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
 
     def _build_kernels(self):
         bp = self.problem
-        if bp.num_cameras != 1:
-            raise NotImplementedError(
-                f"ScaleBundleAdjustment takes one camera, not "
-                f"{bp.num_cameras}: the feature-major engine has no "
-                "multi-camera layout yet (ROADMAP.md, Queue 1 item 2, \"The "
-                "compact multi-camera layout\"); use BundleAdjustment")
         base = super()._build_kernels()
         dev, dt = self.device, self.dtype
         rp = rcs.rcs_from_problem(bp, dev, dt)

@@ -1,7 +1,9 @@
 """Synthetic scale network: the port's copy of `bench.build_problem`.
 
-Single camera, the distortion stack affinity + tangential + radial orders
-1-3 (K = 7, G = 10), each point seen by a fixed number of random images,
+One camera or a rig of C (image m on camera m % C, per-camera IO and
+distortion with small true offsets), the distortion stack affinity +
+tangential + radial orders 1-3 (K = 7, G = 10 per camera), each point
+seen by a fixed number of random images,
 observations from the exact forward model plus N(0, sigma^2) noise, and a
 perturbed start.  The random draws happen in exactly the order of
 `bench.build_problem` from ``numpy.random.default_rng(seed)``, so the same
@@ -43,19 +45,25 @@ def scale_spec():
     return builder.build()
 
 
-def predict(points, io, dist, eo, obs_point, obs_image, spec):
+def predict(points, io, dist, eo, obs_point, obs_image, spec,
+            cam_of_image=None):
     """Exact image coordinates [N, 2] of every observation, float64 on the
-    CPU through ops.fm."""
+    CPU through ops.fm; ``cam_of_image`` [M] (default: every image on
+    camera 0) picks each observation's row of ``io`` [C, 3] and ``dist``
+    [C, K]."""
     from .ops import fm
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64))
 
+    img = torch.as_tensor(obs_image, dtype=torch.long)
     pts = t(points)[torch.as_tensor(obs_point, dtype=torch.long)]
-    e = t(eo)[torch.as_tensor(obs_image, dtype=torch.long)]
+    e = t(eo)[img]
+    cam = (torch.zeros_like(img) if cam_of_image is None
+           else torch.as_tensor(cam_of_image, dtype=torch.long)[img])
     n = pts.shape[0]
-    io_r = [t(io)[0, a].expand(n) for a in range(3)]
-    coeffs = [t(dist)[0, k].expand(n) for k in range(spec.num_coefficients)]
+    io_r = [t(io)[cam, a] for a in range(3)]
+    coeffs = [t(dist)[cam, k] for k in range(spec.num_coefficients)]
     r0 = torch.full((n,), R0, dtype=torch.float64)
     _, _, px, py = fm.jacobian_rows(
         pts[:, 0], pts[:, 1], pts[:, 2], io_r[0], io_r[1], io_r[2],
@@ -83,22 +91,29 @@ def true_points(num_points, seed=0):
     return _true_points(np.random.default_rng(seed), num_points)
 
 
-def build_problem(num_points, num_images, views_per_point, seed=0, spec=None):
+def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
+                  num_cameras=1):
     """Returns (RCSProblem of host numpy arrays, ParamState of numpy
     arrays, spec); floats are float64 (`convert` casts them).  ``spec``:
     another distortion stack than `scale_spec` (its radial orders 1 and 2
-    get the true coefficients below where it has them; G = 3 + its
-    number of coefficients)."""
+    get the true coefficients below where it has them; Gp = 3 + its
+    number of coefficients per camera).  ``num_cameras``: C > 1 builds a
+    camera rig as `bench.build_problem` does: image m belongs to camera
+    m % C, camera c's true IO is (0.02, -0.03, -30) + 0.01 c (1, -1, 30)
+    and its first radial coefficient -1.1e-4 (1 + 0.1 c); G = C Gp."""
     rng = np.random.default_rng(seed)
     field = FIELD
     pts = _true_points(rng, num_points)
 
-    io = np.array([[0.02, -0.03, -30.0]])
+    C = num_cameras
+    io = np.array([[0.02, -0.03, -30.0]]) \
+        + 0.01 * np.arange(C)[:, None] * np.array([1.0, -1.0, 30.0])
     spec = scale_spec() if spec is None else spec
     K = spec.num_coefficients
-    dist = np.zeros((1, K))
+    dist = np.zeros((C, K))
     radial = {s.key for s in spec.slots if int(s.kind) == 2}
-    for order, value in ((1, -1.1e-4), (2, 1.5e-7)):
+    for order, value in ((1, -1.1e-4 * (1 + 0.1 * np.arange(C))),
+                         (2, 1.5e-7)):
         if order in radial:
             dist[:, spec.slot_index(2, order)] = value
 
@@ -115,7 +130,8 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None):
     V = views_per_point
     obs_point = np.repeat(np.arange(num_points, dtype=np.int32), V)
     obs_image = rng.integers(0, num_images, num_points * V).astype(np.int32)
-    xy = predict(pts, io, dist, eo, obs_point, obs_image, spec)
+    cam_of_image = (np.arange(num_images) % C).astype(np.int32)
+    xy = predict(pts, io, dist, eo, obs_point, obs_image, spec, cam_of_image)
     xy = xy + rng.normal(0, SIGMA, xy.shape)
 
     w2 = np.zeros((xy.shape[0], 2, 2))
@@ -124,7 +140,7 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None):
     free_point = np.ones((num_points, 3))
     free_point[:3] = 0.0  # fixed-coordinate datum
     free_eo = np.ones((num_images, 6))
-    free_global = np.ones(3 + K)
+    free_global = np.ones(C * (3 + K))
 
     pts0 = pts + rng.normal(0, 0.05, pts.shape) * free_point
     eo0 = eo + rng.normal(0, 1e-5, eo.shape)
@@ -145,10 +161,11 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None):
     img_perm, img_bstarts = build_image_block_layout(obs_image, num_images)
     problem = RCSProblem(
         obs_point=obs_point, obs_image=obs_image,
-        obs_xy=xy, obs_weight=w2, r0=np.full(1, R0),
+        obs_xy=xy, obs_weight=w2, r0=np.full(C, R0),
         num_points=P_pad, num_images=num_images,
         free_point=free_point, free_eo=free_eo, free_global=free_global,
-        img_perm=img_perm, img_block_starts=img_bstarts, point_uniform=V)
+        img_perm=img_perm, img_block_starts=img_bstarts, point_uniform=V,
+        cam_of_image=cam_of_image)
     state = ParamState(points=pts0, io=io, dist=dist, eo=eo0)
     return problem, state, spec
 

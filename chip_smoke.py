@@ -126,6 +126,38 @@ Phases (any failed check exits non-zero, before the result line):
      events), compile_problem's host seconds, peak memory, and the
      per-iteration split at the estimate (assembly, LU solve, EO
      reduction, reduced and full inverse; CUDA events, 3 warm calls).
+  10. the multi-camera rig: synthetic.build_problem(100,000, 500, 12,
+     num_cameras=4) (image m on camera m % 4; G = 40), the compact layout
+     on the plain path (the kernels take one camera; no kernel launches,
+     gated).  (a) one f64 `lm_step` (damping 1e-4, cg_tol 1e-13) with the
+     compact rows against the same step on the masked rows of
+     `materialize_global_rows` through the single-camera code path, rtol
+     3e-4 / atol 1e-6 of max (tests/test_multi_camera.py's), and the f32
+     compact step twice, bit for bit; (b) `solver.solve` (f32, plain,
+     tolerance 1e-3, at most 30 steps), the definiteness of the coupled
+     preconditioner's global Schur complement there, then
+     `refine.converge` undamped (at most 5 steps each, with the Refiner's
+     default coupled preconditioner and with block Jacobi), each followed
+     by one f64 Gauss-Newton step that shows how far its end lies from
+     the optimum: the f32 inner solve does not see the rig's weakest mode,
+     so the refinement does not converge there, and a run that reports
+     convergence must lie within 1e-5 of the optimum (gated); the route a
+     rig takes, and the gate, is `solver.solve` in f64 from the f32 end
+     (Gauss-Newton, cg_tol 1e-10) to max|dx| <= 1e-6, sigma0 within 1% of
+     5e-4, the f64 Omega not above the f32 end's, each camera's principal
+     distance closest to its own true value; time_to_converged_s = both
+     solves' seconds; one f64 step's device-idle share; (c) `cov_all` in
+     f64 (u = 3,040): S against the second assembly route within a
+     Jacobi-scaled 1e-9, residual <= 1e-8; (d) `parallel/covariance.py`'s
+     point, pair and camera blocks (4 each, f64, PCG tol 1e-10, the
+     preconditioner that `covariance.prepare` picks) against cov_all /
+     Qred within 1e-5 of each block's largest entry, with PCG iterations
+     and seconds, and the point blocks once more with the coupled
+     preconditioner (recorded); (e) `ScaleBundleAdjustment` against the dense
+     `BundleAdjustment` (MatrixInversion.NONE) on a two-camera scene of
+     BASELINE config 3's size (make_synthetic_scene(5000, 50) with its odd
+     images on a second camera), coordinates within 1e-10 of the field,
+     and the scale class on the CPU against the card at 300 / 10.
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7 and 8, each between a reset and a read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
@@ -138,6 +170,7 @@ operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -199,6 +232,22 @@ API_SCALE_RTOL = 1e-8    # Omega and sigma0^2
 API_SCALE_Q_RTOL, API_SCALE_Q_ATOL = 1e-4, 1e-6  # atol of max|Q|
 API_CPU_TOL = 1e-9       # CPU against card: sigma0 and coordinates / field
 API_TIMED = 3            # repeats of each stage of the per-iteration split
+# phase 10: the multi-camera rig (the compact layout) at 100k / 500 / 12
+RIG_CAMERAS = 4
+RIG_DAMPING = 1e-4       # (a)'s step: tests/test_multi_camera.py's damping
+RIG_CG_TOL = 1e-13       # (a)'s f64 steps, as that test
+RIG_CG_MAXITER = 3000
+# tests/test_multi_camera.py::test_compact_step_matches_rcs_16cam_rig
+RIG_STEP_RTOL, RIG_STEP_ATOL = 3e-4, 1e-6      # atol of max|reference|
+RIG_GN_CG_TOL = 1e-10    # CG of the f64 Gauss-Newton steps of (b)
+RIG_REFINE_STEPS = 5     # steps of each refinement run
+RIG_FALSE_END = 10 * REFINE_TOL  # a converged refinement's f64 step, at most
+RIG_COV_TOL = 1e-5       # on-demand blocks vs cov_all / Qred, of each max
+RIG_COV_PCG_TOL = 1e-10
+RIG_COV_K = 4            # points, pairs and images of the on-demand blocks
+RIG_API = (5000, 50)     # BASELINE config 3: 5k points / 50 images
+RIG_API_CUT = (300, 10)  # its cut for the CPU-against-card check
+RIG_API_XYZ = 1e-10      # scale class vs dense, of the field's extent
 
 
 def fail(msg: str):
@@ -966,6 +1015,370 @@ def reference_api_phase(dev):
     return summary, launches
 
 
+def two_camera_scene(points, images, seed=0):
+    """`testing.make_synthetic_scene(points, images, noise = sigma = 5e-4,
+    perturb 0.01)` as a two-camera network: even images on camera 1, odd
+    images on camera 2, each camera with its own IO and distortion
+    parameters started at the scene's values (one scale bar, inner
+    constraints).  Returns (cameras, bars, truth)."""
+    import bundle_adjustment_tpu_torch as T
+    from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+
+    (src,), bars, truth = make_synthetic_scene(
+        num_points=points, num_images=images, noise=SIGMA, sigma=SIGMA,
+        perturb=0.01, seed=seed)
+    cams = []
+    for cid in (1, 2):
+        cam = T.Camera(cid, r0=src.r0,
+                       distortion_types=tuple(src.distortion_models))
+        for a in ("x0", "y0", "c"):
+            p, q = getattr(src.io, a), getattr(cam.io, a)
+            q.value, q.fixed = p.value, p.fixed
+        for kind, handle in src.distortion_models.items():
+            dst = cam.distortion(kind)
+            have = {k for k, _ in dst.coefficients}
+            for key, p in handle.coefficients:
+                q = dst.get(key) if key in have else dst.add(key)
+                q.value, q.fixed = p.value, p.fixed
+        for img in list(src)[cid - 1::2]:
+            oi = cam.add_image(img.id)
+            for a in ("x0", "y0", "z0", "omega", "phi", "kappa"):
+                p, q = getattr(img.eo, a), getattr(oi.eo, a)
+                q.value, q.fixed = p.value, p.fixed
+            for ic in img:
+                o = oi.add(ic.object_coordinate, ic.x, ic.y, 1.0, 1.0, ic.rho)
+                o.var_x, o.var_y = ic.var_x, ic.var_y
+        cams.append(cam)
+    return cams, bars, truth
+
+
+def multi_camera_phase(dev):
+    """Phase 10 (see the module docstring).  Returns (summary dict, the
+    launch counts of the phase: none, the compact rows run the plain
+    path)."""
+    import numpy as np
+    import torch
+
+    import bundle_adjustment_tpu_torch as T
+    from bundle_adjustment_tpu_torch import convert, measure, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (cov_direct, covariance,
+                                                      engine, hilo, kernels,
+                                                      lm, rcs, refine, solver)
+
+    C = RIG_CAMERAS
+    kernels.reset_launch_counts()
+    t_phase = time.time()
+    prob_h, state_h, spec = synthetic.build_problem(
+        NUM_POINTS, NUM_IMAGES, VIEWS, seed=0, num_cameras=C)
+    f64, f32 = torch.float64, torch.float32
+    prob64 = convert.problem_to_torch(prob_h, dev, f64)
+    st64 = convert.state_to_torch(state_h, dev, f64)
+    fmp64 = engine.fm_problem(prob64)
+    Gp = 3 + spec.num_coefficients
+    G = C * Gp
+    log(f"rig: C={C}, P={fmp64.num_points} M={fmp64.num_images} "
+        f"V={fmp64.views} G={G}; built in {time.time() - t_phase:.1f} s; "
+        f"route: plain (the kernels take one camera)")
+
+    def events(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1) / 1e3
+
+    # ---- (a) compact against materialized; equal bits on repeat ----------
+    def compact_step():
+        return engine.lm_step(fmp64, st64, spec, RIG_DAMPING,
+                              cg_tol=RIG_CG_TOL, cg_maxiter=RIG_CG_MAXITER)
+
+    def materialized_step():
+        """The same step on the masked global rows through the
+        single-camera code path of the engine."""
+        b = engine.materialize_global_rows(
+            fmp64, engine.linearize(fmp64, st64, spec, RIG_DAMPING))._replace(
+            Jg_loc=None, PJg_loc=None, cam_obs=None)
+        b, rc, rg, Minv = engine.reduce_blocks(fmp64, b, st64, RIG_DAMPING,
+                                               couple_global=True)
+        xc, xg, it = rcs.pcg(rc, rg, Minv,
+                             lambda c, g: engine.schur_matvec(fmp64, b, c, g),
+                             tol=RIG_CG_TOL, maxiter=RIG_CG_MAXITER)
+        return engine.back_substitute_points(fmp64, b, xc, xg), xc, xg, b, it
+
+    (cp, s_cp) = events(compact_step)
+    (mt, s_mt) = events(materialized_step)
+    if cp[3].Jg is not None:
+        fail("rig: the step did not run the compact rows")
+    errs = {}
+    for n, a, r in zip(("dxp", "dxc", "dxg"), cp[:3], mt[:3]):
+        errs[n] = float((a - r).abs().max())
+        if not torch.allclose(a, r, rtol=RIG_STEP_RTOL,
+                              atol=RIG_STEP_ATOL * float(r.abs().max())):
+            fail(f"rig (a): the compact {n} differs from the materialized "
+                 f"rows' by {errs[n]:.3e} (max {float(r.abs().max()):.3e})")
+    fixed_slots = float(cp[2].reshape(C, Gp).abs().max())
+    log(f"(a) f64 step, damping {RIG_DAMPING:g}, cg_tol {RIG_CG_TOL:g}: "
+        f"compact {cp[4]} CG iterations in {s_cp:.3f} s, materialized "
+        f"{mt[4]} in {s_mt:.3f} s; max|compact - materialized| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    cg_a = [int(cp[4]), int(mt[4])]
+    if max(cg_a) >= RIG_CG_MAXITER:
+        fail(f"rig (a): an f64 PCG did not reach {RIG_CG_TOL:g}")
+    del mt
+    prob32 = convert.problem_to_torch(prob_h, dev, f32)
+    st32 = convert.state_to_torch(state_h, dev, f32)
+    fmp32 = engine.fm_problem(prob32)
+    one = engine.lm_step(fmp32, st32, spec, 1e-2, cg_tol=1e-4, cg_maxiter=100)
+    two = engine.lm_step(fmp32, st32, spec, 1e-2, cg_tol=1e-4, cg_maxiter=100)
+    same = all(torch.equal(a, c) for a, c in zip(one[:3], two[:3]))
+    log(f"(a) f32 compact step twice (damping 1e-2, {one[4]} CG iterations):"
+        f" bit-identical {same}")
+    if not same:
+        fail("rig (a): two f32 compact steps differ")
+    del one, two, cp
+
+    # ---- (b) time to converged on the rig ---------------------------------
+    n_obs = 2 * int((prob64.obs_weight[:, 0, 0] > 0).sum())
+    u = int(prob64.free_point.sum() + prob64.free_eo.sum()
+            + prob64.free_global.sum())
+    dof = n_obs - u
+
+    def omega64(fmp, st):
+        return float(engine.linearize(fmp, st, spec, 0.0).omega0)
+
+    def gauss_newton(fmp, st):
+        """One f64 Gauss-Newton step: (max|dx|, CG iterations)."""
+        out = engine.lm_step(fmp, st, spec, 0.0, cg_tol=RIG_GN_CG_TOL,
+                             cg_maxiter=RIG_CG_MAXITER)
+        return float(torch.stack([a.abs().max() for a in out[:3]]).max()), \
+            int(out[4])
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = solver.solve(prob32, st32, spec, damping=1e-2, max_iterations=30,
+                       tolerance=F32_STOP)
+    torch.cuda.synchronize()
+    t_f32 = time.perf_counter() - t
+    hist = res.history
+    st_f32 = type(st64)(*(a.double() for a in res.state))
+    log(f"(b) solve (f32, plain): {res.status.name} after {res.iterations} "
+        f"steps in {t_f32:.3f} s; max|dx| "
+        + ", ".join(f"{h['max_dx']:.3e}" for h in hist)
+        + f"; CG iterations {[h['cg_it'] for h in hist]}")
+    # the coupled preconditioner at the f32 end: the definiteness of its
+    # global Schur complement (it drops the camera-camera blocks)
+    _, _, _, Mc = engine.prepare(fmp64, st_f32, spec, 0.0,
+                                 couple_global=True)
+    Sh = torch.linalg.inv(Mc.Sghat_inv)
+    dsh = Sh.diagonal().abs().sqrt()
+    eig_sh = torch.linalg.eigvalsh((Sh + Sh.T) / 2 / dsh[:, None]
+                                   / dsh[None, :])
+    n_neg = int((eig_sh < 0).sum())
+    log(f"(b) coupled preconditioner at the f32 end (f64): Jacobi-scaled "
+        f"Sghat eigenvalues {float(eig_sh[0]):.3e} .. "
+        f"{float(eig_sh[-1]):.3e}, {n_neg} negative of {G}")
+    del Mc, Sh
+    # the mixed-precision refinement: its f32 inner solve does not see the
+    # rig's weakest mode, so it does not converge there; it must say so
+    # (gated: a run that reports convergence lies at the optimum, one f64
+    # Gauss-Newton step at its end moves <= RIG_FALSE_END)
+    fmp_r = engine.fm_problem(refine.upcast_problem(prob32))
+    phase = lm.LMPhase(steps=res.iterations, max_dx=res.max_abs_dx,
+                       cg_iterations=[h["cg_it"] for h in hist],
+                       seconds=t_f32)
+    refined = {}
+    for label, kw in (("default", {}),
+                      ("block_jacobi", dict(couple_global=False))):
+        torch.cuda.synchronize()
+        s_ref, rec = refine.converge(refine.Refiner(prob32, spec, **kw),
+                                     (res.state, phase),
+                                     tolerance=REFINE_TOL, damping=0.0,
+                                     max_steps=RIG_REFINE_STEPS)
+        full = hilo.to_f64(s_ref)
+        gn = gauss_newton(fmp_r, full)
+        refined[label] = dict(steps=rec.refine_steps,
+                              seconds=rec.refine_seconds,
+                              max_dx=rec.max_dx, cg=rec.cg_iterations,
+                              converged=rec.converged, f64_step=gn[0])
+        log(f"(b) refine.converge undamped, {label} "
+            f"({kw or 'coupled'}): converged {rec.converged}, "
+            f"{rec.refine_steps} steps in {rec.refine_seconds:.3f} s; "
+            f"max|dx| " + ", ".join(f"{x:.3e}" for x in rec.max_dx)
+            + (" (inf: the step's CG returned its zero start)"
+               if math.isinf(rec.max_dx[-1]) else "")
+            + f"; CG iterations {rec.cg_iterations}; one f64 Gauss-Newton "
+            f"step at its end moves {gn[0]:.3e} ({gn[1]} CG iterations)")
+        if rec.converged and not gn[0] <= RIG_FALSE_END:
+            fail(f"rig (b): refine.converge ({label}) reports convergence "
+                 f"where one f64 Gauss-Newton step still moves {gn[0]:.3e}")
+    # the gate: Gauss-Newton in f64 (plain path) from the f32 end
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res64 = solver.solve(prob64, st_f32, spec, damping=0.0, max_iterations=10,
+                         tolerance=REFINE_TOL, cg_tol=RIG_GN_CG_TOL,
+                         cg_maxiter=RIG_CG_MAXITER)
+    torch.cuda.synchronize()
+    t_f64 = time.perf_counter() - t
+    full = res64.state
+    om_f32, om_end = omega64(fmp64, st_f32), omega64(fmp64, full)
+    sigma0 = (om_end / dof) ** 0.5
+    io_true = np.asarray(state_h.io)[:, 2]
+    io_est = full.io[:, 2].cpu().numpy()
+    own = [int(np.argmin(np.abs(io_true - x))) for x in io_est]
+    prof = measure.device_profile(lambda: gauss_newton(fmp64, full))
+    ttc = t_f32 + t_f64
+    log(f"(b) solve (f64, plain, Gauss-Newton from the f32 end): "
+        f"{res64.status.name} after {res64.iterations} steps in {t_f64:.3f} "
+        f"s; max|dx| " + ", ".join(f"{h['max_dx']:.3e}"
+                                   for h in res64.history)
+        + f"; CG iterations {[h['cg_it'] for h in res64.history]}")
+    log(f"(b) time_to_converged_s {ttc:.3f} (f32 {t_f32:.3f} + f64 "
+        f"{t_f64:.3f}); f64 Omega {om_f32:.10e} -> {om_end:.10e}; sigma0 "
+        f"{sigma0:.6e} (dof {dof}); principal distances {io_est.tolist()} "
+        f"(true {io_true.tolist()}); one f64 step under the profiler: "
+        f"device busy {prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+        f"(idle {prof['idle_share']:.1%}), {prof['launches']} launches")
+    problems = []
+    if not (res64.converged and res64.max_abs_dx <= REFINE_TOL):
+        problems.append(f"the f64 solve did not reach max|dx| <= "
+                        f"{REFINE_TOL} ({res64.status.name})")
+    if not abs(sigma0 / SIGMA - 1.0) < 0.01:
+        problems.append(f"sigma0 {sigma0:.6e} not within 1% of {SIGMA}")
+    if not om_end <= om_f32 * (1.0 + 1e-9):
+        problems.append("the f64 Omega rose above the f32 end's")
+    if own != list(range(C)):
+        problems.append(f"principal distances {io_est.tolist()} lie "
+                        f"closest to cameras {own}")
+    if problems:
+        fail("rig (b): " + "; ".join(problems))
+
+    # ---- (c) cov_all on the rig, f64 ----------------------------------------
+    (Qall, s_cov) = events(lambda: cov_direct.cov_all(fmp64, full, spec))
+    b0 = engine.materialize_global_rows(
+        fmp64, engine.linearize(fmp64, full, spec, 0.0))
+    S = cov_direct.assemble_reduced_dense(fmp64, b0)
+    Qred = cov_direct.reduced_inverse(S)
+    uu = S.shape[0]
+    d = S.diagonal().sqrt()
+    resid = float(((S @ Qred) * d[None, :] / d[:, None]
+                   - torch.eye(uu, dtype=S.dtype, device=dev)).abs().max())
+    S_ref = reduced_system_by_sums(fmp64, jacobian_rows(b0))
+    s_err = float(((S - S_ref) / d[:, None] / d[None, :]).abs().max())
+    del S_ref
+    log(f"(c) cov_all (f64, u = {uu}): {s_cov:.3f} s between CUDA events; "
+        f"Jacobi-scaled max|S - S_ref| (second assembly route) {s_err:.3e};"
+        f" Jacobi-scaled residual {resid:.3e}")
+    if not (s_err <= COV_S_TOL and resid <= COV_RESIDUAL_TOL):
+        fail(f"rig (c): S vs the second route {s_err:.3e} (limit "
+             f"{COV_S_TOL}), residual {resid:.3e} (limit {COV_RESIDUAL_TOL})")
+
+    # ---- (d) covariance on demand against (c) ------------------------------
+    rng = np.random.default_rng(10)
+    free = np.flatnonzero(prob_h.free_point[:, 0] > 0)
+    ids = rng.choice(free, RIG_COV_K, replace=False)
+    pairs = rng.choice(free, (RIG_COV_K, 2), replace=False)
+    images = rng.choice(NUM_IMAGES, RIG_COV_K, replace=False)
+    b, Minv = covariance.prepare(fmp64, full, spec)
+    precond = "coupled" if Minv.Scg is not None else "block Jacobi"
+    log(f"(d) covariance.prepare's preconditioner: {precond} (the coupled "
+        f"one where its global Schur complement is positive definite)")
+    on_demand = {"preconditioner": precond}
+    for name, fn, arg, ref in (
+            ("points", covariance.point_covariance_blocks, ids,
+             Qall[torch.as_tensor(ids, device=dev)]),
+            ("pairs", covariance.point_pair_covariance_blocks, pairs,
+             cov_direct.point_pair_covariance_dense(fmp64, b0, Qred, pairs)),
+            ("cameras", covariance.camera_covariance_blocks, images,
+             cov_direct.camera_covariance_dense(Qred, images))):
+        stats = {}
+        (blk, sec) = events(lambda: fn(fmp64, b, Minv, arg,
+                                       tol=RIG_COV_PCG_TOL, maxiter=2000,
+                                       stats=stats))
+        err = block_err(blk, ref)
+        on_demand[name] = dict(pcg_iterations=stats["iterations"],
+                               seconds=sec, block_err=err)
+        log(f"(d) {name} on demand: {stats['iterations']} PCG iterations in "
+            f"{sec:.3f} s; block error vs the dense route {err:.3e}")
+        if not err <= RIG_COV_TOL:
+            fail(f"rig (d): the {name} blocks differ from the dense route "
+                 f"by {err:.3e} > {RIG_COV_TOL}")
+    # recorded: the point blocks with the coupled preconditioner, which
+    # keeps no guarantee where it is indefinite
+    _, _, _, Mc = engine.prepare(fmp64, full, spec, 0.0, couple_global=True)
+    stats = {}
+    (blk, sec) = events(lambda: covariance.point_covariance_blocks(
+        fmp64, b, Mc, ids, tol=RIG_COV_PCG_TOL, maxiter=2000, stats=stats))
+    err = block_err(blk, Qall[torch.as_tensor(ids, device=dev)])
+    on_demand["points_coupled"] = dict(pcg_iterations=stats["iterations"],
+                                       seconds=sec, block_err=err)
+    log(f"(d) points with the coupled preconditioner, recorded: "
+        f"{stats['iterations']} PCG iterations in {sec:.3f} s; block error "
+        f"{err:.3e}")
+    del b, Minv, Mc, b0, S, Qred, Qall
+
+    # ---- (e) the reference API on a two-camera scene ------------------------
+    MI, OK = T.MatrixInversion, T.EstimationState.ERROR_FREE_ESTIMATION
+
+    def estimate(cls, scene, where):
+        cams, bars, truth = scene
+        adj = cls(device=where)
+        adj.add(*cams, *bars)
+        adj.set_invert_normal_equation(MI.NONE)
+        (status, sec) = events(adj.estimate_model)
+        if status != OK:
+            fail(f"rig (e): {cls.__name__} on {where}: status {status!r}")
+        xyz = np.array([[o.x.value, o.y.value, o.z.value]
+                        for o in truth["coords"]])
+        return adj, xyz, sec
+
+    api = {}
+    for cls in (T.ScaleBundleAdjustment, T.BundleAdjustment):
+        adj, xyz, sec = estimate(cls, two_camera_scene(*RIG_API), dev)
+        api[cls.__name__] = (adj, xyz, sec)
+        log(f"(e) {cls.__name__}, two cameras, {RIG_API[0]} points / "
+            f"{RIG_API[1]} images (n {adj.problem.num_observation_rows}, "
+            f"u {adj.problem.num_unknowns}, d {adj.problem.defect}): "
+            f"{adj.iteration_step} iterations in {sec:.3f} s, sigma0 "
+            f"{np.sqrt(adj.get_variance_factor_aposteriori()):.6e}")
+    (sa, xs, _), (da, xd, _) = api["ScaleBundleAdjustment"], \
+        api["BundleAdjustment"]
+    field = float(np.abs(xd).max())
+    xyz_err = float(np.abs(xs - xd).max())
+    log(f"(e) scale class against the dense solver: max|dxyz| {xyz_err:.3e}"
+        f" ({xyz_err / field:.3e} of the field), Omega ratio "
+        f"{sa.omega / da.omega:.12f}")
+    if not xyz_err <= RIG_API_XYZ * field:
+        fail(f"rig (e): the scale class differs from the dense solver by "
+             f"{xyz_err:.3e} > {RIG_API_XYZ} of the field")
+    cut = [estimate(T.ScaleBundleAdjustment, two_camera_scene(*RIG_API_CUT),
+                    w)[1] for w in ("cpu", dev)]
+    cut_err = float(np.abs(cut[1] - cut[0]).max() / np.abs(cut[0]).max())
+    log(f"(e) scale class CPU against card at {RIG_API_CUT}: coordinates "
+        f"{cut_err:.2e} of the field")
+    if not cut_err <= API_CPU_TOL:
+        fail(f"rig (e): card and CPU differ by {cut_err:.2e}")
+
+    launches = kernels.launch_counts()
+    seconds = time.time() - t_phase
+    log(f"phase 10: {seconds:.1f} s; K1 / K2 / K3 launches {launches} "
+        "(route: plain, by design)")
+    if any(launches.values()):
+        fail(f"the rig launched a CUDA kernel: {launches}")
+    return dict(
+        rig_step_err=errs, rig_step_cg=cg_a,
+        rig_solve_f32_steps=res.iterations, rig_solve_f32_s=t_f32,
+        rig_solve_f64_steps=res64.iterations, rig_solve_f64_s=t_f64,
+        rig_solve_f64_cg=[h["cg_it"] for h in res64.history],
+        rig_time_to_converged_s=ttc, rig_sigma0=sigma0,
+        rig_sghat_negative=n_neg, rig_refine_recorded=refined,
+        rig_f64_step_idle_share=prof["idle_share"],
+        rig_cov_all_s=s_cov, rig_cov_residual=resid, rig_cov_s_err=s_err,
+        rig_on_demand=on_demand, rig_api_xyz_err=xyz_err,
+        rig_api_cpu_vs_card=cut_err, rig_phase_s=seconds), launches
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -1431,6 +1844,11 @@ def main(profile_refinement=False):
     api, launches9 = reference_api_phase(dev)
     by_phase["reference_api"] = launches9
 
+    # ---- 10. the multi-camera rig: the compact layout, plain path ----------
+    log(f"-- phase 10 at {time.time() - t_start:.1f} s")
+    rig, launches10 = multi_camera_phase(dev)
+    by_phase["multi_camera"] = launches10
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -1447,7 +1865,8 @@ def main(profile_refinement=False):
         "matvec_vs_read_floor": roof["matvec_vs_read_floor"],
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
-        "profile_refine_undamped": prof_ref, **cov, **free, **api}))
+        "profile_refine_undamped": prof_ref, **cov, **free, **api,
+        **rig}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

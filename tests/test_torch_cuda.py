@@ -32,7 +32,10 @@ do they on the rows of a Zernike spec
 (G = 12).  The reference API (`BundleAdjustment`, `ScaleBundleAdjustment`)
 on CUDA by default against the same code on the CPU: status and
 iterations equal, sigma0 within 1e-9, coordinates within 1e-9 of the
-field, the cofactor matrix within 1e-7 of its largest entry.
+field, the cofactor matrix within 1e-7 of its largest entry.  A 4-camera
+rig (the compact rows, plain path): one f64 step on the card against the
+CPU (rtol 3e-4, atol 1e-6 of max), the f32 step twice bit for bit, and
+``use_kernels=True`` refused before any launch.
 """
 
 import pytest
@@ -614,3 +617,71 @@ def test_reference_api_on_the_card_matches_the_cpu(case, cls_name):
     assert abs(np.sqrt(v1 / v2) - 1.0) < 1e-9
     assert np.abs(x1 - x2).max() <= 1e-9 * np.abs(x2).max()
     assert np.abs(q1 - q2).max() <= 1e-7 * np.abs(q2).max()
+
+
+# ---- multi-camera rigs: the compact layout on the plain path ----------------
+
+
+@pytest.fixture(scope="module")
+def rig(case):
+    """A 4-camera rig (the compact rows) on the card and on the CPU."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+
+    prob_h, state_h, spec = synthetic.build_problem(1000, 24, 8, seed=6,
+                                                    num_cameras=4)
+    out = dict(spec=spec)
+    for where in ("cpu", "cuda"):
+        for dt in (torch.float32, torch.float64):
+            out[where, dt] = (convert.problem_to_torch(prob_h, where, dt),
+                              convert.state_to_torch(state_h, where, dt))
+    return out
+
+
+def test_rig_step_on_the_card_matches_the_cpu(rig):
+    """One f64 compact step (damping 1e-4, cg_tol 1e-13) on the card
+    against the CPU: within rtol 3e-4, atol 1e-6 of max (the 16-camera
+    test's tolerance: two f64 PCGs in other summation orders)."""
+    from bundle_adjustment_tpu_torch.parallel import engine
+
+    out = {}
+    for where in ("cpu", "cuda"):
+        prob, st = rig[where, torch.float64]
+        out[where] = engine.lm_step(engine.fm_problem(prob), st, rig["spec"],
+                                    1e-4, cg_tol=1e-13, cg_maxiter=3000)
+    assert out["cuda"][3].Jg is None
+    for a, r in zip(out["cuda"][:3], out["cpu"][:3]):
+        torch.testing.assert_close(a.cpu(), r, rtol=3e-4,
+                                   atol=1e-6 * float(r.abs().max()))
+
+
+def test_rig_step_repeats_bit_for_bit(rig):
+    """The compact f32 step twice on the card: the camera sums are
+    fixed-order products and `_scg_correction` sums per image without
+    atomics, so the bits repeat."""
+    from bundle_adjustment_tpu_torch.parallel import engine
+
+    prob, st = rig["cuda", torch.float32]
+    fmp = engine.fm_problem(prob)
+    one, two = (engine.lm_step(fmp, st, rig["spec"], 1e-2, cg_tol=1e-5,
+                               cg_maxiter=100) for _ in range(2))
+    for a, b in zip(one[:3], two[:3]):
+        assert torch.equal(a, b)
+
+
+def test_kernels_refuse_a_rig_on_the_card(rig):
+    """`use_kernels=True` on compact blocks raises, before any launch; the
+    default route of `solve` for a rig is the plain path."""
+    from bundle_adjustment_tpu_torch.parallel import (engine, kernels,
+                                                      refine, solver)
+
+    prob, st = rig["cuda", torch.float32]
+    fmp = engine.fm_problem(prob)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="single-camera"):
+        engine.lm_step(fmp, st, rig["spec"], 1e-2, use_kernels=True)
+    with pytest.raises(ValueError, match="single-camera"):
+        refine.Refiner(prob, rig["spec"], use_kernels=True)
+    res = solver.solve(prob, st, rig["spec"], max_iterations=2,
+                       tolerance=1e-3)
+    assert res.iterations == 2
+    assert not any(kernels.launch_counts().values())

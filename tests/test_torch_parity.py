@@ -113,12 +113,25 @@ def test_layouts_match_jax(P, M, V, pb):
 
 
 def test_convert_refuses_what_the_port_lacks():
+    """The visibility tables of the block-layout engine are refused; a
+    camera rig is carried across (cam_of_image, r0 [C], the per-camera
+    globals, the state's io [C, 3] / dist [C, K]) and lays out as the JAX
+    `engine.fm_problem` does."""
     import bench
 
     problem, state, _ = bench.build_problem(128, 6, 4, jnp.float64,
                                             num_cameras=2)
-    with pytest.raises(NotImplementedError, match="single-camera"):
-        convert.problem_to_torch(problem, CPU)
+    pt = convert.problem_to_torch(problem, CPU)
+    st = convert.state_to_torch(state, CPU)
+    for f in ("cam_of_image", "r0", "free_global"):
+        np.testing.assert_array_equal(np_(getattr(pt, f)),
+                                      np.asarray(getattr(problem, f)),
+                                      err_msg=f)
+    assert pt.cam_of_image.dtype == torch.int32 and pt.r0.shape == (2,)
+    assert st.io.shape == (2, 3) and st.dist.shape == (2, 7)
+    np.testing.assert_array_equal(np_(TE.fm_problem(pt).cam_of_image),
+                                  np.asarray(E.fm_problem(problem)
+                                             .cam_of_image))
     problem, _, _ = bench.build_problem(128, 6, 4, jnp.float64)
     tables = problem._replace(point2obs=np.zeros((128, 4), np.int32))
     with pytest.raises(NotImplementedError, match="point2obs"):

@@ -194,15 +194,32 @@ def test_converge_from_synthetic_reaches_tolerance():
 
 def test_refiner_refuses_extras(pair32):
     """The constructor refuses what `convert` refuses (the visibility
-    tables of the block-layout engine, more than one camera); scale bars,
-    a Helmert datum and direct observations it now takes."""
+    tables of the block-layout engine); scale bars, a Helmert datum,
+    direct observations and a camera rig it now takes: on a 2-camera rig
+    its f64 gradient matches the JAX Refiner's (rtol 1e-10, as
+    `test_gradient64_matches_jax`), and the kernels are refused."""
+    import bench
+
     _, prob_t = pair32
     problem = SimpleNamespace(**prob_t._asdict(),
                               point2obs=np.zeros((1, 1), np.int32))
     with pytest.raises(NotImplementedError, match="point2obs"):
         refine.Refiner(problem, None)
-    with pytest.raises(NotImplementedError, match="single-camera"):
-        refine.Refiner(prob_t._replace(r0=torch.ones(2)), None)
+    rig_j, rig_s, spec = bench.build_problem(256, 12, 6, jnp.float32,
+                                             seed=4, num_cameras=2)
+    rig_t = convert.problem_to_torch(rig_j, CPU, torch.float32)
+    with pytest.raises(ValueError, match="single-camera"):
+        refine.Refiner(rig_t, spec, use_kernels=True)
+    rt, rj = refine.Refiner(rig_t, spec), JR.Refiner(rig_j, spec)
+    st64 = convert.state_to_torch(rig_s, CPU, torch.float64)
+    assert st64.io.shape == (2, 3)
+    gj = rj.gradient64(rj.fmp64, _to_jax(st64))
+    gt = rt.gradient64(rt.fmp64, st64)
+    for name, a, b in zip(("bp", "bc", "bg", "omega0"), gj[:4], gt):
+        a = np.asarray(a)
+        np.testing.assert_allclose(np_(b), a, rtol=1e-10,
+                                   atol=1e-10 * np.max(np.abs(a)),
+                                   err_msg=name)
     bars = prob_t._replace(
         sb_a=torch.zeros(1, dtype=torch.int32),
         sb_b=torch.ones(1, dtype=torch.int32), sb_length=torch.ones(1),

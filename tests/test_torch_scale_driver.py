@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from test_torch_scene import (direct_group_scene, port_coords, port_scene,
-                              two_camera_scene, zernike_scene)
+                              rig_scene, two_camera_scene, zernike_scene)
 from bundle_adjustment_tpu import MatrixInversion as JMI
 from bundle_adjustment_tpu.models.problem import ParamState as JParamState
 from bundle_adjustment_tpu.models.problem import compile_problem as j_compile
@@ -134,12 +134,62 @@ def test_lm_damping_cap_shared_schedule():
     assert history[i_cap + 1][0] == pytest.approx(0.2 / SQRT_EPS)
 
 
+def _rig_estimates(scene):
+    """(status, iterations, coordinates, Omega, principal distances) of
+    the JAX scale class, the port's scale class and the port's dense
+    `BundleAdjustment` on one scene (MatrixInversion.NONE)."""
+    out = {}
+    for side in ("jax", "scale", "dense"):
+        cams, _, _, truth = scene()
+        if side == "jax":
+            adj = JS.ScaleBundleAdjustment()
+            coords = truth["coords"]
+        else:
+            ts = port_scene((cams, [], [], truth))
+            cams = ts.cameras
+            cls = (solver.ScaleBundleAdjustment if side == "scale"
+                   else BundleAdjustment)
+            adj = cls(device=CPU)
+            coords = port_coords(ts, truth)
+        adj.add(*cams)
+        adj.set_invert_normal_equation(
+            JMI.NONE if side == "jax" else MatrixInversion.NONE)
+        out[side] = (int(adj.estimate_model()), adj.iteration_step,
+                     np.array([[o.x.value, o.y.value, o.z.value]
+                               for o in coords]), adj.omega,
+                     np.array([c.io.c.value for c in cams]))
+    return out
+
+
+def _assert_rig_estimates_agree(out, cameras, separation):
+    sj, ij, pj, oj, cj = out["jax"]
+    assert sj == int(EstimationState.ERROR_FREE_ESTIMATION)
+    assert len(cj) == cameras
+    # the cameras keep their own IO
+    assert np.diff(np.sort(cj)).min() > separation
+    for side in ("scale", "dense"):
+        st, it, pt, ot, ct = out[side]
+        assert st == sj and it == ij, side
+        assert np.abs(pt - pj).max() <= 1e-9 * np.abs(pj).max(), side
+        np.testing.assert_allclose(ot, oj, rtol=1e-9, err_msg=side)
+        np.testing.assert_allclose(ct, cj, rtol=1e-9, err_msg=side)
+
+
 def test_two_cameras_refused_by_the_scale_class():
-    ts = port_scene(two_camera_scene())
-    adj = solver.ScaleBundleAdjustment(device=CPU)
-    adj.add(*ts.cameras)
-    with pytest.raises(NotImplementedError, match="multi-camera layout"):
-        adj.estimate_model()
+    """Two cameras (the free network of tests/test_multi_camera.py, inner
+    constraints) are no longer refused: the scale class runs the engine's
+    compact rows and matches the JAX scale class and the port's dense
+    `BundleAdjustment` (status, iterations, coordinates within 1e-9 of
+    the field, Omega rtol 1e-9, as `test_scale_class_matches_jax_scale_class`)."""
+    _assert_rig_estimates_agree(_rig_estimates(two_camera_scene), 2, 10.0)
+
+
+def test_scale_class_on_a_16_camera_rig():
+    """16 cameras of four images each (`rig_scene`, 64 images, G = 64):
+    the scale class against the JAX scale class and the port's dense
+    `BundleAdjustment`, at the tolerances of the two-camera case."""
+    _assert_rig_estimates_agree(_rig_estimates(lambda: rig_scene(16)), 16,
+                                1.0)
 
 
 def test_scale_class_matches_jax_scale_class():

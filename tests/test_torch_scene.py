@@ -56,6 +56,49 @@ def two_camera_scene(seed=0):
     return cams, [], [], {"coords": coords, "points": pts}
 
 
+def rig_scene(cameras, num_points=30, images_per_camera=4, seed=0,
+              noise=1e-4):
+    """A camera rig in the geometry of the two-camera network of
+    tests/test_multi_camera.py: each camera its own principal distance
+    (-30 .. -50), principal point and radial A1, its own four images."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-50, 50, (num_points, 3))
+    pts[:, 2] *= 0.2
+    coords = [JS.ObjectCoordinate(str(i + 1), *pts[i])
+              for i in range(num_points)]
+    cams = []
+    for ci in range(cameras):
+        io = np.array([rng.uniform(-0.03, 0.03), rng.uniform(-0.03, 0.03),
+                       -30.0 - 20.0 * ci / max(cameras - 1, 1)])
+        a1 = rng.uniform(-1e-4, 1e-4)
+        cam = JS.Camera(ci + 1, r0=8.0,
+                        distortion_types=(DT.RADIAL_DISTORTION,))
+        cam.io.x0.value, cam.io.y0.value, cam.io.c.value = io
+        cam.distortion(DT.RADIAL_DISTORTION).add(1, a1)
+        spec = cam.build_spec()
+        coeffs = np.zeros(spec.num_coefficients)
+        coeffs[spec.slot_index(DT.RADIAL_DISTORTION, 1)] = a1
+        for m in range(images_per_camera):
+            ang = 2 * np.pi * m / images_per_camera + 0.3 * ci + 0.17 * m
+            radius = 200.0 * (0.8 + 0.1 * (m % 2))
+            pos = np.array([radius * np.cos(ang), radius * np.sin(ang),
+                            150.0 + 40.0 * (m % 3)])
+            w, p_, k = look_at_wpk(pos, np.zeros(3))
+            eo = np.array([*pos, w, p_, k + (m % 4) * np.pi / 2])
+            img = cam.add_image(m + 1)
+            img.eo.set(*eo)
+            for i, oc in enumerate(coords):
+                local = np.concatenate([pts[i], io, eo, coeffs])
+                xy = np.asarray(predict_image_point(jnp.asarray(local), spec,
+                                                    8.0))
+                if np.abs(xy).max() > 40:
+                    continue
+                xy = xy + rng.normal(0, noise, 2)
+                img.add(oc, xy[0], xy[1], 1e-4, 1e-4)
+        cams.append(cam)
+    return cams, [], [], {"coords": coords, "points": pts}
+
+
 def direct_group_scene(seed=5):
     """A free network with three held-fixed coordinates, a populated group
     over three points' coordinates and a diagonal group over one image's

@@ -36,6 +36,29 @@ def test_build_problem_matches_bench(P, M, V, seed):
                                atol=1e-9)
 
 
+@pytest.mark.parametrize("C", [2, 3, 16])
+def test_camera_rig_matches_bench(C):
+    """`build_problem(num_cameras=C)`: image m on camera m % C, the
+    per-camera true IO and distortion of `bench.build_problem`, the same
+    draws; G = C (3 + K)."""
+    import bench
+
+    pj, sj, _ = bench.build_problem(300, 2 * C + 1, 4, jnp.float64, seed=C,
+                                    pad128=True, num_cameras=C)
+    pt, st, spec = synthetic.build_problem(300, 2 * C + 1, 4, seed=C,
+                                           num_cameras=C)
+    np.testing.assert_array_equal(pt.cam_of_image,
+                                  np.asarray(pj.cam_of_image))
+    for f in ("obs_image", "img_perm", "r0", "free_global", "obs_weight"):
+        np.testing.assert_array_equal(getattr(pt, f),
+                                      np.asarray(getattr(pj, f)), err_msg=f)
+    assert pt.free_global.shape == (C * (3 + spec.num_coefficients),)
+    for a, b in zip(st, sj):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_allclose(pt.obs_xy, np.asarray(pj.obs_xy), rtol=0,
+                               atol=1e-9)
+
+
 def test_padding_is_inert():
     """Dummy points: zero weights, fixed, copies of point 0."""
     pt, st, _ = synthetic.build_problem(100, 5, 3, seed=1)
