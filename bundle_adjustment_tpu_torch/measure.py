@@ -171,6 +171,10 @@ def time_ms(fn, reps=20, warm=3, flush_l2=False):
     return t0.elapsed_time(t1) / reps
 
 
+#: profiles `device_ms` takes before it gives up on an empty one
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, reps=20, warm=3, flush_l2=False):
     """Device time of one fn() call: the kernels and copies of ``reps``
     calls under torch.profiler, summed, over ``reps``.  No launch gap and
@@ -178,7 +182,11 @@ def device_ms(fn, reps=20, warm=3, flush_l2=False):
     than its wrapper's host cost, where back-to-back CUDA events
     (`time_ms`) read the host.  ``flush_l2`` overwrites an
     `L2_FLUSH_BYTES` buffer before every call and leaves the fill's own
-    time out.  Returns (ms, {activity name: ms per call})."""
+    time out.  Returns (ms, {activity name: ms per call}).
+
+    A profile that records no device activity for fn (torch.profiler
+    now and then drops a whole window) is taken again, up to
+    ``PROFILE_TRIES`` times; then this raises rather than return 0."""
     for _ in range(warm):
         fn()
     skip = set()
@@ -192,11 +200,15 @@ def device_ms(fn, reps=20, warm=3, flush_l2=False):
                 buf.zero_()
             fn()
 
-    by_name = {}
-    for name, _, ms in device_profile(calls, top=None)["top"]:
-        if name not in skip:
-            by_name[name] = by_name.get(name, 0.0) + ms / reps
-    return sum(by_name.values()), by_name
+    for _ in range(PROFILE_TRIES):
+        by_name = {}
+        for name, _, ms in device_profile(calls, top=None)["top"]:
+            if name not in skip:
+                by_name[name] = by_name.get(name, 0.0) + ms / reps
+        if by_name:
+            return sum(by_name.values()), by_name
+    raise RuntimeError(f"torch.profiler recorded no device activity of the "
+                       f"timed call in {PROFILE_TRIES} tries")
 
 
 def device_profile(fn, top=8):

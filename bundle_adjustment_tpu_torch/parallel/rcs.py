@@ -108,6 +108,43 @@ def build_image_block_layout(obs_image, num_images, block=IMG_BLOCK):
     return perm, (starts // block).astype(np.int32)
 
 
+class PointMajor(NamedTuple):
+    """The uniform point-major layout of observations given in any order
+    (`point_major_layout`): entry e = point * views + view."""
+
+    src: np.ndarray   # [P * V] int64 the observation entry e takes, -1 none
+    live: np.ndarray  # [P * V] bool: one of the point's own observations
+    views: int        # V
+
+    def gather(self, a, fill):
+        """a [N, ...] in the observations' order -> [P * V, ...] in the
+        layout's; ``fill`` where a point has no observation at all."""
+        a = np.asarray(a)
+        seen = (self.src >= 0).reshape((-1,) + (1,) * (a.ndim - 1))
+        return np.where(seen, a[np.maximum(self.src, 0)], fill)
+
+
+def point_major_layout(obs_point, num_points) -> PointMajor:
+    """The layout the feature-major engine reads, for observations of
+    points ``obs_point`` [N] in any order: V = the most views any point
+    has (at least 1), each point's own observations first, in their
+    order, then pad entries that repeat its first observation (none for
+    a point no image sees).  The callers give pad entries zero weight."""
+    obs_point = np.asarray(obs_point, np.int64)
+    P = int(num_points)
+    counts = np.bincount(obs_point, minlength=P)
+    V = max(int(counts.max()) if counts.size else 0, 1)
+    order = np.argsort(obs_point, kind="stable")
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    view = np.arange(obs_point.shape[0]) - first[obs_point[order]]
+    src = np.full((P, V), -1, np.int64)
+    src[obs_point[order], view] = order
+    real = src >= 0
+    fill = np.where(counts > 0, src[:, 0], -1)
+    src = np.where(real, src, fill[:, None]).reshape(-1)
+    return PointMajor(src=src, live=real.reshape(-1), views=V)
+
+
 def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
     """The tensor RCSProblem of a compiled dense `models.problem.BundleProblem`
     on ``device``, in the layout the feature-major engine reads: observations
@@ -133,30 +170,14 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
         return torch.as_tensor(np.asarray(a, np.float64), device=device,
                                dtype=dtype)
 
-    # point-major order, padded to V views per point
-    obs_point = np.asarray(bp.obs_point, np.int64)
-    counts = np.bincount(obs_point, minlength=P)
-    V = max(int(counts.max()) if counts.size else 0, 1)
-    order = np.argsort(obs_point, kind="stable")
-    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    view = np.arange(obs_point.shape[0]) - first[obs_point[order]]
-    src = np.full((P, V), -1, np.int64)
-    src[obs_point[order], view] = order
-    real = src >= 0
-    fill = np.where(counts > 0, src[:, 0], -1)
-    src = np.where(real, src, fill[:, None]).reshape(-1)
-    seen = src >= 0
-    take = np.where(seen, src, 0)
-    obs_image = np.where(seen, bp.obs_image[take], 0).astype(np.int32)
-    obs_xy = np.where(seen[:, None], bp.obs_xy[take], 0.0)
-    live = real.reshape(-1)
-
-    var = flt(np.where(seen[:, None], bp.obs_var[take], 1.0))
+    pm = point_major_layout(bp.obs_point, P)
+    obs_image = pm.gather(bp.obs_image, 0).astype(np.int32)
+    var = flt(pm.gather(bp.obs_var, 1.0))
     w2 = image_weight_2x2(var[:, 0], var[:, 1],
-                          flt(np.where(seen, bp.obs_rho[take], 0.0)),
-                          bp.sigma2_apriori)
-    w2 = w2 * flt(live)[:, None, None]
+                          flt(pm.gather(bp.obs_rho, 0.0)), bp.sigma2_apriori)
+    w2 = w2 * flt(pm.live)[:, None, None]
     img_perm, img_bstarts = build_image_block_layout(obs_image, M)
+    V = pm.views
 
     free_global = np.concatenate(
         [np.concatenate([bp.col_io[c] >= 0, bp.col_dist[c] >= 0])
@@ -174,7 +195,7 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
 
     return RCSProblem(
         obs_point=idx(np.repeat(np.arange(P), V)), obs_image=idx(obs_image),
-        obs_xy=flt(obs_xy), obs_weight=w2, r0=flt(bp.r0),
+        obs_xy=flt(pm.gather(bp.obs_xy, 0.0)), obs_weight=w2, r0=flt(bp.r0),
         num_points=P, num_images=M,
         free_point=flt(bp.col_points >= 0), free_eo=flt(bp.col_eo >= 0),
         free_global=flt(free_global),

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.problem import ParamState
+from ..solver.checkpoint import LMCheckpoint
 from ..solver.adjustment import BundleAdjustment as _DenseBundleAdjustment
 from ..solver.adjustment import (SQRT_EPS, EstimationState, EstimationType,
                                  _Kernels, lm_gain_update)
@@ -58,6 +59,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
           cg_tol: float = 1e-6,
           cg_maxiter: int = 100,
           use_kernels: Optional[bool] = None,
+          checkpoint_path: Optional[str] = None,
+          checkpoint_every: int = 0,
           verbose: bool = False,
           simulation: bool = False,
           listeners: Optional[list] = None,
@@ -74,6 +77,10 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     ValueError for more than one camera).  With the kernels the point
     count is padded to their block size with dummy points
     (`engine.pad_problem`), which the returned state drops again.
+    ``checkpoint_path`` / ``checkpoint_every``: every k-th iteration
+    (k = checkpoint_every > 0) the state without the dummy points, the
+    iteration, the damping, Omega and max|dx| go to an atomic
+    `solver.checkpoint.LMCheckpoint` at ``checkpoint_path``.
     ``simulation``: the right-hand side is zeroed, so every step is
     exactly 0 and Omega = 0; one linearisation still runs, so that
     singular geometry surfaces (pure variance propagation for network
@@ -175,6 +182,12 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         if verbose:
             print(f"it={it_done} max|dx|={max_dx:.3e} lam={adapted:.2e} "
                   f"cg={int(cg_it)} omega0={omega0:.4e}")
+
+        if (checkpoint_path and checkpoint_every
+                and it_done % checkpoint_every == 0):
+            LMCheckpoint(state=unpadded(state), iteration=it_done,
+                         adapted_damping=adapted, omega=omega_prev,
+                         max_abs_dx=max_dx).save(checkpoint_path)
 
         if interrupted is not None and interrupted():
             fire("INTERRUPT", False, True)

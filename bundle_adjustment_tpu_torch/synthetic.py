@@ -256,3 +256,42 @@ def free_network(problem, state, bars=8, direct=None, seed=0, truth=None,
     if direct:
         raise ValueError(f"unknown direct observations: {sorted(direct)}")
     return problem._replace(**fields)
+
+
+def as_read_from_files(problem, state):
+    """What `io.columnar.build_rcs_problem` builds from the files of
+    `write_flat`: the problem and state (host arrays) without the dummy
+    points (the trailing points whose observations all weigh 0), with
+    r0 = 0 (the files carry no distortion reference radius)."""
+    P, V = problem.num_points, problem.point_uniform
+    seen = np.asarray(problem.obs_weight)[:, 0, 0].reshape(P, V).sum(axis=1)
+    n = int(np.flatnonzero(seen > 0).max()) + 1
+    obs_image = np.asarray(problem.obs_image)[:n * V]
+    img_perm, img_bstarts = build_image_block_layout(obs_image,
+                                                     problem.num_images)
+    return problem._replace(
+        obs_point=np.asarray(problem.obs_point)[:n * V], obs_image=obs_image,
+        obs_xy=np.asarray(problem.obs_xy)[:n * V],
+        obs_weight=np.asarray(problem.obs_weight)[:n * V],
+        r0=np.zeros_like(np.asarray(problem.r0)), num_points=n,
+        free_point=np.asarray(problem.free_point)[:n],
+        img_perm=img_perm, img_block_starts=img_bstarts), \
+        state._replace(points=np.asarray(state.points)[:n])
+
+
+def write_flat(base: str, problem, state):
+    """Write a one-camera `build_problem` network without its dummy points
+    as the generic flat files `io.columnar.build_rcs_problem` reads (17
+    significant digits): points named by their index, the datum column on
+    the fixed ones; image coordinates `1 <image + 1> <point> x y SIGMA
+    SIGMA 0`; EO; IO.  Returns the paths ({points, imagecoords, eor,
+    ior})."""
+    from .io.scene_files import write_flat_files
+
+    if np.asarray(state.io).shape[0] != 1:
+        raise ValueError("write_flat takes a one-camera network")
+    p, s = as_read_from_files(problem, state)
+    fixed = ~np.asarray(p.free_point, bool).any(axis=1)
+    return write_flat_files(
+        base, [str(i) for i in range(p.num_points)], s.points, fixed,
+        p.obs_point, p.obs_image, p.obs_xy, SIGMA, s.eo, s.io[0])

@@ -158,8 +158,45 @@ Phases (any failed check exits non-zero, before the result line):
      BASELINE config 3's size (make_synthetic_scene(5000, 50) with its odd
      images on a second camera), coordinates within 1e-10 of the field,
      and the scale class on the CPU against the card at 300 / 10.
+  11. the file-driven scale path: phase 2's network without its 352 dummy
+     points written as the generic flat files (`synthetic.write_flat`, 17
+     significant digits; 1,200,000 image rows); the image file parsed by
+     the native loader (built with g++ into .kernels_build/) and by
+     `parse_table_py`, gated equal (floats, keys, column counts), both
+     host times printed; `io.columnar.build_rcs_problem` (f32, on the
+     card, the true distortion) gated equal bit for bit, field by field
+     and in the state, to the in-memory problem without the pads and with
+     r0 = 0 (`synthetic.as_read_from_files`); `solver.solve` (f32, damping
+     1e-2, tolerance 1e-3) on both: equal bits of the end state and the
+     same steps, K1 / K2 / K3 launched during the file route's solve; a
+     solve of 2 iterations with checkpoint_every = 2 leaves a checkpoint
+     equal to its returned state bit for bit (100,000 points: no dummy
+     points); `refine.converge` undamped from the file route's end:
+     max|dx| <= 1e-6, the f64 Omega not above the f32 end's, sigma0 within
+     1% of 5e-4 (r0 = 0 reparametrises the radial terms, the fit is
+     phase 5's); one solve step under `tracing.device_trace`, whose Chrome
+     trace must name matvec_kernel, prepare_kernel and cam_gather_kernel.
+  12. the CLI and initialisation at the reference-API size: phase 9's
+     scene (points renamed to at most 3 characters, so the CLI's datum is
+     phase 9's: every point) written as AICON .obc/.scale/.ior/.eor/.phc
+     (the .ior adds A3, free) and as an AICON plain-text report
+     (`io.scene_files`); `python -m bundle_adjustment_tpu_torch flat|report
+     ... --inversion reduced --export --export-mat` as subprocesses on the
+     card: exit 0, the printed n, u, d, dof equal to an in-process
+     `estimate_model` of the same files on the card, sigma0 within 1e-10
+     relative, the .mat coordinates and cofactor diagonal within 1e-9 of
+     the field / of the largest variance (the diagonal entry by entry is
+     recorded: the dense f64 assembly adds with atomics, so two runs differ
+     by its rounding times the conditioning), .info and .cxx equal to the
+     .mat to their printed digits;
+     `flat --cpu` against the card within 1e-9; DLT `adjust` on 20
+     noise-free images (card against CPU within 1e-9, the projection
+     centre and principal point within 1e-6 and |c| within 1e-6 relative
+     of the truth, tests/test_dlt.py's); `transformation.transform` of 20
+     points through a reference image with the card's FULL Qxx against
+     the same call on the CPU within 1e-9; no kernel launch (float64).
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6, 7 and 8, each between a reset and a read of the counters;
+phases 3, 5, 6, 7, 8 and 11, each between a reset and a read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -171,10 +208,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 NUM_POINTS, NUM_IMAGES, VIEWS = 100_000, 500, 12
 SIGMA = 5e-4
@@ -248,6 +287,17 @@ RIG_COV_K = 4            # points, pairs and images of the on-demand blocks
 RIG_API = (5000, 50)     # BASELINE config 3: 5k points / 50 images
 RIG_API_CUT = (300, 10)  # its cut for the CPU-against-card check
 RIG_API_XYZ = 1e-10      # scale class vs dense, of the field's extent
+# phases 11-12: the file-driven entry points
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / ".chipwork"  # listed in .gitignore
+CHECKPOINT_EVERY = 2       # iterations of the checkpointed solve
+TRACE_KERNELS = ("matvec_kernel", "prepare_kernel", "cam_gather_kernel")
+CLI_SIGMA0_RTOL = 1e-10    # CLI against the in-process estimate
+CLI_RTOL = 1e-9            # .mat against in-process; --cpu against the card
+DLT_IMAGES = 20
+DLT_CPU_TOL = 1e-9         # DLT / transform on the card against the CPU
+DLT_EO_ATOL = 1e-6         # tests/test_dlt.py: projection centre, x0, y0
+DLT_C_RTOL = 1e-6          # and |c|
 
 
 def fail(msg: str):
@@ -1379,6 +1429,434 @@ def multi_camera_phase(dev):
         rig_api_cpu_vs_card=cut_err, rig_phase_s=seconds), launches
 
 
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (floats compared as integers, so -0.0
+    and 0.0 differ)."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        return torch.equal(a.contiguous().view(ints[a.dtype]),
+                           b.contiguous().view(ints[b.dtype]))
+    return torch.equal(a, b)
+
+
+def file_route_phase(prob_h, state_h, spec, dev):
+    """Phase 11 (see the module docstring).  Returns (summary dict, the
+    launch counts of the file route's solve and refinement)."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, native, synthetic
+    from bundle_adjustment_tpu_torch.io import columnar
+    from bundle_adjustment_tpu_torch.parallel import (hilo, kernels, lm,
+                                                      refine, solver)
+    from bundle_adjustment_tpu_torch.solver import tracing
+    from bundle_adjustment_tpu_torch.solver.checkpoint import LMCheckpoint
+
+    f32 = torch.float32
+    work = WORK / "phase11"
+    work.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    paths = synthetic.write_flat(str(work / "net"), prob_h, state_h)
+    write_s = time.perf_counter() - t
+    sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+    log(f"flat files written in {write_s:.2f} s: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items()))
+
+    # the native loader against its plain version on the image file
+    t = time.perf_counter()
+    native.build()
+    loader_build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tn = native.parse_table(paths["imagecoords"], "iisfffff")
+    parse_native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tp = native.parse_table_py(paths["imagecoords"], "iisfffff")
+    parse_py_s = time.perf_counter() - t
+    same = (tn.rows == tp.rows
+            and np.array_equal(tn.floats, tp.floats, equal_nan=True)
+            and np.array_equal(tn.ncols, tp.ncols)
+            and all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+                    for a, b in zip(tn.keys, tp.keys)))
+    log(f"parse of {tn.rows} image rows: native {parse_native_s:.3f} s "
+        f"(g++ build {loader_build_s:.2f} s), Python {parse_py_s:.3f} s; "
+        f"floats, keys and column counts equal: {same}")
+    if not same:
+        fail("the native loader's table differs from parse_table_py's")
+    del tn, tp
+
+    # build_rcs_problem against the in-memory problem without the pads
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fp, fs, _ = columnar.build_rcs_problem(
+        paths["points"], paths["imagecoords"], paths["eor"],
+        io_path=paths["ior"], spec=synthetic.scale_spec(), dist=state_h.dist,
+        device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    cp_h, cs_h = synthetic.as_read_from_files(prob_h, state_h)
+    cp = convert.problem_to_torch(cp_h, dev, f32)
+    cs = convert.state_to_torch(cs_h, dev, f32)
+    diff = [f for f in fp._fields
+            if not (same_bits(getattr(fp, f), getattr(cp, f))
+                    if isinstance(getattr(cp, f), torch.Tensor)
+                    or getattr(cp, f) is None
+                    else getattr(fp, f) == getattr(cp, f))]
+    diff += [f"state.{f}" for f in fs._fields
+             if not same_bits(getattr(fs, f), getattr(cs, f))]
+    log(f"build_rcs_problem: P={fp.num_points} M={fp.num_images} "
+        f"V={fp.point_uniform} N={fp.obs_point.shape[0]} in {build_s:.2f} s "
+        f"(host parse and layout, then the copy to the card); every field "
+        f"and the state equal to the in-memory control bit for bit: "
+        f"{not diff}")
+    if diff:
+        fail(f"the file-built problem differs from its control in {diff}")
+
+    # solve (f32, through the kernels) on both; checkpoints
+    kw = dict(damping=1e-2, max_iterations=30, tolerance=F32_STOP)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rf = solver.solve(fp, fs, spec, **kw)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    launches_solve = kernels.launch_counts()
+    rc = solver.solve(cp, cs, spec, **kw)
+    equal = (rf.iterations == rc.iterations
+             and all(same_bits(getattr(rf.state, f), getattr(rc.state, f))
+                     for f in rf.state._fields))
+    log(f"solve (f32, kernels) on the file route: {rf.status.name} after "
+        f"{rf.iterations} steps in {solve_s:.3f} s, max|dx| "
+        f"{rf.max_abs_dx:.3e}, CG {[h['cg_it'] for h in rf.history]}; "
+        f"launches {launches_solve}; the control {rc.iterations} steps; "
+        f"equal bits and steps: {equal}")
+    if not equal:
+        fail("solve on the file-built problem differs from the control's")
+    if not rf.converged:
+        fail(f"solve on the file route did not reach max|dx| <= {F32_STOP}")
+    if min(launches_solve[k] for k in SOLVE_KERNELS) <= 0:
+        fail(f"a kernel of the file route's solve never launched: "
+             f"{launches_solve}")
+    ck_path = work / "checkpoint.npz"
+    rk = solver.solve(fp, fs, spec, **{**kw, "max_iterations":
+                                       CHECKPOINT_EVERY},
+                      checkpoint_path=str(ck_path),
+                      checkpoint_every=CHECKPOINT_EVERY)
+    ck = LMCheckpoint.load(str(ck_path))
+    ck_same = (ck.iteration == CHECKPOINT_EVERY and all(
+        same_bits(torch.as_tensor(getattr(ck.state, f)),
+                  getattr(rk.state, f).cpu()) for f in rk.state._fields))
+    log(f"checkpoint after {ck.iteration} iterations: points "
+        f"{ck.state.points.shape}, equal to the returned state bit for bit:"
+        f" {ck_same}")
+    if not ck_same:
+        fail("the checkpoint differs from the state solve returned")
+
+    # the refinement, undamped, from the file route's end
+    refiner = refine.Refiner(fp, spec, use_kernels=True)
+    st = rf.state
+    om_f32 = float(refiner.gradient64(
+        refiner.fmp64, type(st)(*(a.double() for a in st)))[3])
+    n_obs = 2 * int((fp.obs_weight[:, 0, 0] > 0).sum())
+    u = int(fp.free_point.sum() + fp.free_eo.sum() + fp.free_global.sum())
+    dof = n_obs - u
+    phase = lm.LMPhase(steps=rf.iterations, max_dx=rf.max_abs_dx,
+                       cg_iterations=[h["cg_it"] for h in rf.history],
+                       seconds=solve_s)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    s_ref, rec = refine.converge(refiner, (st, phase), tolerance=REFINE_TOL,
+                                 damping=0.0)
+    launches_ref = kernels.launch_counts()
+    om = float(refiner.gradient64(refiner.fmp64, hilo.to_f64(s_ref))[3])
+    sigma0 = (om / dof) ** 0.5
+    log(f"refinement (undamped, kernels): {rec.refine_steps} steps in "
+        f"{rec.refine_seconds:.3f} s; max|dx| " + ", ".join(
+            f"{x:.3e}" for x in rec.max_dx) + f"; CG {rec.cg_iterations}; "
+        f"f64 Omega {om_f32:.10e} -> {om:.10e}; dof {dof}; sigma0 "
+        f"{sigma0:.6e}; launches {launches_ref}")
+    problems = []
+    if not rec.max_dx[-1] <= REFINE_TOL:
+        problems.append(f"max|dx| {rec.max_dx[-1]:.3e} > {REFINE_TOL}")
+    if not om <= om_f32 * (1.0 + 1e-9):
+        problems.append("Omega rose above the f32 end's")
+    if not abs(sigma0 / SIGMA - 1.0) < 0.01:
+        problems.append(f"sigma0 {sigma0:.6e} not within 1% of {SIGMA}")
+    if min(launches_ref[k] for k in SOLVE_KERNELS) <= 0:
+        problems.append(f"a kernel never launched: {launches_ref}")
+    if problems:
+        fail("the file route's refinement: " + "; ".join(problems))
+    launches = {k: launches_solve[k] + launches_ref[k]
+                for k in launches_solve}
+    del refiner, s_ref, rc, cp, cs
+
+    # one solve step under tracing.device_trace
+    logdir = work / "trace"
+    t = time.perf_counter()
+    with tracing.device_trace(str(logdir)):
+        solver.solve(fp, st, spec, damping=1e-2, max_iterations=1,
+                     tolerance=F32_STOP)
+    trace_s = time.perf_counter() - t
+    text = (logdir / tracing.TRACE_FILE).read_text()
+    named = {k: k in text for k in TRACE_KERNELS}
+    log(f"device_trace of one step: {len(text) / 1e6:.1f} MB Chrome trace "
+        f"in {trace_s:.2f} s; names {named}")
+    if not all(named.values()):
+        fail(f"the trace does not name every kernel of the step: {named}")
+    return dict(
+        file_write_s=write_s, file_sizes=sizes,
+        file_parse_native_s=parse_native_s, file_parse_py_s=parse_py_s,
+        file_loader_build_s=loader_build_s, file_build_s=build_s,
+        file_solve_steps=rf.iterations, file_solve_s=solve_s,
+        file_refine_steps=rec.refine_steps,
+        file_refine_s=rec.refine_seconds, file_refine_max_dx=rec.max_dx,
+        file_omega_f32=om_f32, file_omega=om, file_sigma0=sigma0,
+        file_dof=dof, file_trace_s=trace_s), launches
+
+
+def short_name(i: int) -> str:
+    """i >= 1 in base 36: at most 3 characters up to 46,655."""
+    digits = "0123456789abcdefghijklmnopqrstuvwxyz"
+    out = ""
+    while i:
+        i, r = divmod(i, 36)
+        out = digits[r] + out
+    return out
+
+
+def cli_phase(dev):
+    """Phase 12 (see the module docstring).  Returns (summary dict, the
+    launch counts of the phase: none, every run is float64)."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    import bundle_adjustment_tpu_torch as T
+    from bundle_adjustment_tpu_torch.init import dlt, transformation
+    from bundle_adjustment_tpu_torch.io import readers, scene_files
+    from bundle_adjustment_tpu_torch.parallel import kernels
+    from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+
+    kernels.reset_launch_counts()
+    work = WORK / "phase12"
+    work.mkdir(parents=True, exist_ok=True)
+    base = str(work / "net")
+    cams, bars, truth = make_synthetic_scene(
+        num_points=API_POINTS, num_images=API_IMAGES, noise=SIGMA,
+        sigma=SIGMA, perturb=0.01, seed=0)
+    # names of at most 3 characters: every point stays in the CLI's datum
+    # (its --datum-name-length 3 heuristic), as in phase 9
+    for i, oc in enumerate(truth["coords"]):
+        oc.name = short_name(i + 1)
+    t = time.perf_counter()
+    scene_files.write_aicon_files(base, cams[0], bars)
+    scene_files.write_aicon_report(base + ".txt", cams[0], bars)
+    log(f"phase 9's scene written as AICON files and report in "
+        f"{time.perf_counter() - t:.2f} s (.phc "
+        f"{os.path.getsize(base + '.phc') / 1e6:.1f} MB, report "
+        f"{os.path.getsize(base + '.txt') / 1e6:.1f} MB)")
+
+    def cli(*args):
+        cmd = [sys.executable, "-m", "bundle_adjustment_tpu_torch", *args]
+        t = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        wall = time.perf_counter() - t
+        if res.returncode != 0:
+            fail(f"{' '.join(cmd[1:])} exited {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+        nums = {}
+        for line in res.stdout.splitlines():
+            key, _, val = line.partition(":")
+            if val and not key.startswith("Estimation time"):
+                nums[key.strip()] = float(val)
+        return nums, wall
+
+    def in_process(sub, mode):
+        """The CLI's network, read and estimated in this process on the
+        card (the same readers and datum rule as the CLI)."""
+        if sub == "flat":
+            coords = readers.read_obc(base + ".obc")
+            sbars = readers.read_scale(base + ".scale", coords)
+            cam = readers.read_ior(base + ".ior")
+            readers.read_eor(base + ".eor", cam)
+            readers.read_phc(base + ".phc", cam, coords)
+            adj = T.BundleAdjustment(device=dev)
+            adj.add(cam, *sbars)
+            cameras = [cam]
+        else:
+            adj, reader = readers.read_aicon_report(base + ".txt", device=dev)
+            cameras = list(reader.cameras.values())
+        for cam in cameras:
+            for img in cam:
+                for ic in img:
+                    if len(ic.object_coordinate.name) > 3:
+                        ic.object_coordinate.set_datum(False)
+        adj.set_invert_normal_equation(mode)
+        t = time.perf_counter()
+        status = adj.estimate_model()
+        sec = time.perf_counter() - t
+        if status != T.EstimationState.ERROR_FREE_ESTIMATION:
+            fail(f"in-process {sub} estimate: {status!r}")
+        return adj, cameras, sec
+
+    def mat_coords(m):
+        c = m["coordinates"]
+        return np.array([[np.asarray(c[a][0, i]).item() for a in "XYZ"]
+                         for i in range(c.shape[1])])
+
+    out, mats = {}, {}
+    for sub, target in (("flat", base), ("report", base + ".txt")):
+        exp = str(work / sub)
+        nums, wall = cli(sub, target, "--inversion", "reduced", "--export",
+                         exp, "--export-mat", exp)
+        adj, _, sec = in_process(sub, T.MatrixInversion.REDUCED)
+        want = {"Number of observations": adj.get_number_of_observations(),
+                "Number of unknown parameters":
+                    adj.get_number_of_unknown_parameters(),
+                "Number of datum conditions":
+                    adj.get_number_of_datum_conditions(),
+                "Degree of freedom": adj.get_degree_of_freedom()}
+        counts_ok = all(nums.get(k) == v for k, v in want.items())
+        s_cli = math.sqrt(nums["Variance of unit weight (post)"])
+        s_in = math.sqrt(adj.get_variance_factor_aposteriori())
+        s_rel = abs(s_cli / s_in - 1.0)
+        m = sio.loadmat(exp + ".mat")
+        mats[sub] = m
+        xyz = mat_coords(m)
+        xyz_in = np.array([[oc.x.value, oc.y.value, oc.z.value]
+                           for oc in adj.get_object_coordinates()])
+        field = np.abs(xyz_in).max()
+        xyz_rel = float(np.abs(xyz - xyz_in).max() / field)
+        Q = adj.get_cofactor_matrix().cpu().numpy()
+        cols = [p.column for oc in adj.get_object_coordinates()
+                for p in oc.params if p.column >= 0]
+        d_in = np.diagonal(Q)[cols]
+        d_mat = np.diagonal(m["dispersion"])[:len(cols)]
+        # of the largest variance (the gate), and entry by entry (recorded:
+        # the dense assembly adds with atomics, and the smallest variances
+        # carry that rounding times the conditioning)
+        q_rel = float(np.abs(d_mat - d_in).max() / np.abs(d_in).max())
+        q_each = float(np.abs(d_mat / d_in - 1.0).max())
+        # .info and .cxx against the .mat (15 decimals printed)
+        info = np.loadtxt(exp + ".info", dtype=str, delimiter="\t")
+        info_err = float(np.abs(info[:, 2].astype(float)
+                                - xyz.reshape(-1)).max())
+        cxx = np.loadtxt(exp + ".cxx")
+        s2 = float(m["variance_of_unit_weight_post"].item())
+        cxx_err = float(np.abs(cxx - s2 * m["dispersion"][:len(cols),
+                                                         :len(cols)]).max())
+        log(f"CLI {sub} on the card: exit 0 in {wall:.2f} s (in-process "
+            f"estimate {sec:.2f} s); n {int(nums['Number of observations'])} "
+            f"u {int(nums['Number of unknown parameters'])} "
+            f"d {int(nums['Number of datum conditions'])} dof "
+            f"{int(nums['Degree of freedom'])} equal to in-process: "
+            f"{counts_ok}; sigma0 {s_cli:.12e} ({s_rel:.2e} relative); .mat "
+            f"coordinates {xyz_rel:.2e} of the field, cofactor diagonal "
+            f"{q_rel:.2e} of its largest entry ({q_each:.2e} entry by "
+            f"entry); .info vs .mat {info_err:.1e}, .cxx vs .mat "
+            f"{cxx_err:.1e}")
+        problems = []
+        if not counts_ok:
+            problems.append(f"counts {nums} against {want}")
+        if not s_rel <= CLI_SIGMA0_RTOL:
+            problems.append(f"sigma0 {s_rel:.2e} relative")
+        if not (xyz_rel <= CLI_RTOL and q_rel <= CLI_RTOL):
+            problems.append(f".mat {xyz_rel:.2e} / {q_rel:.2e}")
+        if not (info_err <= 1e-12 * field and cxx_err <= 1e-15):
+            problems.append(f".info {info_err:.1e} / .cxx {cxx_err:.1e}")
+        if problems:
+            fail(f"CLI {sub} against the in-process estimate: "
+                 + "; ".join(problems))
+        out[sub] = dict(wall_s=wall, in_process_s=sec, sigma0=s_cli,
+                        sigma0_rel=s_rel, xyz_rel=xyz_rel, q_rel=q_rel,
+                        q_rel_each=q_each,
+                        n=int(nums["Number of observations"]),
+                        u=int(nums["Number of unknown parameters"]))
+
+    # the CLI on the CPU against the card
+    exp = str(work / "flat_cpu")
+    _, wall_cpu = cli("flat", base, "--inversion", "reduced", "--cpu",
+                      "--export-mat", exp)
+    m_cpu = sio.loadmat(exp + ".mat")
+    xyz_c, xyz_g = mat_coords(m_cpu), mat_coords(mats["flat"])
+    cpu_xyz = float(np.abs(xyz_c - xyz_g).max() / np.abs(xyz_g).max())
+    cpu_s2 = abs(float(m_cpu["variance_of_unit_weight_post"].item())
+                 / float(mats["flat"]["variance_of_unit_weight_post"].item())
+                 - 1.0)
+    log(f"CLI flat --cpu: exit 0 in {wall_cpu:.2f} s; against the card: "
+        f"coordinates {cpu_xyz:.2e} of the field, sigma0^2 {cpu_s2:.2e}")
+    if not (cpu_xyz <= CLI_RTOL and cpu_s2 <= CLI_RTOL):
+        fail(f"the CLI on the CPU differs from the card: {cpu_xyz:.2e}, "
+             f"{cpu_s2:.2e}")
+
+    # DLT on noise-free images of the same geometry, card against CPU
+    cams2, _, truth2 = make_synthetic_scene(
+        num_points=API_POINTS, num_images=API_IMAGES, noise=0.0,
+        with_distortion=False, with_scale_bar=False, seed=0)
+    coords2 = {oc.name: oc for oc in truth2["coords"]}
+    t = time.perf_counter()
+    dlt_err, eo_err, c_err = 0.0, 0.0, 0.0
+    for k, img in enumerate(cams2[0].images[:DLT_IMAGES]):
+        rg = dlt.adjust(img, coords2, device=dev)
+        rc_ = dlt.adjust(img, coords2, device="cpu")
+        # the angles compared modulo 2 pi: atan2 near +-pi may land on
+        # either side for the same rotation
+        turn = np.remainder(rg.eo[3:] - rc_.eo[3:] + np.pi, 2 * np.pi) - np.pi
+        for a, b in ((rg.b, rc_.b), (rg.eo[:3], rc_.eo[:3]), (turn, 0.0),
+                     ([rg.x0, rg.y0, rg.c], [rc_.x0, rc_.y0, rc_.c])):
+            a, b = np.asarray(a), np.asarray(b)
+            dlt_err = max(dlt_err, float(np.abs(a - b).max()
+                                         / max(1.0, np.abs(b).max())))
+        eo_err = max(eo_err, float(np.abs(rg.eo[:3]
+                                          - truth2["eo"][k, :3]).max()),
+                     abs(rg.x0 - truth2["io"][0]),
+                     abs(rg.y0 - truth2["io"][1]))
+        c_err = max(c_err, abs(abs(rg.c) / abs(truth2["io"][2]) - 1.0))
+    dlt_s = time.perf_counter() - t
+    log(f"DLT on {DLT_IMAGES} images (card and CPU, {dlt_s:.2f} s): card "
+        f"against CPU {dlt_err:.2e}; against the truth: centre / principal "
+        f"point {eo_err:.2e}, |c| {c_err:.2e} relative")
+    if not (dlt_err <= DLT_CPU_TOL and eo_err <= DLT_EO_ATOL
+            and c_err <= DLT_C_RTOL):
+        fail(f"DLT: card vs CPU {dlt_err:.2e}, truth {eo_err:.2e} / "
+             f"{c_err:.2e}")
+
+    # transform of datum points through a reference image with the card's
+    # Qxx (a FULL estimate: Qxx holds the EO blocks), card against CPU
+    adj, cameras, _ = in_process("flat", T.MatrixInversion.FULL)
+    imgs = cameras[0].images
+    pts = [ic.object_coordinate for ic in imgs[1]][:20]
+    s2 = adj.get_variance_factor_aposteriori()
+    t = time.perf_counter()
+    tg = transformation.transform(pts, {imgs[0]: imgs[1:3]}, s2, adj.Qxx)
+    tr_s = time.perf_counter() - t
+    tc = transformation.transform(pts, {imgs[0]: imgs[1:3]}, s2,
+                                  adj.Qxx.cpu())
+    sd = np.sqrt(np.diagonal(tc.covariance))
+    tr_pts = float(np.abs(tg.points - tc.points).max()
+                   / np.abs(tc.points).max())
+    tr_cov = float(np.abs((tg.covariance - tc.covariance) / sd[:, None]
+                          / sd[None, :]).max())
+    log(f"transform of {len(tg.names)} (point, image) pairs on the card "
+        f"({tr_s:.3f} s) against the CPU: points {tr_pts:.2e}, covariance "
+        f"{tr_cov:.2e} (correlation scale)")
+    if not (tr_pts <= DLT_CPU_TOL and tr_cov <= DLT_CPU_TOL
+            and len(tg.names) > 0):
+        fail(f"transform: card vs CPU {tr_pts:.2e} / {tr_cov:.2e}")
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"the float64 CLI phase launched a CUDA kernel: {launches}")
+    return dict(cli=out, cli_cpu_wall_s=wall_cpu, cli_cpu_xyz_rel=cpu_xyz,
+                dlt_card_vs_cpu=dlt_err, dlt_truth=eo_err, dlt_s=dlt_s,
+                transform_card_vs_cpu=[tr_pts, tr_cov]), launches
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -1849,6 +2327,17 @@ def main(profile_refinement=False):
     rig, launches10 = multi_camera_phase(dev)
     by_phase["multi_camera"] = launches10
 
+    # ---- 11. the file-driven scale path ------------------------------------
+    log(f"-- phase 11 at {time.time() - t_start:.1f} s")
+    files, launches11 = file_route_phase(prob_h, state_h, spec, dev)
+    total = {k: total[k] + launches11[k] for k in total}
+    by_phase["file_route"] = launches11
+
+    # ---- 12. the CLI and initialisation at the reference-API size ----------
+    log(f"-- phase 12 at {time.time() - t_start:.1f} s")
+    cli_res, launches12 = cli_phase(dev)
+    by_phase["cli"] = launches12
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -1866,7 +2355,7 @@ def main(profile_refinement=False):
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
-        **rig}))
+        **rig, **files, **cli_res}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

@@ -35,7 +35,12 @@ iterations equal, sigma0 within 1e-9, coordinates within 1e-9 of the
 field, the cofactor matrix within 1e-7 of its largest entry.  A 4-camera
 rig (the compact rows, plain path): one f64 step on the card against the
 CPU (rtol 3e-4, atol 1e-6 of max), the f32 step twice bit for bit, and
-``use_kernels=True`` refused before any launch.
+``use_kernels=True`` refused before any launch.  The file route: a
+2,048-point network written as flat files and read by
+`io.columnar.build_rcs_problem` on the card equals its in-memory control
+bit for bit, and `solve` on it runs through K1, K2 and K3 (launches > 0)
+to the control's bits and steps; the CLI as a subprocess on the card
+prints what its ``--cpu`` run prints (1e-9 relative).
 """
 
 import pytest
@@ -685,3 +690,73 @@ def test_kernels_refuse_a_rig_on_the_card(rig):
                        tolerance=1e-3)
     assert res.iterations == 2
     assert not any(kernels.launch_counts().values())
+
+
+def _bits(a, b):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.dtype in ints:
+        return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                                  b.view(ints[b.dtype]))
+    return torch.equal(a, b)
+
+
+def test_file_route_solves_through_the_kernels(case, tmp_path):
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.io import columnar
+    from bundle_adjustment_tpu_torch.parallel import kernels, solver
+
+    dev = torch.device("cuda", 0)
+    ph, sh, spec = synthetic.build_problem(2048, 40, 12, seed=4)
+    paths = synthetic.write_flat(str(tmp_path / "net"), ph, sh)
+    fp, fs, _ = columnar.build_rcs_problem(
+        paths["points"], paths["imagecoords"], paths["eor"],
+        io_path=paths["ior"], spec=spec, dist=sh.dist)
+    assert fp.obs_xy.is_cuda and fp.obs_xy.dtype == torch.float32
+    cp_h, cs_h = synthetic.as_read_from_files(ph, sh)
+    cp = convert.problem_to_torch(cp_h, dev, torch.float32)
+    cs = convert.state_to_torch(cs_h, dev, torch.float32)
+    for f in cp._fields:
+        a, b = getattr(fp, f), getattr(cp, f)
+        assert (_bits(a, b) if isinstance(b, torch.Tensor) else a == b), f
+    kw = dict(damping=1e-2, max_iterations=30, tolerance=1e-3)
+    kernels.reset_launch_counts()
+    rf = solver.solve(fp, fs, spec, **kw)
+    counts = kernels.launch_counts()
+    rc = solver.solve(cp, cs, spec, **kw)
+    assert min(counts[k] for k in ("cam_gather", "prepare_reduction",
+                                   "schur_matvec")) > 0, counts
+    assert rf.converged and rf.iterations == rc.iterations
+    for f in rf.state._fields:
+        assert _bits(getattr(rf.state, f), getattr(rc.state, f)), f
+
+
+def test_cli_on_the_card_matches_its_cpu_run(case, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    from bundle_adjustment_tpu_torch.io import scene_files
+    from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+
+    cams, bars, _ = make_synthetic_scene(num_points=60, num_images=10,
+                                         noise=5e-4, sigma=5e-4,
+                                         perturb=0.01, seed=2)
+    base = str(tmp_path / "net")
+    scene_files.write_aicon_files(base, cams[0], bars)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(*extra):
+        res = subprocess.run(
+            [sys.executable, "-m", "bundle_adjustment_tpu_torch", "flat",
+             base, "--quiet", *extra], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-2000:]
+        return [float(v) for line in res.stdout.splitlines()
+                if ":" in line and not line.startswith("Estimation time")
+                for v in [line.split(":", 1)[1]]]
+
+    card, cpu = run(), run("--cpu")
+    assert len(card) == len(cpu) == 6
+    assert card[:4] == cpu[:4]
+    for a, b in zip(card[4:], cpu[4:]):
+        assert abs(a / b - 1.0) <= 1e-9

@@ -45,7 +45,10 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in PKG.rglob("*.py")}
     assert {"engine.py", "kernels.py", "rcs.py", "fm.py", "lm.py", "hilo.py",
-            "refine.py", "measure.py", "freenet.py", "solver.py"} <= names
+            "refine.py", "measure.py", "freenet.py", "solver.py",
+            "__main__.py", "readers.py", "writers.py", "columnar.py",
+            "scene_files.py", "dlt.py", "transformation.py",
+            "tracing.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("bundle_adjustment_tpu")
     assert not _forbidden("bundle_adjustment_tpu_torch.parallel")
 
