@@ -168,3 +168,60 @@ def scene_from(cameras, scale_bars=(), direct_groups=()) -> Scene:
         groups.append(S.DirectlyObservedParameterGroup(
             obs, None if g.dispersion is None else np.array(g.dispersion)))
     return Scene(cams, bars, groups, coords, params)
+
+
+def point_shard(state, comm, dtype=torch.float64):
+    """A state gathered on the host (e.g. the JAX point-sharded step's
+    (points, io, dist, eo)) -> this rank's arguments of the port's
+    `spmd_fm` step: its P / D points and the replicated io, dist, eo, on
+    ``comm.device``."""
+    points, io, dist, eo = (np.array(a, np.float64) for a in state)
+    n = points.shape[0] // comm.size
+    if n * comm.size != points.shape[0]:
+        raise ValueError(f"{points.shape[0]} points do not split over "
+                         f"{comm.size} ranks (pad_for_mesh)")
+
+    def t(a):
+        return torch.as_tensor(a, device=comm.device, dtype=dtype)
+
+    return (t(points[comm.rank * n:(comm.rank + 1) * n]), t(io), t(dist),
+            t(eo))
+
+
+def scenario_batch_from(batch, device, dtype=torch.float64):
+    """A scenario batch of host-readable arrays shaped like the JAX
+    `ScenarioBatch` (problem, obs_xy [S, N, 2], obs_weight [S, N, 2, 2],
+    states with a leading S) -> the port's `scenario.ScenarioBatch` on
+    ``device``.  A problem in file order (no ``point_uniform``; the block
+    layout's visibility tables are dropped) is re-laid point-major by
+    `rcs.point_major_layout`, its pad entries weighted zero."""
+    from .parallel import rcs, scenario
+
+    p = batch.problem
+    P, M = int(p.num_points), int(p.num_images)
+    obs_point = np.asarray(p.obs_point, np.int64)
+    xy = np.asarray(batch.obs_xy, np.float64)
+    w = np.asarray(batch.obs_weight, np.float64)
+    if p.point_uniform is not None:
+        V = int(p.point_uniform)
+        obs_image = np.asarray(p.obs_image, np.int32)
+    else:
+        pm = rcs.point_major_layout(obs_point, P)
+        V = pm.views
+        obs_image = pm.gather(p.obs_image, 0).astype(np.int32)
+        xy = np.stack([pm.gather(a, 0.0) for a in xy])
+        live = pm.live.astype(np.float64)[:, None, None]
+        w = np.stack([pm.gather(a, 0.0) * live for a in w])
+    img_perm, img_bstarts = rcs.build_image_block_layout(obs_image, M)
+    cam = getattr(p, "cam_of_image", None)
+    host = rcs.RCSProblem(
+        obs_point=np.repeat(np.arange(P, dtype=np.int32), V),
+        obs_image=obs_image, obs_xy=xy[0], obs_weight=w[0],
+        r0=np.asarray(p.r0), num_points=P, num_images=M,
+        free_point=np.asarray(p.free_point), free_eo=np.asarray(p.free_eo),
+        free_global=np.asarray(p.free_global), img_perm=img_perm,
+        img_block_starts=img_bstarts, point_uniform=V,
+        cam_of_image=None if cam is None else np.asarray(cam))
+    return scenario.make_batch(
+        problem_to_torch(host, device, dtype), xy, w,
+        ParamState(*(np.asarray(a, np.float64) for a in batch.states)))

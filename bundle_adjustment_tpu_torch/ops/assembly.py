@@ -5,12 +5,15 @@ Instead of the reference's per-row scalar scatter-adds
 (`derivation/PartialDerivativeFactory.stackNormalEquationSystem`,
 PartialDerivativeFactory.java:475-505), local per-observation blocks
 H = J^T P J [L, L] and g = J^T P w [L] are computed batched over all image
-observations and added into the dense bordered system with one
-`index_add_` on its flat view.  Fixed parameters map to a dump row/column
-that is sliced away: the array analogue of the reference's
-``column == Integer.MAX_VALUE`` skip.  On CUDA `index_add_` adds with
-atomics, so the order of the sums into one entry (and the last bits of N)
-can differ from run to run; on the CPU it is fixed.
+observations and added into the dense bordered system on its flat view.
+Fixed parameters map to a dump row/column that is sliced away: the array
+analogue of the reference's ``column == Integer.MAX_VALUE`` skip.  The
+sums run in a fixed order, so two assemblies of the same state give the
+same bits (an `index_add_` on CUDA adds with atomics, in an order that
+changes from run to run): the image observations' static indices are
+sorted once (`_FixedSum`) and each entry's terms summed in that order by
+`torch.segment_reduce`; the few scale-bar and direct-observation terms go
+through an accumulating `index_put_` (which sorts on CUDA).
 
 The bordered system layout matches the reference exactly: rows/cols 0..d-1
 hold the (normalised) datum condition rows (`addDatumConditionRows`,
@@ -163,7 +166,8 @@ def make_assembler(problem: BundleProblem, device, dtype=torch.float64):
         """[B, L] columns -> [B*L*L] indices into the flat [(T+1)^2] view."""
         return (cols[:, :, None] * (T + 1) + cols[:, None, :]).reshape(-1)
 
-    img_idx = flat_index(rows.cols_local)
+    img_sum = _FixedSum(flat_index(rows.cols_local))
+    g_sum = _FixedSum(rows.cols_local)
     sb_idx = flat_index(rows.sb_cols) if rows.S else None
     dg_idx = [flat_index(c[None, :]) for _, _, _, c in rows.groups]
 
@@ -176,22 +180,22 @@ def make_assembler(problem: BundleProblem, device, dtype=torch.float64):
         PJ = torch.einsum("nij,njc->nic", P2, J)
         H = torch.einsum("nir,nic->nrc", J, PJ)
         g = torch.einsum("nic,ni->nc", PJ, w)
-        Nf.index_add_(0, img_idx, H.reshape(-1))
-        n.index_add_(0, rows.cols_local.reshape(-1), g.reshape(-1))
+        img_sum.add(Nf, H)
+        g_sum.add(n, g)
 
         # --- scale bars (unit-vector rows; PartialDerivativeFactory.java:210-283)
         if rows.S:
             A, wsb = rows.scale_bar_rows(state)
             Hs = rows.sb_w[:, None, None] * A[:, :, None] * A[:, None, :]
             gs = rows.sb_w[:, None] * A * wsb[:, None]
-            Nf.index_add_(0, sb_idx, Hs.reshape(-1))
-            n.index_add_(0, rows.sb_cols.reshape(-1), gs.reshape(-1))
+            _add(Nf, sb_idx, Hs)
+            _add(n, rows.sb_cols, gs)
 
         # --- directly observed parameters (identity rows)
         for (gidx, values, W, c), fidx in zip(rows.groups, dg_idx):
             wv = values - rows.gather_direct(state, gidx)
-            Nf.index_add_(0, fidx, W.reshape(-1))
-            n.index_add_(0, c, W @ wv)
+            _add(Nf, fidx, W)
+            _add(n, c, W @ wv)
 
         N = Nf.view(T + 1, T + 1)[:T, :T]
         n = n[:T]
@@ -216,6 +220,31 @@ def make_assembler(problem: BundleProblem, device, dtype=torch.float64):
         return N, n, V
 
     return assemble
+
+
+class _FixedSum:
+    """flat[idx] += vals for a static index array with repeats, in a fixed
+    order: the indices are sorted once (stable), and each target entry's
+    terms are summed in that order by `torch.segment_reduce` (one
+    sequential sum per entry), then added at the unique indices."""
+
+    def __init__(self, idx):
+        idx = idx.reshape(-1)
+        self.order = torch.argsort(idx, stable=True)
+        self.uniq, self.counts = torch.unique_consecutive(
+            idx[self.order], return_counts=True)
+
+    def add(self, flat, vals):
+        sums = torch.segment_reduce(vals.reshape(-1)[self.order], "sum",
+                                    lengths=self.counts)
+        flat[self.uniq] += sums
+
+
+def _add(flat, idx, vals):
+    """flat[idx] += vals (1-D ``flat``; repeated indices add up) by an
+    accumulating `index_put_`: a fixed order of the sums on the CPU and on
+    CUDA, so the result is the same bits every time."""
+    flat.index_put_((idx.reshape(-1),), vals.reshape(-1), accumulate=True)
 
 
 def _datum_rows(points, datum_mask, col_points, defect_flags, d, T):
@@ -255,7 +284,8 @@ def _datum_rows(points, datum_mask, col_points, defect_flags, d, T):
     vals = vals / torch.sqrt(torch.sum(vals * vals, dim=1, keepdim=True))
     c = torch.where(col_points < 0, T, col_points).reshape(-1)
     B = torch.zeros((d, T + 1), dtype=dtype, device=points.device)
-    B.index_add_(1, c, vals)
+    _add(B.view(-1), (torch.arange(d, device=c.device)[:, None] * (T + 1)
+                      + c[None, :]), vals)
     return B[:, :T]
 
 

@@ -83,6 +83,8 @@ def assemble_full_dx(f: SchurFactors, dx1, total_size: int) -> torch.Tensor:
     dx = torch.zeros(total_size, dtype=dx1.dtype, device=dx1.device)
     dx[: dx1.shape[0]] = dx1
     dx2 = back_substitute(f, dx1)
-    dx.index_add_(0, f.ec.reshape(-1),
-                  torch.where(f.mask, dx2, 0.0).reshape(-1))
+    # accumulating index_put_: fixed order of the sums (index_add_ would
+    # add with atomics on CUDA)
+    dx.index_put_((f.ec.reshape(-1),),
+                  torch.where(f.mask, dx2, 0.0).reshape(-1), accumulate=True)
     return dx

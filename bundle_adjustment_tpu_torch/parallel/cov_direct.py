@@ -123,13 +123,15 @@ def _hinv3(b: engine.FMBlocks):
 # ---------------------------------------------------------------------------
 
 def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
-                          damping=0.0):
+                          damping=0.0, extra_c=None):
     """S0 [u, u]: the per-image Hcc (+ extra_c on the diagonal) and Hcg
     blocks and the global Sgg = Hgg - sum_p Hgp Hpp^{-1} Hpg, with the
     camera-camera and camera-global corrections still missing (see
     `assemble_reduced_corrections`).
     Camera-major rows: (image m, component e) -> 6m + e, globals last.
-    The per-image sums are the deterministic `engine._image_sum_stack`."""
+    The per-image sums are the deterministic `engine._image_sum_stack`.
+    ``extra_c`` [M, 6]: the diagonal term as `engine.finish_reduction` set
+    it (blocks of `engine.prepare`); default: from ``damping``."""
     if p.has_extras:
         raise NotImplementedError(
             "cov_direct has no branch for scale bars, an inner-constraint "
@@ -154,10 +156,11 @@ def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
 
     # extra_c as engine.finish_reduction: damping on the diagonal, unit
     # rows for fixed EO, the weights of directly observed EO
-    extra_c = damping * torch.diagonal(Hcc, dim1=1, dim2=2) \
-        + (1.0 - p.free_eo)
-    if p.de_w is not None:
-        extra_c = extra_c + p.de_w * p.free_eo * (1.0 + damping)
+    if extra_c is None:
+        extra_c = damping * torch.diagonal(Hcc, dim1=1, dim2=2) \
+            + (1.0 - p.free_eo)
+        if p.de_w is not None:
+            extra_c = extra_c + p.de_w * p.free_eo * (1.0 + damping)
     Hcc = Hcc + torch.diag_embed(extra_c)
 
     T2 = torch.stack(b.Jg) @ torch.stack(b.PJg).T         # [2G, 2G]
@@ -211,17 +214,21 @@ def _fill_panel(rows2, im, o0, M):
 
 
 def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
-                                 S0=None, chunk: int | None = None):
+                                 S0=None, chunk: int | None = None,
+                                 deterministic: bool = False):
     """Camera-camera and camera-global corrections as sparse pair blocks:
     each point touches only its V image blocks, so its correction is
     [V, V, 6, 6] pair blocks, index-added into Acc.  O(36 P V^2) flops
     (~6e10 at 1M points, against 6 P K^2 ~ 5e15 for dense panel products
     at K = 30,000).
 
-    ``index_add_`` on CUDA accumulates with atomics, so the result is not
-    reproducible bit for bit (the covariance feeds no stall rule).  With
-    ``S0`` returns the corrected S (`apply_corrections`, in place on S0),
-    else (Acc [K, K], Acg [K, G])."""
+    ``index_add_`` on CUDA accumulates with atomics, so by default the
+    result is not reproducible bit for bit (the covariance feeds no stall
+    rule).  ``deterministic``: add by an accumulating `index_put_` instead
+    (it sorts the indices on CUDA and sums in that fixed order; slower),
+    as `tp` needs where every rank factors the same S.  With ``S0``
+    returns the corrected S (`apply_corrections`, in place on S0), else
+    (Acc [K, K], Acg [K, G])."""
     b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
     M, V, G2 = p.num_images, p.views, len(b.Jg) // 2
@@ -246,11 +253,17 @@ def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
         pair = torch.einsum("cvae,cwaf->cvwef", hpc_v, Bv)
         I = im6[:, :, None, None, None] + i6[None, None, None, :, None]
         J = im6[:, None, :, None, None] + i6[None, None, None, None, :]
-        Acc.view(-1).index_add_(0, (I * K + J).reshape(-1), pair.reshape(-1))
         wc = W_rows[:, c0:c0 + c].reshape(3, G2, c).permute(2, 0, 1)
         pg = torch.einsum("cvae,cag->cveg", hpc_v, wc)    # [c, V, 6, G]
-        Ig = im6[:, :, None] + i6[None, None, :]
-        Acg.index_add_(0, Ig.reshape(-1), pg.reshape(-1, G2))
+        Ig = (im6[:, :, None] + i6[None, None, :]).reshape(-1)
+        if deterministic:
+            Acc.view(-1).index_put_(((I * K + J).reshape(-1),),
+                                    pair.reshape(-1), accumulate=True)
+            Acg.index_put_((Ig,), pg.reshape(-1, G2), accumulate=True)
+        else:
+            Acc.view(-1).index_add_(0, (I * K + J).reshape(-1),
+                                    pair.reshape(-1))
+            Acg.index_add_(0, Ig, pg.reshape(-1, G2))
     if S0 is None:
         return Acc, Acg
     return apply_corrections(S0, Acc, Acg)
@@ -266,7 +279,8 @@ def apply_corrections(S0, Acc, Acg):
 
 
 def assemble_reduced_dense(p: engine.FMProblem, b: engine.FMBlocks,
-                           damping=0.0):
+                           damping=0.0, extra_c=None,
+                           deterministic: bool = False):
     """Dense reduced (Schur) system S [u, u], u = 6M + G, camera-major,
     exact for any visibility (duplicate (point, image) pairs included):
     `assemble_reduced_base` with the pair-block corrections.
@@ -275,9 +289,11 @@ def assemble_reduced_dense(p: engine.FMProblem, b: engine.FMBlocks,
     choice below 6 P K^2 = 3e13 flops on a TPU).  On an H100 at 100k
     points the pair blocks take a fifth of its time for the same S, and
     at 1M points they need ~1e5 times fewer flops, so the port keeps one
-    form."""
-    S0 = assemble_reduced_base(p, b, damping)
-    return assemble_reduced_corrections(p, b, S0)
+    form.  ``extra_c``: see `assemble_reduced_base`; ``deterministic``:
+    see `assemble_reduced_corrections`."""
+    S0 = assemble_reduced_base(p, b, damping, extra_c=extra_c)
+    return assemble_reduced_corrections(p, b, S0,
+                                        deterministic=deterministic)
 
 
 def reduced_inverse(S):

@@ -246,6 +246,37 @@ def pad_problem(problem: rcs.RCSProblem, state: ParamState,
     return problem, state, P
 
 
+def pad_images(problem: rcs.RCSProblem, state: ParamState, multiple: int):
+    """Pad the image count to a multiple of ``multiple`` with fully fixed
+    dummy images (tensor RCSProblem): no observation references them,
+    free_eo = 0 gives their reduced blocks a unit diagonal, so their step
+    stays exactly 0.  The camera-sharded step (`spmd_fm`, ``cam_shard``)
+    needs it where M is not a multiple of the ranks.  A dummy image sits
+    on camera 0 and is not directly observed.
+    Returns (padded RCSProblem, padded ParamState, M_original)."""
+    M = problem.num_images
+    Mp = -(-M // multiple) * multiple
+    if Mp == M:
+        return problem, state, M
+    extra = Mp - M
+
+    def cat0(a):
+        return torch.cat([a, a.new_zeros((extra,) + tuple(a.shape[1:]))])
+
+    fields = {}
+    if problem.de_w is not None:
+        fields.update(de_w=cat0(problem.de_w), de_val=cat0(problem.de_val))
+    if problem.cam_of_image is not None:
+        fields["cam_of_image"] = cat0(problem.cam_of_image)
+    bs = problem.img_block_starts
+    problem = problem._replace(
+        num_images=Mp, free_eo=cat0(problem.free_eo),
+        img_block_starts=torch.cat([bs, bs[-1:].expand(extra)]), **fields)
+    state = state._replace(eo=torch.cat(
+        [state.eo, state.eo[:1].expand(extra, 6)]))
+    return problem, state, M
+
+
 # ---------------------------------------------------------------------------
 # reductions
 # ---------------------------------------------------------------------------
@@ -398,13 +429,16 @@ def _gather_rows(p: FMProblem, tbl, ncols, cam_gather=None):
 
 def linearize(p: FMProblem, state: ParamState, spec, damping,
               state_lo: ParamState | None = None,
-              cam_gather=None) -> FMBlocks:
+              cam_gather=None, comm=None) -> FMBlocks:
     """Jacobian rows, misclosures, point blocks and global diagonal at
     ``state``; C > 1 cameras give the compact global rows (`FMBlocks`).
     ``cam_gather``: optional fn(tbl [M, c<=8]) -> [8, N] replacing the
     per-row EO gathers (the K3 wrapper, `kernels.make_cam_gather`).
     ``state_lo``: low-order part of a two-float state (see
-    ops.fm.project_rows)."""
+    ops.fm.project_rows).  ``comm``: a `sharding.Comm` when the points are
+    sharded over ranks (each rank holds whole points, `spmd_fm`): the
+    cross-shard sums (Omega, the global diagonal and rhs) are psum-ed, the
+    per-point blocks stay shard-local."""
     from ..ops import fm
 
     pts = state.points
@@ -497,6 +531,8 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
         e1 = e1 + p.dp_w[:, 1] * fpc[1] * (1.0 + damping)
         e2 = e2 + p.dp_w[:, 2] * fpc[2] * (1.0 + damping)
         omega0 = omega0 + torch.sum(p.dp_w * w_dp * w_dp)
+    if comm is not None:
+        omega0 = comm.psum(omega0)  # observation + per-point terms
     if p.de_w is not None:
         w_de = p.de_val - state.eo
         omega0 = omega0 + torch.sum(p.de_w * w_de * w_de)
@@ -509,6 +545,8 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
             for g in range(Gp)])
         bg = torch.stack([torch.sum(Jg[g] * Pw[0] + Jg[Gp + g] * Pw[1])
                           for g in range(Gp)])
+        if comm is not None:
+            Hgg_diag, bg = comm.psum(Hgg_diag), comm.psum(bg)
     else:
         # per-image sums of the Gp diagonal / rhs rows, summed per camera;
         # free applied once (0/1 mask)
@@ -516,7 +554,10 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
                   for g in range(Gp)]
         rows_b = [Jg_loc[g] * Pw[0] + Jg_loc[Gp + g] * Pw[1]
                   for g in range(Gp)]
-        camsum = _camera_sum(p, _image_sum_stack(p, rows_d + rows_b))
+        red_g = _image_sum_stack(p, rows_d + rows_b)
+        if comm is not None:
+            red_g = comm.psum(red_g)
+        camsum = _camera_sum(p, red_g)
         Hgg_diag = camsum[:, :Gp].reshape(-1) * fg
         bg = camsum[:, Gp:].reshape(-1) * fg
     extra_g = damping * Hgg_diag + (1.0 - fg)
@@ -579,55 +620,94 @@ def _point_solve_expand(p: FMProblem, b: FMBlocks, t):
     return [_point_expand(p, z[a]) for a in range(3)]
 
 
-def _global_out(p: FMProblem, b: FMBlocks, u, qc):
+def _global_out(p: FMProblem, b: FMBlocks, u, qc, comm=None,
+                cam_scatter: bool = False):
     """(Hcx-type per-image sums [..., M, 6] of the rows ``qc``, Jg^T u
     [..., G]) for the observation rows u = (u_x, u_y): single camera by
     row sums; compact by the Gp local rows reduced per image beside
-    ``qc``, summed per camera and masked by free_global."""
+    ``qc``, summed per camera and masked by free_global.  ``comm``: the
+    points are sharded; the per-image sums are psum-ed (psum_scatter-ed to
+    this rank's image rows with ``cam_scatter``), the global sums
+    psum-ed."""
+    def ps(x):
+        return x if comm is None else comm.psum(x)
+
+    def image_part(oc):
+        return comm.psum_scatter(oc, dim=-2) if cam_scatter else ps(oc)
+
     if b.Jg is None:
         Gp = len(b.Jg_loc) // 2
         qg = [b.Jg_loc[g] * u[0] + b.Jg_loc[Gp + g] * u[1]
               for g in range(Gp)]
         stack = _image_sum_stack(p, qc + qg)
-        og = _camera_sum(p, stack[..., 6:])
-        return stack[..., :6], \
+        og = _camera_sum(p, ps(stack[..., 6:]))
+        return image_part(stack[..., :6]), \
             og.reshape(*og.shape[:-2], -1) * p.free_global
     G2 = len(b.Jg) // 2
     og = torch.stack([torch.sum(b.Jg[g] * u[0] + b.Jg[G2 + g] * u[1], dim=-1)
                       for g in range(G2)], dim=-1)
-    return _image_sum_stack(p, qc), og
+    return image_part(_image_sum_stack(p, qc)), ps(og)
 
 
-def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg):
+def _check_scatter(comm, cam_scatter):
+    if cam_scatter and comm is None:
+        raise ValueError("cam_scatter requires comm (a sharding.Comm)")
+
+
+def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg, comm=None,
+                 cam_scatter: bool = False):
     """Implicit S @ [xc; xg], feature-major: returns ([..., M, 6],
     [..., G]); a leading axis of xc [..., M, 6] / xg [..., G] runs several
-    right-hand sides in one pass (temporaries [..., N] per row)."""
-    t = _t_rows(p, b, xc, xg)
+    right-hand sides in one pass (temporaries [..., N] per row).
+
+    ``comm``: psum the cross-shard (image / global) sums when the points
+    are sharded over ranks.  ``cam_scatter`` (needs ``comm``): the reduced
+    camera system is sharded by image rows too (tensor-parallel mode):
+    ``xc`` holds this rank's M / D rows and the result likewise; the full
+    xc is re-formed by one tiled all_gather, and the per-image output is
+    combined by one psum_scatter that leaves each rank its own rows."""
+    _check_scatter(comm, cam_scatter)
+    xc_full = comm.all_gather(xc, dim=-2) if cam_scatter else xc
+    t = _t_rows(p, b, xc_full, xg)
     zo = _point_solve_expand(p, b, t)
     tv = []
     for i in (0, 1):
         u = sum(b.PJp[i * 3 + a] * zo[a] for a in range(3))
         tv.append(t[i] - u)
     qc = [b.Jc[a] * tv[0] + b.Jc[6 + a] * tv[1] for a in range(6)]
-    oc, og = _global_out(p, b, tv, qc)
+    oc, og = _global_out(p, b, tv, qc, comm, cam_scatter)
     return oc + b.extra_c * xc, og + b.extra_g * xg
 
 
 def prepare(p: FMProblem, state: ParamState, spec, damping,
             couple_global: bool = False,
-            state_lo: ParamState | None = None):
+            state_lo: ParamState | None = None, comm=None,
+            cam_scatter: bool = False):
     """Linearise + build rhs and the (camera, global) block preconditioner.
-    Returns (blocks, rc, rg, rcs.Precond)."""
-    b = linearize(p, state, spec, damping, state_lo=state_lo)
-    return reduce_blocks(p, b, state, damping, couple_global=couple_global)
+    Returns (blocks, rc, rg, rcs.Precond).  ``comm`` / ``cam_scatter``: the
+    point-sharded step (`spmd_fm`), see `reduce_blocks`."""
+    b = linearize(p, state, spec, damping, state_lo=state_lo, comm=comm)
+    return reduce_blocks(p, b, state, damping, couple_global=couple_global,
+                         comm=comm, cam_scatter=cam_scatter)
 
 
 def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
-                  couple_global: bool = False):
+                  couple_global: bool = False, comm=None,
+                  cam_scatter: bool = False):
     """`prepare` minus the linearisation: the fused per-image reduction of
     39 (+ 6G with ``couple_global``; compact: + 6 Gp local Hcg rows)
     feature rows, the global rhs correction and the Sgg product pieces,
-    finished by `finish_reduction`."""
+    finished by `finish_reduction`.
+
+    ``comm``: the points are sharded over ranks; every cross-shard sum is
+    psum-ed.  ``cam_scatter`` (tensor-parallel mode): the fused [M, F]
+    image stack lands by one psum_scatter, so each rank keeps its own M / D
+    image rows (rc, bc, extra_c, the 6x6 blocks and Scg of those rows)."""
+    _check_scatter(comm, cam_scatter)
+
+    def _ps(x):
+        return x if comm is None else comm.psum(x)
+
     G2 = p.free_global.shape[0]
     compact = b.Jg is None
     fg = p.free_global
@@ -700,27 +780,34 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
                 corr = sum(hp[a][e] * Wobs[g][a] for a in range(3))
                 rows.append(hcg - corr)
     red = _image_sum_stack(p, rows)  # [M, 39 (+ 6G | 6Gp)]
+    if cam_scatter:
+        red = comm.psum_scatter(red)  # this rank's M / D image rows
+    else:
+        red = _ps(red)
 
     if compact:
         # rg correction: image sums of the Gp local rows, per camera; T2
         # block-diagonal per camera [C, 2Gp, 2Gp]
-        rgm = _image_sum_stack(p, [b.Jg_loc[g] * u0[0]
-                                   + b.Jg_loc[Gp + g] * u0[1]
-                                   for g in range(Gp)])
+        rgm = _ps(_image_sum_stack(p, [b.Jg_loc[g] * u0[0]
+                                       + b.Jg_loc[Gp + g] * u0[1]
+                                       for g in range(Gp)]))
         rg_corr = _camera_sum(p, rgm).reshape(-1) * fg
         JglM = torch.stack(b.Jg_loc)
         PJglM = torch.stack(b.PJg_loc).T
-        T2 = torch.stack([(JglM * sel[c]) @ PJglM for c in range(C)])
+        T2 = _ps(torch.stack([(JglM * sel[c]) @ PJglM for c in range(C)]))
     else:
-        rg_corr = torch.stack([
+        rg_corr = _ps(torch.stack([
             torch.sum(b.Jg[g] * u0[0] + b.Jg[G2 + g] * u0[1])
-            for g in range(G2)])
-        T2 = torch.stack(b.Jg) @ torch.stack(b.PJg).T      # [2G, 2G]
+            for g in range(G2)]))
+        T2 = _ps(torch.stack(b.Jg) @ torch.stack(b.PJg).T)  # [2G, 2G]
     HpgM = torch.stack([hpg[a][g] for a in range(3) for g in range(G2)])
     WM = torch.stack([W[g][a] for a in range(3) for g in range(G2)])
-    T3 = WM @ HpgM.T                                      # [3G, 3G]
+    T3 = _ps(WM @ HpgM.T)                                 # [3G, 3G]
+    if scg_corr is not None:
+        scg_corr = _ps(scg_corr)
     return finish_reduction(p, b, state, damping, red, rg_corr, T2, T3,
-                            couple_global, scg_corr=scg_corr)
+                            couple_global, scg_corr=scg_corr, comm=comm,
+                            cam_scatter=cam_scatter)
 
 
 def _div_chunk(P: int, target: int) -> int:
@@ -764,7 +851,8 @@ def _scg_correction(p: FMProblem, hp, W):
 
 
 def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
-                     red, rg_corr, T2, T3, couple_global, scg_corr=None):
+                     red, rg_corr, T2, T3, couple_global, scg_corr=None,
+                     comm=None, cam_scatter: bool = False):
     """Shared tail of `prepare`: turn the fused per-image reduction ``red``
     [M, 39 (+ 6G)], the global rhs correction ``rg_corr`` [G] and the Sgg
     pieces ``T2`` [2G, 2G] / ``T3`` [3G, 3G] into (blocks, rc, rg,
@@ -775,15 +863,28 @@ def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
 
     Compact mode (b.Jg is None): ``T2`` is the per-camera stack
     [C, 2Gp, 2Gp] (Hgg is block-diagonal), ``red`` carries 6 Gp local Hcg
-    columns and ``scg_corr`` [M, 6, G] is `_scg_correction`'s."""
+    columns and ``scg_corr`` [M, 6, G] is `_scg_correction`'s.
+
+    ``cam_scatter`` (with ``comm``): ``red`` holds rank r's image rows
+    [r M / D, (r + 1) M / D) (`reduce_blocks`); the per-image inputs are
+    sliced to them, and the coupled preconditioner's sum over images is
+    psum-ed (`rcs.finish_coupling`)."""
     G2 = p.free_global.shape[0]
     compact = b.Jg is None
     m_rows = red.shape[0]
+    free_eo, de_w, de_val, eo = p.free_eo, p.de_w, p.de_val, state.eo
+    if cam_scatter:
+        rows = slice(comm.rank * m_rows, (comm.rank + 1) * m_rows)
+        free_eo, eo = free_eo[rows], eo[rows]
+        if de_w is not None:
+            de_w, de_val = de_w[rows], de_val[rows]
+        if scg_corr is not None:
+            scg_corr = scg_corr[rows]
     bc = red[:, :6]
-    extra_c = damping * red[:, 6:12] + (1.0 - p.free_eo)
-    if p.de_w is not None:
-        we = p.de_w * p.free_eo
-        bc = bc + we * (p.de_val - state.eo)
+    extra_c = damping * red[:, 6:12] + (1.0 - free_eo)
+    if de_w is not None:
+        we = de_w * free_eo
+        bc = bc + we * (de_val - eo)
         extra_c = extra_c + we * (1.0 + damping)
     rc = bc - red[:, 12:18]
     tri = red[:, 18:39]
@@ -819,12 +920,15 @@ def finish_reduction(p: FMProblem, b: FMBlocks, state: ParamState, damping,
         # image -> camera one-hot), minus the non-local correction
         hcg_loc = red[:, 39:39 + 6 * Gp].reshape(m_rows, 6, Gp)
         oh = _camera_onehot(p, red.dtype).T               # [M, C]
+        if cam_scatter:
+            oh = oh[rows]
         Scg = torch.einsum("meg,mc->mecg", hcg_loc, oh).reshape(
             m_rows, 6, G2) - scg_corr
     else:
         Scg = red[:, 39:39 + 6 * G2].reshape(m_rows, 6, G2)
     Minv = rcs.finish_coupling(rcs.Precond(Minv_c=Minv_c, Minv_g=Minv_g),
-                               Scg, Sgg)
+                               Scg, Sgg,
+                               comm_cam=comm if cam_scatter else None)
     return b, rc, rg, Minv
 
 

@@ -279,28 +279,36 @@ class Precond(NamedTuple):
     Sghat_inv: torch.Tensor | None = None  # [G, G]
 
 
-def finish_coupling(Minv: Precond, Scg, Sgg) -> Precond:
+def _psum(comm, x):
+    return x if comm is None else comm.psum(x)
+
+
+def finish_coupling(Minv: Precond, Scg, Sgg, comm_cam=None) -> Precond:
     """Complete a coupled `Precond` from the exact Scg [M, 6, G] and Sgg
     [G, G] blocks: W = D^{-1} Scg and the inverse of the global Schur
-    complement Sghat = Sgg - Scg^T D^{-1} Scg."""
+    complement Sghat = Sgg - Scg^T D^{-1} Scg.  ``comm_cam``: a
+    `sharding.Comm` when the camera rows are sharded over its ranks
+    (tensor-parallel mode): the sum over images is psum-ed, so every rank
+    holds the same Sghat^{-1}."""
     W = torch.einsum("mab,mbg->mag", Minv.Minv_c, Scg)
-    corr = torch.einsum("mag,mah->gh", Scg, W)
+    corr = _psum(comm_cam, torch.einsum("mag,mah->gh", Scg, W))
     return Minv._replace(Scg=Scg, W=W,
                          Sghat_inv=torch.linalg.inv_ex(Sgg - corr)[0])
 
 
-def make_apply_M(Minv: Precond):
+def make_apply_M(Minv: Precond, comm_cam=None):
     """Preconditioner apply (zc, zg) = M^{-1} (rc, rg) of a `Precond`:
     the exact coupled form when it carries Scg, else block-diagonal.  An
     apply that is already a callable (`freenet.wrap_precond`) passes
-    through."""
+    through.  ``comm_cam``: camera rows sharded over ranks (the coupled
+    form's Scg^T u is psum-ed)."""
     if callable(Minv):
         return Minv
     if Minv.Scg is not None:
         def apply_M(rc_, rg_):
             u = torch.einsum("mab,mb->ma", Minv.Minv_c, rc_)
-            zg = Minv.Sghat_inv @ (
-                rg_ - torch.einsum("mag,ma->g", Minv.Scg, u))
+            zg = Minv.Sghat_inv @ (rg_ - _psum(
+                comm_cam, torch.einsum("mag,ma->g", Minv.Scg, u)))
             zc = u - torch.einsum("mag,g->ma", Minv.W, zg)
             return zc, zg
     else:
@@ -310,7 +318,8 @@ def make_apply_M(Minv: Precond):
     return apply_M
 
 
-def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None):
+def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
+        comm_cam=None):
     """Preconditioned CG on the implicit reduced system.
 
     ``matvec(xc, xg) -> (Sc, Sg)`` is the implicit Schur product;
@@ -323,11 +332,16 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None):
     start.
 
     The loop runs on the host and reads the residual norm once per
-    iteration (one device synchronisation each)."""
-    apply_M = make_apply_M(Minv)
+    iteration (one device synchronisation each).
+
+    ``comm_cam``: a `sharding.Comm` when rc / xc hold only this rank's
+    image rows (tensor-parallel mode): the sums over images (the dots, the
+    coupled preconditioner's Scg^T u) are psum-ed, so the scalars the loop
+    reads on the host are the same bits on every rank."""
+    apply_M = make_apply_M(Minv, comm_cam=comm_cam)
 
     def dot(ac, ag, bc_, bg_):
-        return torch.sum(ac * bc_) + torch.sum(ag * bg_)
+        return _psum(comm_cam, torch.sum(ac * bc_)) + torch.sum(ag * bg_)
 
     if stall_limit is None:
         stall_limit = 8 if rc.dtype == torch.float32 else maxiter + 1

@@ -91,6 +91,21 @@ def true_points(num_points, seed=0):
     return _true_points(np.random.default_rng(seed), num_points)
 
 
+def true_eo(num_images):
+    """The true exterior orientations [M, 6] of `build_problem` (no random
+    draw): images on rings around the field, looking at its centre."""
+    eo = np.zeros((num_images, 6))
+    R = FIELD * 2.0
+    for m in range(num_images):
+        ang = 2 * np.pi * m / num_images + 0.37 * (m % 5)
+        radius = R * (0.7 + 0.12 * (m % 4))
+        height = R * (0.5 + 0.2 * (m % 5))
+        pos = np.array([radius * np.cos(ang), radius * np.sin(ang), height])
+        w, p_, k = look_at_wpk(pos, np.zeros(3))
+        eo[m] = [*pos, w, p_, k + (m % 4) * np.pi / 2]
+    return eo
+
+
 def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
                   num_cameras=1):
     """Returns (RCSProblem of host numpy arrays, ParamState of numpy
@@ -102,7 +117,6 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
     m % C, camera c's true IO is (0.02, -0.03, -30) + 0.01 c (1, -1, 30)
     and its first radial coefficient -1.1e-4 (1 + 0.1 c); G = C Gp."""
     rng = np.random.default_rng(seed)
-    field = FIELD
     pts = _true_points(rng, num_points)
 
     C = num_cameras
@@ -117,15 +131,7 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
         if order in radial:
             dist[:, spec.slot_index(2, order)] = value
 
-    eo = np.zeros((num_images, 6))
-    R = field * 2.0
-    for m in range(num_images):
-        ang = 2 * np.pi * m / num_images + 0.37 * (m % 5)
-        radius = R * (0.7 + 0.12 * (m % 4))
-        height = R * (0.5 + 0.2 * (m % 5))
-        pos = np.array([radius * np.cos(ang), radius * np.sin(ang), height])
-        w, p_, k = look_at_wpk(pos, np.zeros(3))
-        eo[m] = [*pos, w, p_, k + (m % 4) * np.pi / 2]
+    eo = true_eo(num_images)
 
     V = views_per_point
     obs_point = np.repeat(np.arange(num_points, dtype=np.int32), V)
@@ -168,6 +174,44 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
         cam_of_image=cam_of_image)
     state = ParamState(points=pts0, io=io, dist=dist, eo=eo0)
     return problem, state, spec
+
+
+def scenario_batch(S, num_points, num_images, views_per_point, seed=0):
+    """S one-camera networks that share one index structure (the points,
+    the visibility, the true IO / distortion / EO of
+    `build_problem(num_points, num_images, views_per_point, seed=seed)`),
+    each with its own image noise N(0, SIGMA^2) and its own start (the
+    points perturbed by N(0, 0.05^2), the EO by N(0, 1e-10)), drawn from
+    ``numpy.random.default_rng([seed, s + 1])`` for scenario s.
+
+    Returns (problem, obs_xy [S, N, 2], obs_weight [S, N, 2, 2], states,
+    spec): ``problem`` is `build_problem`'s (host arrays; its own
+    observations are not any scenario's), ``states`` a ParamState of numpy
+    arrays with a leading S axis (`scenario.make_batch` takes them)."""
+    problem, state, spec = build_problem(num_points, num_images,
+                                         views_per_point, seed=seed)
+    P, V = num_points, views_per_point
+    pts, eo = true_points(num_points, seed), true_eo(num_images)
+    n = P * V
+    exact = predict(pts, state.io, state.dist, eo, problem.obs_point[:n],
+                    problem.obs_image[:n], spec)
+    free = problem.free_point[:P]
+    xys, points, eos = [], [], []
+    for s in range(S):
+        rng = np.random.default_rng([seed, s + 1])
+        xy = np.zeros_like(problem.obs_xy)
+        xy[:n] = exact + rng.normal(0, SIGMA, exact.shape)
+        p0 = np.array(state.points)
+        p0[:P] = pts + rng.normal(0, 0.05, pts.shape) * free
+        p0[P:] = p0[0]
+        xys.append(xy)
+        points.append(p0)
+        eos.append(eo + rng.normal(0, 1e-5, eo.shape))
+    states = ParamState(points=np.stack(points),
+                        io=np.stack([state.io] * S),
+                        dist=np.stack([state.dist] * S), eo=np.stack(eos))
+    return (problem, np.stack(xys), np.stack([problem.obs_weight] * S),
+            states, spec)
 
 
 def free_network(problem, state, bars=8, direct=None, seed=0, truth=None,

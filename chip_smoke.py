@@ -185,16 +185,63 @@ Phases (any failed check exits non-zero, before the result line):
      card: exit 0, the printed n, u, d, dof equal to an in-process
      `estimate_model` of the same files on the card, sigma0 within 1e-10
      relative, the .mat coordinates and cofactor diagonal within 1e-9 of
-     the field / of the largest variance (the diagonal entry by entry is
-     recorded: the dense f64 assembly adds with atomics, so two runs differ
-     by its rounding times the conditioning), .info and .cxx equal to the
-     .mat to their printed digits;
+     the field / of the largest variance, and the cofactor diagonal equal
+     bit for bit (the dense f64 assembly sums in a fixed order: two
+     assemblies of one state in this process are gated equal too), .info
+     and .cxx equal to the .mat to their printed digits;
      `flat --cpu` against the card within 1e-9; DLT `adjust` on 20
      noise-free images (card against CPU within 1e-9, the projection
      centre and principal point within 1e-6 and |c| within 1e-6 relative
      of the truth, tests/test_dlt.py's); `transformation.transform` of 20
      points through a reference image with the card's FULL Qxx against
      the same call on the CPU within 1e-9; no kernel launch (float64).
+  13. the sharded paths (parallel/spmd_fm.py, tp.py, spmd.py on
+     torch.distributed, plain path, float64) on phase 2's network at
+     phase 3's start state, in spawned rank processes (multihost.run_ranks:
+     a file:// store in .chipwork/, process groups with a 120 s limit, a
+     rank that fails or a launch that does not end in 600 s fails the
+     script): first world size 1 on NCCL, then 2 ranks sharing the card
+     over gloo (NCCL takes one card per rank; gloo takes CUDA tensors for
+     all_reduce and broadcast, so the communicator forms its gather and
+     scatter from all_reduce).  (a) / (b) `spmd_fm` replicated and
+     cam_shard, 3 steps each (damping 1e-4, cg_tol 1e-12), against
+     `engine.lm_step` on the card (3 steps, in the world-size-1 process):
+     the first step's CG count equal, omega0 rtol 1e-10, max_dx rtol 1e-7
+     (tests/test_spmd.py:77-83); the state (points and eo within rtol
+     1e-9 / atol 1e-11, io rtol 1e-9 / atol 1e-12, as that test) is held
+     on one more step of each at cg_tol 1e-14 against the engine's step
+     at 1e-14 (at 1e-12 the CG truncation at this size is of the state
+     gates' own size; its ratio is recorded); equal bits to the engine at
+     world size 1 are recorded; the ranks' replicated results equal bit
+     for bit; omega
+     falls over the 3 steps.  (c) `tp` on the damped reduced system of
+     that network (u = 3,010, padded to 3,072, block 64): the factor
+     against `torch.linalg.cholesky` of S on the CPU (LAPACK) within 1e-12
+     Jacobi-scaled (rows over sqrt(diag S); against cuSOLVER's factor
+     recorded: the two libraries' factors differ by ~1.2e-12 themselves),
+     its backward error max|L L^T - S| Jacobi-scaled <= 1e-13, the
+     solve against `rcs.pcg` at tol 1e-14 within 1e-7 of its largest
+     entry, 8 cofactor columns against `torch.cholesky_inverse`
+     within 1e-8 of their largest entry, every rank's S the same bits;
+     times of the assembly, the factorisation (against
+     `torch.linalg.cholesky`), the solve and the columns.  (d) `spmd`
+     (observation-sharded Gauss-Newton, cg_tol 1e-13) against the engine's
+     Gauss-Newton step: points and eo within 1e-9, max_dx rtol 1e-8,
+     omega0 rtol 1e-10 (tests/test_spmd.py:44-49).  Wall time per step for
+     each world size; no kernel launch in any rank (gated).
+  14. the scenario fleet (parallel/scenario.py): synthetic.scenario_batch
+     of 16 networks of 5,000 points / 50 images / 12 views sharing one
+     index structure (BASELINE config 3's network as config 5's fleet),
+     float64, one `scenario_lm_step` (damping 1e-4, cg_tol 1e-14) against
+     `engine.lm_step` on each network in turn: per scenario the state,
+     max_dx and omega0 within 1e-12 relative and the CG count within 3 of
+     its own step's (the batched reductions sum in another order, and a
+     CG count near the floor follows the last bits; the equal counts are
+     printed, and recorded: the same comparison at cg_tol 1e-12, and the
+     gaps between the vmapped and the unbatched rg, Sghat^-1 and matvec
+     of scenario 0); the batched
+     step's time against the 16 sequential steps' (each run twice, the
+     first recorded apart); no kernel launch.
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7, 8 and 11, each between a reset and a read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
@@ -298,6 +345,53 @@ DLT_IMAGES = 20
 DLT_CPU_TOL = 1e-9         # DLT / transform on the card against the CPU
 DLT_EO_ATOL = 1e-6         # tests/test_dlt.py: projection centre, x0, y0
 DLT_C_RTOL = 1e-6          # and |c|
+# phases 13-14: the sharded and scenario-batched paths (f64, plain path)
+SHARD_DAMPING = 1e-4
+SHARD_CG_TOL = 1e-12       # the steps whose CG counts, omega0, max_dx gate
+# the step whose state is gated: at 100k the CG truncation at 1e-12 (times
+# the conditioning) is already of the state gates' size, so the state is
+# held at a CG converged well below them
+SHARD_STATE_CG_TOL = 1e-14
+SHARD_CG_MAXITER = 1000
+SHARD_STEPS = 3            # steps of each sharded run (they must compose)
+SHARD_MODES = ("replicated", "cam_shard")
+SHARD_TIMEOUT = 120        # s, the process groups' limit per collective
+SHARD_WAIT = 600           # s, the wait for all ranks of one launch
+SHARD_THREADS = 4          # host threads per rank
+# world size 1 on NCCL, then 2 ranks sharing the card over gloo (NCCL
+# takes one card per rank)
+SHARD_LAUNCHES = ((1, "cuda", "nccl"), (2, "cuda:0", "gloo"))
+# tests/test_spmd.py:77-83: points and eo rtol 1e-9 / atol 1e-11, io rtol
+# 1e-9 / atol 1e-12, omega0 rtol 1e-10, max_dx rtol 1e-7
+SHARD_STATE_TOL = dict(points=dict(rtol=1e-9, atol=1e-11),
+                       eo=dict(rtol=1e-9, atol=1e-11),
+                       io=dict(rtol=1e-9, atol=1e-12))
+SHARD_OMEGA_RTOL = 1e-10
+SHARD_MAXDX_RTOL = 1e-7
+TP_BLOCK = 64              # rows per block of the block-cyclic Cholesky
+# the factor against torch.linalg.cholesky on the CPU (LAPACK) within 1e-12
+# Jacobi-scaled (rows over sqrt(diag S)); against cuSOLVER's factor it is
+# recorded (LAPACK and cuSOLVER differ by ~1.2e-12 themselves at u =
+# 3,010, the rounding of two backward-stable factorisations times
+# sqrt(cond)); the backward error max|L L^T - S| (Jacobi-scaled) <= 1e-13
+TP_FACTOR_TOL = 1e-12
+TP_BACKWARD_TOL = 1e-13
+TP_PCG_TOL = 1e-14         # the PCG solve the direct solve is held to
+TP_PCG_MAXITER = 3000
+TP_SOLVE_TOL = 1e-7        # of the PCG solution's largest entry
+TP_COLUMNS = 8             # cofactor columns vs torch.cholesky_inverse
+TP_COLUMN_TOL = 1e-8       # of their largest entry
+SPMD_CG_TOL = 1e-13        # tests/test_spmd.py:17-49: Gauss-Newton,
+SPMD_ATOL = 1e-9           # points / eo atol 1e-9, max_dx rtol 1e-8
+SPMD_MAXDX_RTOL = 1e-8
+FLEET = (16, 5000, 50, 12)  # BASELINE config 3's network as config 5's fleet
+FLEET_CG_TOL = 1e-14
+FLEET_CG_MAXITER = 1000
+FLEET_TOL = 1e-12          # state, max_dx, omega0 against each own step
+# CG iterations a scenario may differ by from its own engine step: the
+# batched reductions (bmm for mm, other reduction orders) differ in the
+# last bits, and the count of a CG run near its floor follows them
+FLEET_CG_SLACK = 3
 
 
 def fail(msg: str):
@@ -1639,6 +1733,8 @@ def cli_phase(dev):
     import bundle_adjustment_tpu_torch as T
     from bundle_adjustment_tpu_torch.init import dlt, transformation
     from bundle_adjustment_tpu_torch.io import readers, scene_files
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.ops.assembly import make_assembler
     from bundle_adjustment_tpu_torch.parallel import kernels
     from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
 
@@ -1738,11 +1834,21 @@ def cli_phase(dev):
                 for p in oc.params if p.column >= 0]
         d_in = np.diagonal(Q)[cols]
         d_mat = np.diagonal(m["dispersion"])[:len(cols)]
-        # of the largest variance (the gate), and entry by entry (recorded:
-        # the dense assembly adds with atomics, and the smallest variances
-        # carry that rounding times the conditioning)
+        # of the largest variance (the gate), and entry by entry; the dense
+        # assembly sums in a fixed order, so the two processes' cofactors
+        # are the same bits (gated too)
         q_rel = float(np.abs(d_mat - d_in).max() / np.abs(d_in).max())
         q_each = float(np.abs(d_mat / d_in - 1.0).max())
+        q_bits = bool(np.array_equal(d_mat, d_in))
+        # two assemblies of the same state in this process: the same bits
+        assemble = make_assembler(adj.compiled.problem, dev, torch.float64)
+        st0 = ParamState(*(torch.as_tensor(np.asarray(a), device=dev,
+                                           dtype=torch.float64)
+                           for a in adj.compiled.state))
+        N1, n1, _ = assemble(st0, 0.0)
+        N2, n2, _ = assemble(st0, 0.0)
+        asm_bits = bool(torch.equal(N1, N2) and torch.equal(n1, n2))
+        del N1, N2, n1, n2
         # .info and .cxx against the .mat (15 decimals printed)
         info = np.loadtxt(exp + ".info", dtype=str, delimiter="\t")
         info_err = float(np.abs(info[:, 2].astype(float)
@@ -1759,7 +1865,8 @@ def cli_phase(dev):
             f"{counts_ok}; sigma0 {s_cli:.12e} ({s_rel:.2e} relative); .mat "
             f"coordinates {xyz_rel:.2e} of the field, cofactor diagonal "
             f"{q_rel:.2e} of its largest entry ({q_each:.2e} entry by "
-            f"entry); .info vs .mat {info_err:.1e}, .cxx vs .mat "
+            f"entry; equal bits: {q_bits}); two assemblies equal bits: "
+            f"{asm_bits}; .info vs .mat {info_err:.1e}, .cxx vs .mat "
             f"{cxx_err:.1e}")
         problems = []
         if not counts_ok:
@@ -1770,12 +1877,16 @@ def cli_phase(dev):
             problems.append(f".mat {xyz_rel:.2e} / {q_rel:.2e}")
         if not (info_err <= 1e-12 * field and cxx_err <= 1e-15):
             problems.append(f".info {info_err:.1e} / .cxx {cxx_err:.1e}")
+        if not (q_bits and asm_bits):
+            problems.append(f"bits: cofactor diagonal {q_bits}, two "
+                            f"assemblies {asm_bits}")
         if problems:
             fail(f"CLI {sub} against the in-process estimate: "
                  + "; ".join(problems))
         out[sub] = dict(wall_s=wall, in_process_s=sec, sigma0=s_cli,
                         sigma0_rel=s_rel, xyz_rel=xyz_rel, q_rel=q_rel,
-                        q_rel_each=q_each,
+                        q_rel_each=q_each, q_bits=q_bits,
+                        assembly_bits=asm_bits,
                         n=int(nums["Number of observations"]),
                         u=int(nums["Number of unknown parameters"]))
 
@@ -1855,6 +1966,429 @@ def cli_phase(dev):
     return dict(cli=out, cli_cpu_wall_s=wall_cpu, cli_cpu_xyz_rel=cpu_xyz,
                 dlt_card_vs_cpu=dlt_err, dlt_truth=eo_err, dlt_s=dlt_s,
                 transform_card_vs_cpu=[tr_pts, tr_cov]), launches
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the sharded and scenario-batched paths
+# ---------------------------------------------------------------------------
+
+def _cpu(x):
+    return x.detach().cpu()
+
+
+def _state_rec(points, io, dist, eo, **extra):
+    return dict(points=_cpu(points), io=_cpu(io), dist=_cpu(dist),
+                eo=_cpu(eo), **extra)
+
+
+def _timed(fn):
+    """(fn(), seconds between synchronised ends)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t
+
+
+def sharded_rank(comm, shape):
+    """Phase 13 on one rank of ``comm`` (a spawned process on the card):
+    the point-sharded step (replicated and cam_shard, SHARD_STEPS steps
+    each), the block-cyclic Cholesky of the reduced system and the
+    observation-sharded step, with wall times.  At world size 1 it also
+    computes the single-process references on the card: engine.lm_step
+    (SHARD_STEPS steps), torch.linalg.cholesky, PCG at TP_PCG_TOL,
+    torch.cholesky_inverse, and the Gauss-Newton engine step of (d).
+    ``shape``: (points, images, views) of `synthetic.build_problem`.
+    Every value returned is on the host."""
+    import hashlib
+
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (engine, kernels, rcs,
+                                                      spmd, spmd_fm, tp)
+
+    kernels.reset_launch_counts()
+    dev = comm.device
+    prob_h, state_h, spec = synthetic.build_problem(*shape, seed=0)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+    st = convert.state_to_torch(state_h, dev, torch.float64)
+    fmp = engine.fm_problem(prob)
+    out = dict(repr=repr(comm))
+    runs = ((SHARD_CG_TOL, SHARD_STEPS), (SHARD_STATE_CG_TOL, 1))
+
+    if comm.size == 1:
+        for tol, steps in runs:
+            ref, s = [], st
+            for _ in range(steps):
+                (dxp, dxc, dxg, b, it), sec = _timed(lambda: engine.lm_step(
+                    fmp, s, spec, SHARD_DAMPING, cg_tol=tol,
+                    cg_maxiter=SHARD_CG_MAXITER))
+                s, mdx = rcs.apply_step(s, dxp, dxc, dxg)
+                ref.append(_state_rec(*s, max_dx=float(mdx),
+                                      omega0=float(b.omega0), it=it, s=sec))
+            out[("engine", tol)] = ref
+
+    # (a) / (b): the point-sharded step
+    for mode in SHARD_MODES:
+        cam = mode == "cam_shard"
+        p2, s2, _ = spmd_fm.pad_for_mesh(prob, st, comm, images=cam)
+        for tol, steps in runs:
+            step, args = spmd_fm.make_spmd_fm_lm_step(
+                p2, s2, spec, comm, damping=SHARD_DAMPING, cam_shard=cam,
+                cg_tol=tol, cg_maxiter=SHARD_CG_MAXITER)
+            res = []
+            for _ in range(steps):
+                (args, mdx, om, it), sec = _timed(lambda: step(*args))
+                res.append(_state_rec(comm.all_gather(args[0]), *args[1:],
+                                      max_dx=float(mdx), omega0=float(om),
+                                      it=it, s=sec))
+            out[(mode, tol)] = res
+
+    # (c): the reduced system of that network, factorised over the ranks
+    b, rc, rg, Minv = engine.prepare(fmp, st, spec, SHARD_DAMPING,
+                                     couple_global=True)
+    (S, r), t_asm = _timed(lambda: tp.assemble_reduced_system(fmp, b))
+    u = S.shape[0]
+    step_n = comm.size * TP_BLOCK
+    Sp, rp = tp.pad_spd(S, r, -(-u // step_n) * step_n)
+    tp.distributed_cholesky(Sp, comm, TP_BLOCK)  # warm
+    L, t_fac = _timed(lambda: tp.distributed_cholesky(Sp, comm, TP_BLOCK))
+    x, t_solve = _timed(lambda: tp.distributed_cholesky_solve(L, rp, comm))
+    idx = [int(i) for i in torch.linspace(0, u - 1, TP_COLUMNS)]
+    Q, t_cols = _timed(lambda: tp.reduced_cofactor_columns(L, idx, u, comm))
+    out["tp"] = dict(
+        u=u, n=Sp.shape[0], block=TP_BLOCK, L=_cpu(tp.gather_factor(
+            L, comm)[:u, :u]), x=_cpu(x[:u]), Q=_cpu(Q), idx=idx,
+        S_sha=hashlib.sha256(_cpu(S).numpy().tobytes()).hexdigest(),
+        assemble_s=t_asm, factor_s=t_fac, solve_s=t_solve, columns_s=t_cols)
+    if comm.size == 1:
+        torch.linalg.cholesky(S)  # warm
+        Lref, t_ref = _timed(lambda: torch.linalg.cholesky(S))
+        Lcpu = torch.linalg.cholesky(S.cpu())
+        (xc, xg, it), t_pcg = _timed(lambda: rcs.pcg(
+            rc, rg, Minv, lambda c, g: engine.schur_matvec(fmp, b, c, g),
+            tol=TP_PCG_TOL, maxiter=TP_PCG_MAXITER))
+        out["tp_ref"] = dict(
+            L=_cpu(Lref), L_cpu=Lcpu, S=_cpu(S),
+            D=_cpu(torch.sqrt(torch.diagonal(S))),
+            x=_cpu(torch.cat([xc.reshape(-1), xg])), pcg_it=it, pcg_s=t_pcg,
+            Q=_cpu(torch.cholesky_inverse(Lref)[:, idx]), cholesky_s=t_ref)
+    del S, Sp, L, b
+
+    # (d): the observation-sharded Gauss-Newton step
+    sp = spmd.shard_problem(prob, comm)
+    step = spmd.make_spmd_lm_step(sp, spec, comm, cg_tol=SPMD_CG_TOL,
+                                  cg_maxiter=SHARD_CG_MAXITER)
+    (new, mdx, om, it), sec = _timed(lambda: step(st))
+    out["spmd"] = _state_rec(*new, max_dx=float(mdx), omega0=float(om),
+                             it=it, s=sec)
+    if comm.size == 1:
+        (dxp, dxc, dxg, b, it), sec = _timed(lambda: engine.lm_step(
+            fmp, st, spec, 0.0, cg_tol=SPMD_CG_TOL,
+            cg_maxiter=SHARD_CG_MAXITER))
+        s, mdx = rcs.apply_step(st, dxp, dxc, dxg)
+        out["spmd_ref"] = _state_rec(*s, max_dx=float(mdx),
+                                     omega0=float(b.omega0), it=it, s=sec)
+    out["launches"] = kernels.launch_counts()
+    return out
+
+
+def _step_err(got, ref):
+    """The largest gaps of a step's state, omega0 and max_dx, as
+    tests/test_spmd.py gates them: for points, eo and io the largest
+    |a - b| / (atol + rtol |b|) (<= 1 passes; ``state`` the worst of
+    them), omega0 and max_dx relative; the distortion's largest absolute
+    gap is recorded (that test does not gate it)."""
+    import torch
+
+    def over(a, b, rtol, atol):
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    names = ("points", "eo", "io", "dist")
+    fields = {n: over(got[n], ref[n], **SHARD_STATE_TOL[n])
+              for n in names[:3]}
+    return dict(
+        state=max(fields.values()), fields=fields,
+        dist_abs=float((got["dist"] - ref["dist"]).abs().max()),
+        omega0=abs(got["omega0"] / ref["omega0"] - 1.0),
+        max_dx=abs(got["max_dx"] / ref["max_dx"] - 1.0),
+        equal_bits=all(torch.equal(got[n], ref[n]) for n in names)
+        and got["omega0"] == ref["omega0"] and got["max_dx"] == ref["max_dx"])
+
+
+def sharded_phase(shape=(NUM_POINTS, NUM_IMAGES, VIEWS),
+                  launches=SHARD_LAUNCHES):
+    """Phase 13 (see the module docstring).  Returns (summary dict, the
+    launch counts of the ranks: none, the sharded steps run the plain
+    path).  ``launches``: (world size, device, backend) of each launch."""
+    import shutil
+
+    import torch
+
+    from bundle_adjustment_tpu_torch.parallel import multihost
+
+    work = WORK / "phase13"
+    shutil.rmtree(work, ignore_errors=True)
+    runs, walls = {}, {}
+    for D, device, backend in launches:
+        t = time.perf_counter()
+        runs[D] = multihost.run_ranks(
+            sharded_rank, D, (shape,), workdir=work / f"ranks{D}",
+            device=device,
+            backend=backend, timeout=SHARD_TIMEOUT, wait=SHARD_WAIT,
+            threads=SHARD_THREADS)
+        walls[D] = time.perf_counter() - t
+        log(f"phase 13 at {D} rank(s) over {backend}: "
+            f"{runs[D][0]['repr']}; launch wall {walls[D]:.1f} s")
+    one = runs[1][0]
+    ref = one[("engine", SHARD_CG_TOL)]
+    ref_state = one[("engine", SHARD_STATE_CG_TOL)][0]
+    out = {"launch_wall_s": walls}
+    problems = []
+
+    # (a) world size 1 (NCCL) against engine.lm_step on the card, and
+    # (b) 2 ranks (gloo on the card) against the same single-rank step:
+    # CG counts, omega0, max_dx at SHARD_CG_TOL, the state at
+    # SHARD_STATE_CG_TOL
+    for D in (1, 2):
+        for mode in SHARD_MODES:
+            res = runs[D][0][(mode, SHARD_CG_TOL)]
+            st_res = runs[D][0][(mode, SHARD_STATE_CG_TOL)][0]
+            err = _step_err(res[0], ref[0])
+            err_st = _step_err(st_res, ref_state)
+            same = all(torch.equal(r[(mode, tol)][0]["points"],
+                                   runs[D][0][(mode, tol)][0]["points"])
+                       and r[(mode, tol)][0]["omega0"]
+                       == runs[D][0][(mode, tol)][0]["omega0"]
+                       for r in runs[D]
+                       for tol in (SHARD_CG_TOL, SHARD_STATE_CG_TOL))
+            omegas = [s["omega0"] for s in res]
+            its = [s["it"] for s in res]
+            log(f"(a/b) spmd_fm {mode} at {D} rank(s), cg_tol "
+                f"{SHARD_CG_TOL:g}: CG {its} (engine "
+                f"{[s['it'] for s in ref]}); omega0 {err['omega0']:.2e}, "
+                f"max_dx {err['max_dx']:.2e} relative; state of its gate "
+                + ", ".join(f"{n} {v:.2e}" for n, v in err["fields"].items())
+                + f" (recorded); equal bits to engine.lm_step: "
+                f"{err['equal_bits']}; omega {omegas[0]:.10e} -> "
+                f"{omegas[-1]:.10e}; s per step "
+                f"{[round(s['s'], 4) for s in res]} (engine "
+                f"{[round(s['s'], 4) for s in ref]}); at cg_tol "
+                f"{SHARD_STATE_CG_TOL:g}: CG {st_res['it']} (engine "
+                f"{ref_state['it']}), state of its gate "
+                + ", ".join(f"{n} {v:.2e}"
+                            for n, v in err_st["fields"].items())
+                + f" (distortion {err_st['dist_abs']:.1e} absolute), "
+                f"equal bits: {err_st['equal_bits']}; ranks equal: {same}")
+            if not (err["omega0"] <= SHARD_OMEGA_RTOL
+                    and err["max_dx"] <= SHARD_MAXDX_RTOL
+                    and err_st["state"] <= 1.0
+                    and err_st["omega0"] <= SHARD_OMEGA_RTOL
+                    and err_st["max_dx"] <= SHARD_MAXDX_RTOL):
+                problems.append(f"spmd_fm {mode} at {D}: {err}, at the "
+                                f"state's cg_tol {err_st}")
+            if its[0] != ref[0]["it"]:
+                problems.append(f"spmd_fm {mode} at {D}: {its[0]} CG "
+                                f"iterations, engine {ref[0]['it']}")
+            if not (same and omegas[-1] < omegas[0]
+                    and math.isfinite(res[-1]["max_dx"])):
+                problems.append(f"spmd_fm {mode} at {D}: ranks equal {same}, "
+                                f"omega {omegas}")
+            out[f"spmd_fm_{mode}_{D}"] = dict(
+                cg=its, step_s=[s["s"] for s in res],
+                equal_bits=err["equal_bits"], omega0_rel=err["omega0"],
+                max_dx_rel=err["max_dx"], state_gate_at_cg_tol=err["state"],
+                state_gate=err_st["state"], state_cg=st_res["it"],
+                state_step_s=st_res["s"])
+    out["engine_step_s"] = [s["s"] for s in ref]
+    out["engine_cg"] = [s["it"] for s in ref]
+    out["engine_state_cg"] = ref_state["it"]
+
+    # (c) the distributed Cholesky against torch.linalg on the card
+    tr = one["tp_ref"]
+    Dj = tr["D"]
+    Ss = tr["S"] / Dj[:, None] / Dj[None, :]
+
+    def backward(L):
+        Ls = L / Dj[:, None]
+        return float((Ls @ Ls.T - Ss).abs().max())
+
+    def scaled(L, ref):
+        return float(((L - ref) / Dj[:, None]).abs().max())
+
+    out["tp_lapack_vs_cusolver"] = scaled(tr["L_cpu"], tr["L"])
+    out["tp_cusolver_backward"] = backward(tr["L"])
+    for D in (1, 2):
+        res = runs[D][0]["tp"]
+        fac = scaled(res["L"], tr["L_cpu"])
+        fac_gpu = scaled(res["L"], tr["L"])
+        bwd = backward(res["L"])
+        sol = float((res["x"] - tr["x"]).abs().max() / tr["x"].abs().max())
+        col = float((res["Q"] - tr["Q"]).abs().max() / tr["Q"].abs().max())
+        same_S = len({r["tp"]["S_sha"] for r in runs[D]}) == 1
+        log(f"(c) tp at {D} rank(s): u {res['u']} padded {res['n']}, block "
+            f"{res['block']}; factor {fac:.2e} Jacobi-scaled from LAPACK's "
+            f"({fac_gpu:.2e} from cuSOLVER's, which is "
+            f"{out['tp_lapack_vs_cusolver']:.2e} from LAPACK's), backward "
+            f"error {bwd:.2e} (cuSOLVER's {out['tp_cusolver_backward']:.2e}), "
+            f"solve {sol:.2e} "
+            f"of PCG at tol {TP_PCG_TOL:g} ({tr['pcg_it']} iterations, "
+            f"{tr['pcg_s']:.2f} s), {len(res['idx'])} cofactor columns "
+            f"{col:.2e}; ranks' S equal: {same_S}; assemble "
+            f"{res['assemble_s']:.3f} s, factor {res['factor_s']:.4f} s "
+            f"(torch.linalg.cholesky {tr['cholesky_s']:.4f} s), solve "
+            f"{res['solve_s']:.4f} s, columns {res['columns_s']:.4f} s")
+        if not (fac <= TP_FACTOR_TOL and bwd <= TP_BACKWARD_TOL
+                and sol <= TP_SOLVE_TOL and col <= TP_COLUMN_TOL and same_S):
+            problems.append(f"tp at {D}: factor {fac:.2e}, backward "
+                            f"{bwd:.2e}, solve {sol:.2e}, columns {col:.2e}, "
+                            f"S equal {same_S}")
+        out[f"tp_{D}"] = dict(
+            factor_err=fac, factor_err_cusolver=fac_gpu, backward_err=bwd,
+            solve_err=sol, columns_err=col,
+            assemble_s=res["assemble_s"], factor_s=res["factor_s"],
+            solve_s=res["solve_s"], columns_s=res["columns_s"])
+    out["tp_cholesky_s"] = tr["cholesky_s"]
+
+    # (d) the observation-sharded step against the engine's GN step
+    sr = one["spmd_ref"]
+    for D in (1, 2):
+        res = runs[D][0]["spmd"]
+        dp = float((res["points"] - sr["points"]).abs().max())
+        de = float((res["eo"] - sr["eo"]).abs().max())
+        dm = abs(res["max_dx"] / sr["max_dx"] - 1.0)
+        dom = abs(res["omega0"] / sr["omega0"] - 1.0)
+        same = all(torch.equal(r["spmd"]["points"], res["points"])
+                   for r in runs[D])
+        log(f"(d) spmd at {D} rank(s): CG {res['it']} (engine "
+            f"{sr['it']}); points {dp:.2e}, eo {de:.2e} absolute; max_dx "
+            f"{dm:.2e}, omega0 {dom:.2e} relative; ranks equal: {same}; "
+            f"step {res['s']:.3f} s (engine {sr['s']:.3f} s)")
+        if not (dp <= SPMD_ATOL and de <= SPMD_ATOL
+                and dm <= SPMD_MAXDX_RTOL and dom <= SHARD_OMEGA_RTOL
+                and same):
+            problems.append(f"spmd at {D}: points {dp:.2e}, eo {de:.2e}, "
+                            f"max_dx {dm:.2e}, omega0 {dom:.2e}, {same}")
+        out[f"spmd_{D}"] = dict(cg=res["it"], step_s=res["s"], points=dp,
+                                eo=de, max_dx_rel=dm, omega0_rel=dom)
+    out["spmd_engine_s"] = sr["s"]
+    launches = {}
+    for D in (1, 2):
+        for r in runs[D]:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    if any(launches.values()):
+        problems.append(f"kernel launches in the plain sharded path: "
+                        f"{launches}")
+    if problems:
+        fail("phase 13: " + "; ".join(problems))
+    return out, launches
+
+
+def fleet_phase(dev, fleet=FLEET):
+    """Phase 14 (see the module docstring): ``fleet`` = (networks, points,
+    images, views).  Returns (summary dict, the launch counts of the
+    phase: none)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.parallel import (engine, kernels, rcs,
+                                                      scenario)
+
+    kernels.reset_launch_counts()
+    S, P, M, V = fleet
+    t = time.perf_counter()
+    prob_h, xy, w, states, spec = synthetic.scenario_batch(S, P, M, V, seed=0)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+    batch = scenario.make_batch(prob, xy, w, states)
+    log(f"fleet of {S} networks ({P} points, {M} images, {V} views; "
+        f"N = {prob.obs_image.shape[0]} rows each) built in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    def batched(tol):
+        return scenario.scenario_lm_step(batch, spec, SHARD_DAMPING,
+                                         cg_tol=tol,
+                                         cg_maxiter=FLEET_CG_MAXITER)
+
+    def sequential(tol):
+        res = []
+        for s in range(S):
+            p = engine.fm_problem(prob._replace(
+                obs_xy=batch.obs_xy[s], obs_weight=batch.obs_weight[s]))
+            st = ParamState(*(a[s] for a in batch.states))
+            dxp, dxc, dxg, b, it = engine.lm_step(
+                p, st, spec, SHARD_DAMPING, cg_tol=tol,
+                cg_maxiter=FLEET_CG_MAXITER)
+            new, mdx = rcs.apply_step(st, dxp, dxc, dxg)
+            res.append((new, float(mdx), float(b.omega0), it))
+        return res
+
+    def compare(out, seq):
+        new, mdx, om, its = out
+        worst = dict(state=0.0, max_dx=0.0, omega0=0.0)
+        bad, same_cg = [], 0
+        for s, (ref, mdx1, om1, it1) in enumerate(seq):
+            st_err = max(float((getattr(new, n)[s] - getattr(ref, n)).abs()
+                               .max() / getattr(ref, n).abs().max())
+                         for n in ParamState._fields)
+            e = dict(state=st_err, max_dx=abs(float(mdx[s]) / mdx1 - 1.0),
+                     omega0=abs(float(om[s]) / om1 - 1.0))
+            worst = {k: max(worst[k], e[k]) for k in worst}
+            same_cg += int(its[s]) == it1
+            if abs(int(its[s]) - it1) > FLEET_CG_SLACK \
+                    or not all(v <= FLEET_TOL for v in e.values()):
+                bad.append((s, int(its[s]), it1, e))
+        return worst, bad, same_cg
+
+    _, t_b0 = _timed(lambda: batched(FLEET_CG_TOL))
+    out, t_b = _timed(lambda: batched(FLEET_CG_TOL))
+    _, t_s0 = _timed(lambda: sequential(FLEET_CG_TOL))
+    seq, t_s = _timed(lambda: sequential(FLEET_CG_TOL))
+    worst, bad, same_cg = compare(out, seq)
+    its = out[3]
+    # recorded: the same at cg_tol 1e-12, and where the bits part: the
+    # vmapped prepare and matvec against the unbatched ones (scenario 0)
+    worst12, _, same12 = compare(batched(SHARD_CG_TOL),
+                                 sequential(SHARD_CG_TOL))
+    bd, _rc, rg, md = scenario.prepare_batch(batch, spec, SHARD_DAMPING)
+    p0 = engine.fm_problem(prob._replace(obs_xy=batch.obs_xy[0],
+                                         obs_weight=batch.obs_weight[0]))
+    b0, rc0, rg0, M0 = engine.prepare(
+        p0, ParamState(*(a[0] for a in batch.states)), spec, SHARD_DAMPING,
+        couple_global=True)
+    oc, og = scenario.matvec_batch(batch.problem, bd, _rc, rg)
+    oc0, og0 = engine.schur_matvec(p0, b0, rc0, rg0)
+    bits = dict(rg=scaled_err(rg[0], rg0),
+                Sghat_inv=scaled_err(md["Sghat_inv"][0], M0.Sghat_inv),
+                matvec_c=scaled_err(oc[0], oc0),
+                matvec_g=scaled_err(og[0], og0))
+    launches = kernels.launch_counts()
+    log(f"scenario_lm_step: CG per scenario {its.tolist()} (the sequential "
+        f"steps: {[r[3] for r in seq]}, {same_cg} of {S} equal); worst state "
+        f"{worst['state']:.2e}, max_dx {worst['max_dx']:.2e}, omega0 "
+        f"{worst['omega0']:.2e} relative; batched step {t_b:.3f} s (first "
+        f"{t_b0:.3f} s), {S} sequential engine steps {t_s:.3f} s (first "
+        f"{t_s0:.3f} s); at cg_tol {SHARD_CG_TOL:g} (recorded): {same12} of "
+        f"{S} counts equal, worst state {worst12['state']:.2e}, max_dx "
+        f"{worst12['max_dx']:.2e}; vmapped against unbatched (scenario 0): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in bits.items())
+        + f"; launches {launches}")
+    if bad or any(launches.values()):
+        fail(f"phase 14: scenarios off their single step {bad[:4]}; "
+             f"launches {launches}")
+    return dict(fleet_cg=its.tolist(),
+                fleet_cg_sequential=[r[3] for r in seq],
+                fleet_same_cg=same_cg, fleet_batched_s=t_b,
+                fleet_batched_first_s=t_b0, fleet_sequential_s=t_s,
+                fleet_sequential_first_s=t_s0, fleet_worst=worst,
+                fleet_same_cg_1e12=same12, fleet_worst_1e12=worst12,
+                fleet_vmap_bits=bits), launches
 
 
 def main(profile_refinement=False):
@@ -2338,6 +2872,16 @@ def main(profile_refinement=False):
     cli_res, launches12 = cli_phase(dev)
     by_phase["cli"] = launches12
 
+    # ---- 13. the sharded steps and the distributed Cholesky ----------------
+    log(f"-- phase 13 at {time.time() - t_start:.1f} s")
+    shard_res, launches13 = sharded_phase()
+    by_phase["sharded"] = launches13
+
+    # ---- 14. the scenario-batched fleet ------------------------------------
+    log(f"-- phase 14 at {time.time() - t_start:.1f} s")
+    fleet_res, launches14 = fleet_phase(dev)
+    by_phase["fleet"] = launches14
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -2355,7 +2899,7 @@ def main(profile_refinement=False):
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
-        **rig, **files, **cli_res}))
+        **rig, **files, **cli_res, "sharded": shard_res, **fleet_res}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

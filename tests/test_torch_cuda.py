@@ -760,3 +760,124 @@ def test_cli_on_the_card_matches_its_cpu_run(case, tmp_path):
     assert card[:4] == cpu[:4]
     for a, b in zip(card[4:], cpu[4:]):
         assert abs(a / b - 1.0) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths on the card: world size 1 on NCCL, 2 ranks over gloo
+# ---------------------------------------------------------------------------
+
+def _sharded_worker(comm):
+    """`spmd_fm` (both modes), `tp` and `spmd` on a 512-point network on
+    the card (a spawned rank; imports torch and the port only)."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import engine, spmd, spmd_fm, tp
+
+    prob_h, state_h, spec = synthetic.build_problem(512, 24, 8, seed=3)
+    prob = convert.problem_to_torch(prob_h, comm.device, torch.float64)
+    st = convert.state_to_torch(state_h, comm.device, torch.float64)
+    out = {"form": comm.form}
+    for cam in (False, True):
+        step, args = spmd_fm.make_spmd_fm_lm_step(
+            prob, st, spec, comm, damping=1e-4, cg_tol=1e-12, cg_maxiter=500,
+            cam_shard=cam)
+        (pts, io, _dist, eo), mdx, om, it = step(*args)
+        out[cam] = dict(points=comm.all_gather(pts).cpu(), eo=eo.cpu(),
+                        io=io.cpu(), omega0=float(om), max_dx=float(mdx),
+                        it=it)
+    fmp = engine.fm_problem(prob)
+    b = engine.prepare(fmp, st, spec, 1e-4, couple_global=True)[0]
+    S, r = tp.assemble_reduced_system(fmp, b)
+    n = -(-S.shape[0] // (comm.size * 8)) * comm.size * 8
+    Sp, rp = tp.pad_spd(S, r, n)
+    L = tp.distributed_cholesky(Sp, comm, 8)
+    out.update(L=tp.gather_factor(L, comm).cpu(), S=Sp.cpu(), r=rp.cpu(),
+               x=tp.distributed_cholesky_solve(L, rp, comm).cpu())
+    new, mdx, _om, _it = spmd.make_spmd_lm_step(
+        spmd.shard_problem(prob, comm), spec, comm, cg_tol=1e-13,
+        cg_maxiter=1000)(st)
+    out["spmd"] = dict(points=new.points.cpu(), max_dx=float(mdx))
+    return out
+
+
+@pytest.mark.parametrize("world,device,backend",
+                         [(1, "cuda", "nccl"), (2, "cuda:0", "gloo")])
+def test_sharded_paths_on_the_card(tmp_path, world, device, backend):
+    """The point-sharded step (both modes) against `engine.lm_step` on the
+    card (points / eo rtol 1e-9 atol 1e-11, omega0 rtol 1e-10, max_dx rtol
+    1e-7), the block-cyclic factor's backward error (Jacobi-scaled, 1e-13)
+    and solve (rtol 1e-9 of `torch.linalg.solve`), the observation-sharded
+    Gauss-Newton step against the engine's (points atol 1e-9, max_dx rtol
+    1e-8); gloo on the card takes the all_reduce form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import engine, multihost, rcs
+
+    res = multihost.run_ranks(_sharded_worker, world, workdir=tmp_path,
+                              device=device, backend=backend, timeout=120,
+                              wait=600)
+    out = res[0]
+    assert out["form"] == ("direct" if backend == "nccl" else "all_reduce")
+    dev = torch.device("cuda", 0)
+    prob_h, state_h, spec = synthetic.build_problem(512, 24, 8, seed=3)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+    st = convert.state_to_torch(state_h, dev, torch.float64)
+    fmp = engine.fm_problem(prob)
+    dxp, dxc, dxg, b, _ = engine.lm_step(fmp, st, spec, 1e-4, cg_tol=1e-12,
+                                         cg_maxiter=500)
+    ref, mdx = rcs.apply_step(st, dxp, dxc, dxg)
+    for cam in (False, True):
+        got = out[cam]
+        torch.testing.assert_close(got["points"], ref.points.cpu(),
+                                   rtol=1e-9, atol=1e-11)
+        torch.testing.assert_close(got["eo"], ref.eo.cpu(), rtol=1e-9,
+                                   atol=1e-11)
+        assert abs(got["omega0"] / float(b.omega0) - 1) <= 1e-10
+        assert abs(got["max_dx"] / float(mdx) - 1) <= 1e-7
+        for other in res[1:]:
+            assert torch.equal(other[cam]["points"], got["points"])
+    D = torch.sqrt(torch.diagonal(out["S"]))
+    Ls = out["L"] / D[:, None]
+    assert float((Ls @ Ls.T - out["S"] / D[:, None] / D[None, :]).abs()
+                 .max()) <= 1e-13
+    torch.testing.assert_close(out["x"], torch.linalg.solve(out["S"],
+                                                            out["r"]),
+                               rtol=1e-9, atol=1e-12)
+    dxp, dxc, dxg, b, _ = engine.lm_step(fmp, st, spec, 0.0, cg_tol=1e-13,
+                                         cg_maxiter=1000)
+    ref, mdx = rcs.apply_step(st, dxp, dxc, dxg)
+    torch.testing.assert_close(out["spmd"]["points"], ref.points.cpu(),
+                               rtol=0, atol=1e-9)
+    assert abs(out["spmd"]["max_dx"] / float(mdx) - 1) <= 1e-8
+
+
+def test_scenario_step_on_the_card():
+    """`scenario_lm_step` on the card against `engine.lm_step` per network
+    (3 networks of 300 points, f64, cg_tol 1e-14): states and omega0
+    within 1e-12, max_dx within 1e-10, CG counts within 3 (the batched
+    reductions sum in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.parallel import engine, rcs, scenario
+
+    dev = torch.device("cuda", 0)
+    prob_h, xy, w, states, spec = synthetic.scenario_batch(3, 300, 12, 6,
+                                                           seed=2)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+    batch = scenario.make_batch(prob, xy, w, states)
+    new, mdx, om, it = scenario.scenario_lm_step(batch, spec, 1e-4,
+                                                 cg_tol=1e-14, cg_maxiter=600)
+    for s in range(3):
+        p = engine.fm_problem(prob._replace(obs_xy=batch.obs_xy[s],
+                                            obs_weight=batch.obs_weight[s]))
+        st = ParamState(*(a[s] for a in batch.states))
+        dxp, dxc, dxg, b, it1 = engine.lm_step(p, st, spec, 1e-4,
+                                               cg_tol=1e-14, cg_maxiter=600)
+        ref, mdx1 = rcs.apply_step(st, dxp, dxc, dxg)
+        assert abs(int(it[s]) - it1) <= 3
+        for name in ParamState._fields:
+            assert _scaled(getattr(new, name)[s], getattr(ref, name)) <= 1e-12
+        assert abs(float(mdx[s] / mdx1) - 1) <= 1e-10
+        assert abs(float(om[s] / b.omega0) - 1) <= 1e-12

@@ -48,7 +48,8 @@ def test_scan_sees_the_package():
             "refine.py", "measure.py", "freenet.py", "solver.py",
             "__main__.py", "readers.py", "writers.py", "columnar.py",
             "scene_files.py", "dlt.py", "transformation.py",
-            "tracing.py"} <= names
+            "tracing.py", "sharding.py", "multihost.py", "spmd_fm.py",
+            "tp.py", "scenario.py", "spmd.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("bundle_adjustment_tpu")
     assert not _forbidden("bundle_adjustment_tpu_torch.parallel")
 
