@@ -20,16 +20,16 @@ import torch
 
 from .models import scene as S
 from .models.problem import ParamState
-from .parallel.rcs import RCSProblem
+from .parallel.rcs import RCSProblem, point_order
 
-_INDEX_FIELDS = ("obs_point", "obs_image", "img_perm", "img_block_starts")
+_INDEX_FIELDS = ("obs_point", "obs_image")
 _FLOAT_FIELDS = ("obs_xy", "obs_weight", "r0", "free_point", "free_eo",
                  "free_global")
-# optional fields (None = absent): the camera of each image (absent: one
-# camera), scale bars, Helmert datum, direct observations (see
-# parallel/rcs.RCSProblem)
-_OPT_INDEX_FIELDS = ("cam_of_image", "sb_a", "sb_b", "dpg_idx",
-                     "dpg_axis")
+# optional fields (None = absent): the blocked image layout, the camera of
+# each image (absent: one camera), scale bars, Helmert datum, direct
+# observations (see parallel/rcs.RCSProblem)
+_OPT_INDEX_FIELDS = ("img_perm", "img_block_starts", "cam_of_image", "sb_a",
+                     "sb_b", "dpg_idx", "dpg_axis")
 _OPT_FLOAT_FIELDS = ("sb_length", "sb_weight", "datum_mask_d", "dp_w",
                      "dp_val", "de_w", "de_val", "dg_w", "dg_val", "dpg_val",
                      "dpg_cov")
@@ -48,7 +48,9 @@ def refuse_unsupported(problem) -> None:
 
 
 def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
-    """The port's RCSProblem with tensors on ``device``."""
+    """The port's RCSProblem with tensors on ``device``; a problem in file
+    order (``point_uniform`` None) also gets its point order
+    (`rcs.point_order`)."""
     refuse_unsupported(problem)
 
     def idx(a):
@@ -67,6 +69,10 @@ def problem_to_torch(problem, device, dtype=torch.float32) -> RCSProblem:
     fields.update({n: opt(idx, n) for n in _OPT_INDEX_FIELDS})
     fields.update({n: opt(flt, n) for n in _OPT_FLOAT_FIELDS})
     flags = getattr(problem, "defect_flags_d", None)
+    if problem.point_uniform is None:
+        order, counts = point_order(problem.obs_point, problem.num_points)
+        fields.update(point_order=torch.as_tensor(order, device=device),
+                      point_counts=torch.as_tensor(counts, device=device))
     return RCSProblem(num_points=int(problem.num_points),
                       num_images=int(problem.num_images),
                       point_uniform=problem.point_uniform,

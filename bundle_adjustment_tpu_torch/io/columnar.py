@@ -147,7 +147,7 @@ def _image_of_observation(eor: ExteriorOrientationArrays,
 def build_rcs_problem(points_path, image_coords_path, eor_path,
                       io_path=None, spec=None, dist=None,
                       fix_datum_points: bool = True, device="cuda",
-                      dtype=torch.float32):
+                      dtype=torch.float32, layout: str | None = None):
     """Assemble (RCSProblem, ParamState, spec) of tensors on ``device`` in
     ``dtype`` directly from flat files (CUDA by default; raises without a
     card unless ``device="cpu"``).
@@ -166,18 +166,24 @@ def build_rcs_problem(points_path, image_coords_path, eor_path,
     * r0 = 0 for every camera: the generic interior-orientation file
       carries no distortion reference radius.
 
-    The layout is the feature-major engine's, not the file's (the JAX
-    function keeps file order for its block-layout engine, which the port
-    does not have): observations point-major with a uniform V = the most
-    views any point has, each point's own observations first in file
-    order, then zero-weight pad rows (`rcs.point_major_layout`, the same
-    helper as `rcs.rcs_from_problem`), and the blocked image layout.
+    ``layout`` (one of `rcs.LAYOUTS`; None: `rcs.choose_layout` on the
+    observations kept):
+    * ``"file"``: the JAX function's layout, the observations kept in
+      file order (``point_uniform`` None) with the point order and the
+      blocked image layout: the block-layout engine's, for a network of
+      uneven visibility;
+    * ``"point_major"``: the feature-major engine's, observations
+      point-major with a uniform V = the most views any point has, each
+      point's own observations first in file order, then zero-weight pad
+      rows (`rcs.point_major_layout`, the same helper as
+      `rcs.rcs_from_problem`), and the blocked image layout.
     """
     from ..models.distortion import DistortionSpecBuilder
     from ..models.problem import ParamState
     from ..ops.residuals import image_weight_2x2
-    from ..parallel.rcs import (RCSProblem, build_image_block_layout,
-                                point_major_layout)
+    from ..parallel.rcs import (RCSProblem, check_layout,
+                                build_image_block_layout, choose_layout,
+                                point_major_layout, point_order)
     from ..solver.adjustment import resolve_device
 
     dev = resolve_device(device)
@@ -220,16 +226,34 @@ def build_rcs_problem(points_path, image_coords_path, eor_path,
     var = obs.sigma[keep] ** 2
     sigma2 = min(1.0, float(var.min())) if var.size else 1.0
 
-    pm = point_major_layout(pt_of_obs[keep], P)
-    obs_image = pm.gather(img_of_obs[keep], 0).astype(np.int32)
+    if layout is None:
+        layout = choose_layout(pt_of_obs[keep], P)
+    check_layout(layout)
+    if layout == "file":
+        obs_point = pt_of_obs[keep]
+        obs_image = img_of_obs[keep].astype(np.int32)
+        xy, rho = obs.xy[keep], obs.rho[keep]
+        var = torch.as_tensor(var)
+        live = None
+        order, counts = point_order(obs_point, P)
+        extra = dict(point_uniform=None,
+                     point_order=torch.as_tensor(order, device=dev),
+                     point_counts=torch.as_tensor(counts, device=dev))
+    else:
+        pm = point_major_layout(pt_of_obs[keep], P)
+        obs_point = np.repeat(np.arange(P), pm.views)
+        obs_image = pm.gather(img_of_obs[keep], 0).astype(np.int32)
+        xy = pm.gather(obs.xy[keep], 0.0)
+        rho = pm.gather(obs.rho[keep], 0.0)
+        var = torch.as_tensor(pm.gather(var, 1.0))
+        live = torch.as_tensor(pm.live, dtype=torch.float64)
+        extra = dict(point_uniform=pm.views)
     # the weights in float64, then in dtype; + 0.0 turns the -0.0 of an
     # uncorrelated point's off-diagonal into +0.0
-    var = torch.as_tensor(pm.gather(var, 1.0))
-    w2 = image_weight_2x2(var[:, 0], var[:, 1],
-                          torch.as_tensor(pm.gather(obs.rho[keep], 0.0)),
-                          sigma2)
-    w2 = w2 * torch.as_tensor(pm.live, dtype=torch.float64)[:, None, None] \
-        + 0.0
+    w2 = image_weight_2x2(var[:, 0], var[:, 1], torch.as_tensor(rho), sigma2)
+    if live is not None:
+        w2 = w2 * live[:, None, None]
+    w2 = w2 + 0.0
 
     free_point = np.ones((P, 3))
     if fix_datum_points:
@@ -243,15 +267,13 @@ def build_rcs_problem(points_path, image_coords_path, eor_path,
         return torch.as_tensor(a, dtype=torch.float64).to(dev, dtype)
 
     problem = RCSProblem(
-        obs_point=idx(np.repeat(np.arange(P), pm.views)),
-        obs_image=idx(obs_image),
-        obs_xy=flt(pm.gather(obs.xy[keep], 0.0)),
-        obs_weight=flt(w2), r0=flt(np.zeros(C)),
+        obs_point=idx(obs_point), obs_image=idx(obs_image),
+        obs_xy=flt(xy), obs_weight=flt(w2), r0=flt(np.zeros(C)),
         num_points=P, num_images=M,
         free_point=flt(free_point), free_eo=flt(np.ones((M, 6))),
         free_global=flt(np.ones(C * (3 + K))),
         img_perm=idx(img_perm), img_block_starts=idx(img_bstarts),
-        point_uniform=pm.views, cam_of_image=idx(cam_of_image))
+        cam_of_image=idx(cam_of_image), **extra)
     state = ParamState(points=flt(pts.xyz), io=flt(io_arr),
                        dist=flt(dist_arr), eo=flt(eor.eo))
     return problem, state, spec

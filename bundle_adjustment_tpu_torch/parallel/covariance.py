@@ -1,6 +1,5 @@
 """Posterior covariance blocks on demand at scale (PyTorch port of
-`bundle_adjustment_tpu/parallel/covariance.py`, on the feature-major
-engine).
+`bundle_adjustment_tpu/parallel/covariance.py`).
 
 At 1e5..1e6 points the full dispersion Qxx cannot be materialised.  With
 the point-eliminated factorisation, selected blocks are recovered exactly:
@@ -11,22 +10,28 @@ the point-eliminated factorisation, selected blocks are recovered exactly:
     C_p         = Hxp[:, p] Hpp^{-1}[p]   in R^{(6M+G) x 3}
 
 C_p has nonzero camera rows only for images observing p; S^{-1} C_p is
-computed matrix-free by batched PCG on the implicit reduced system
-(`engine.schur_matvec` with a leading right-hand-side axis): no S and no
-Qxx is formed.
+computed matrix-free by batched PCG on the implicit reduced system: no S
+and no Qxx is formed.
 
-What differs from the JAX module, which builds on the block layout
-(`rcs.linearize`, `rcs.Blocks`) that the port leaves out: C_p is formed
-from the V observation lanes of each selected point in the FM rows (the
-compact rows of a multi-camera network included), and the preconditioner
-is the coupled block preconditioner that `engine.prepare(...,
-couple_global=True)` assembles, where the JAX module recovers the same
-exact blocks through G unit matvecs (`rcs.couple_preconditioner`); only
-the iteration counts may differ.  The coupled form drops the
-camera-camera blocks, and its global Schur complement can be indefinite
-(camera rigs, ROADMAP Queue 3), where PCG has no convergence guarantee:
-`prepare` then falls back to the positive definite camera and global
-blocks alone (block Jacobi).
+Two engines, picked by the problem's type:
+* an `engine.FMProblem` with its `engine.FMBlocks` (the feature-major
+  engine, point-major layout): C_p from the V observation lanes of each
+  selected point (the compact rows of a multi-camera network included),
+  the matvec `engine.schur_matvec` with a leading right-hand-side axis;
+* an `rcs.RCSProblem` with its `rcs.Blocks` (the block-layout engine, any
+  layout, as the JAX module takes): C_p from each selected point's own
+  observations (its segment of the point order), the matvec
+  `rcs.schur_matvec`.
+The preconditioner rule is one for both (`prepare`): the coupled block
+preconditioner (camera blocks, global block, the exact camera-global
+blocks; the feature-major engine assembles them in `engine.prepare(...,
+couple_global=True)`, the block layout recovers them through G unit
+matvecs, `rcs.couple_preconditioner`, as JAX does); only the iteration
+counts may differ from JAX's.  The coupled form drops the camera-camera
+blocks, and its global Schur complement can be indefinite (camera rigs,
+ROADMAP Queue 3), where PCG has no convergence guarantee: `prepare` then
+falls back to the positive definite camera and global blocks alone
+(block Jacobi).
 
 Every function takes (p, b, Minv) from `prepare` below (damping 0) and runs
 in the dtype of its inputs; run it in f64 (the f32 reduced system is
@@ -48,21 +53,38 @@ from . import engine, rcs
 MATVEC_BYTES = 2.0e9
 
 
-def _refuse_extras(p: engine.FMProblem) -> None:
+def _refuse_extras(p) -> None:
     if p.has_extras:
         raise NotImplementedError(
             "covariance blocks on demand have no branch for scale bars, an "
             "inner-constraint datum or a populated direct group")
 
 
-def prepare(p: engine.FMProblem, state, spec):
+def _block_layout(p) -> bool:
+    """True for an `rcs.RCSProblem` (the block-layout engine), False for
+    an `engine.FMProblem`."""
+    if isinstance(p, rcs.RCSProblem):
+        return True
+    if isinstance(p, engine.FMProblem):
+        return False
+    raise TypeError(f"an engine.FMProblem or rcs.RCSProblem, not {type(p)}")
+
+
+def prepare(p, state, spec):
     """(blocks, Precond) at damping 0: the linearisation the covariance
-    functions read (`engine.prepare` with couple_global, which also sets
-    the blocks' extra_c).  The Precond is the coupled one where its
+    functions read, of the engine of ``p``'s type (`engine.prepare` with
+    couple_global, or `rcs.prepare` and `rcs.couple_preconditioner`; both
+    set the blocks' extra_c).  The Precond is the coupled one where its
     global Schur complement is positive definite, else block Jacobi."""
     _refuse_extras(p)
-    b, _rc, _rg, Minv = engine.prepare(p, state, spec, 0.0,
-                                       couple_global=True)
+    if _block_layout(p):
+        b, _rc, _rg, Minv = rcs.prepare(p, state, spec, 0.0)
+        Minv = rcs.couple_preconditioner(
+            lambda c, g: rcs.schur_matvec(p, b, c, g), Minv, p.num_images,
+            b.Jg.shape[2])
+    else:
+        b, _rc, _rg, Minv = engine.prepare(p, state, spec, 0.0,
+                                           couple_global=True)
     Sh = Minv.Sghat_inv
     if torch.linalg.cholesky_ex((Sh + Sh.T) / 2).info != 0:
         Minv = rcs.Precond(Minv_c=Minv.Minv_c, Minv_g=Minv.Minv_g)
@@ -83,9 +105,21 @@ def _global_rows_at(p: engine.FMProblem, b: engine.FMBlocks, lanes):
     return (loc * sel[None, :, None, :] * fg).reshape(2 * C * Gp, -1)
 
 
-def _coupling_columns(p: engine.FMProblem, b: engine.FMBlocks, point_ids):
+def _hinv_at(b, ids):
+    """The selected points' Hpp^{-1} blocks [k, 3, 3], either engine."""
+    if isinstance(b, rcs.Blocks):
+        return b.Hpp_inv[ids]
+    h = [r[ids] for r in b.Hpp_inv]
+    return torch.stack([torch.stack([h[0], h[1], h[2]], dim=1),
+                        torch.stack([h[1], h[3], h[4]], dim=1),
+                        torch.stack([h[2], h[4], h[5]], dim=1)], dim=1)
+
+
+def _coupling_columns(p, b, point_ids):
     """C[k] = Hxp[:, p_k] Hpp^{-1}[p_k] for the selected points, dense over
     the reduced axis: returns (Cc [k, M, 6, 3], Cg [k, G, 3])."""
+    if _block_layout(p):
+        return _coupling_columns_blocks(p, b, point_ids)
     ids = torch.as_tensor(point_ids, device=b.Jp[0].device).long()
     k, V, M = ids.shape[0], p.views, p.num_images
     lanes = engine.point_lanes(p, ids).reshape(-1)                # [k V]
@@ -107,13 +141,53 @@ def _coupling_columns(p: engine.FMProblem, b: engine.FMBlocks, point_ids):
     oh = (img[:, :, None] == torch.arange(M, device=ids.device)).to(Hcp.dtype)
     Cc = torch.einsum("kvm,kvea->kmea", oh, Hcp.reshape(k, V, 6, 3))
     Cg = Hgp.reshape(k, V, G, 3).sum(dim=1)
-    h = [r[ids] for r in b.Hpp_inv]
-    Hinv = torch.stack([torch.stack([h[0], h[1], h[2]], dim=1),
-                        torch.stack([h[1], h[3], h[4]], dim=1),
-                        torch.stack([h[2], h[4], h[5]], dim=1)], dim=1)
+    Hinv = _hinv_at(b, ids)
     Cc = torch.einsum("kmab,kbc->kmac", Cc, Hinv)
     Cg = torch.einsum("kab,kbc->kac", Cg, Hinv)
     return Cc, Cg
+
+
+def _coupling_columns_blocks(p: rcs.RCSProblem, b: rcs.Blocks, point_ids):
+    """`_coupling_columns` on the block layout: each selected point's own
+    observations (its segment of the point order, padded to the most
+    views among them with masked entries), the camera rows by a product
+    with their image one-hot (fixed order, no atomics)."""
+    ids = torch.as_tensor(point_ids, device=b.Jp.device).long()
+    order, counts = rcs.point_segments(p)
+    starts = torch.cumsum(counts, 0) - counts
+    n = counts[ids]
+    L = max(int(n.max()), 1)
+    j = torch.arange(L, device=ids.device)
+    live = j[None, :] < n[:, None]                              # [k, L]
+    obs = order[torch.where(live, starts[ids][:, None] + j, 0)]
+    mask = live.to(b.Jp.dtype)
+    Jp, Jc, Jg = (b.PJp[obs], b.Jc[obs], b.Jg[obs])             # [k, L, 2, .]
+    Hcp = torch.einsum("klie,klia->klea", Jc, Jp)               # [k, L, 6, 3]
+    Hgp = torch.einsum("klig,klia->klga", Jg, Jp)               # [k, L, G, 3]
+    oh = (p.obs_image.long()[obs][:, :, None]
+          == torch.arange(p.num_images, device=ids.device)).to(mask.dtype)
+    Cc = torch.einsum("klm,klea->kmea", oh * mask[:, :, None], Hcp)
+    Cg = torch.einsum("kl,klga->kga", mask, Hgp)
+    Hinv = _hinv_at(b, ids)
+    return (torch.einsum("kmab,kbc->kmac", Cc, Hinv),
+            torch.einsum("kab,kbc->kac", Cg, Hinv))
+
+
+def _matvec(p, b):
+    """The implicit S @ x of ``p``'s engine over a leading rhs axis."""
+    if _block_layout(p):
+        return lambda xc, xg: rcs.schur_matvec(p, b, xc, xg)
+    N = b.Jp[0].shape[0]
+
+    def matvec(xc, xg):
+        # chunked over the rhs axis: [r, N] temporaries within MATVEC_BYTES
+        chunk = max(1, int(MATVEC_BYTES / (40 * N * xc.element_size())))
+        outs = [engine.schur_matvec(p, b, xc[i:i + chunk], xg[i:i + chunk])
+                for i in range(0, xc.shape[0], chunk)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    return matvec
 
 
 def _apply_M_multi(Minv: rcs.Precond):
@@ -133,25 +207,17 @@ def _apply_M_multi(Minv: rcs.Precond):
     return apply_M
 
 
-def _pcg_multi(p: engine.FMProblem, b: engine.FMBlocks, Rc, Rg, Minv,
-               tol=1e-8, maxiter=400):
+def _pcg_multi(p, b, Rc, Rg, Minv, tol=1e-8, maxiter=400):
     """Batched PCG: solve S X = R for R right-hand sides at once.
 
     Rc [R, M, 6], Rg [R, G]; each rhs runs its own CG (per-rhs alpha and
-    beta) through one batched implicit matvec, chunked over the rhs axis
-    so that its [r, N] temporaries stay within `MATVEC_BYTES`.  ``Minv``
-    a `rcs.Precond`.  Stops when every rhs has |r| <= tol (1 + |r0|) or
-    after ``maxiter`` iterations; one host read per iteration.  Returns
-    (Xc, Xg, iterations)."""
-    N = b.Jp[0].shape[0]
-    chunk = max(1, int(MATVEC_BYTES / (40 * N * Rc.element_size())))
-
-    def matvec(xc, xg):
-        outs = [engine.schur_matvec(p, b, xc[i:i + chunk], xg[i:i + chunk])
-                for i in range(0, xc.shape[0], chunk)]
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
-
+    beta) through the engine's implicit matvec over the rhs axis
+    (`_matvec`; the feature-major one chunked so that its [r, N]
+    temporaries stay within `MATVEC_BYTES`).  ``Minv`` a `rcs.Precond`.
+    Stops when every rhs has |r| <= tol (1 + |r0|) or after ``maxiter``
+    iterations; one host read per iteration.  Returns (Xc, Xg,
+    iterations)."""
+    matvec = _matvec(p, b)
     apply_M = _apply_M_multi(Minv)
 
     def dot(ac, ag, bc, bg):  # per-rhs inner products [R]
@@ -197,8 +263,7 @@ def _solve_columns(p, b, Minv, Cc, Cg, tol, maxiter, stats):
             Xg.reshape(k, 3, -1).permute(0, 2, 1))
 
 
-def point_covariance_blocks(p: engine.FMProblem, b: engine.FMBlocks,
-                            Minv: rcs.Precond, point_ids, tol=1e-8,
+def point_covariance_blocks(p, b, Minv: rcs.Precond, point_ids, tol=1e-8,
                             maxiter=400, stats: dict | None = None):
     """Exact 3x3 posterior cofactor blocks of the selected points: returns
     Q [k, 3, 3] (unscaled cofactor; multiply by the a-posteriori variance
@@ -210,15 +275,10 @@ def point_covariance_blocks(p: engine.FMProblem, b: engine.FMBlocks,
     corr = (torch.einsum("kmab,kmac->kbc", Cc, Xc)
             + torch.einsum("kab,kac->kbc", Cg, Xg))
     ids = torch.as_tensor(point_ids, device=Cc.device).long()
-    h = [r[ids] for r in b.Hpp_inv]
-    Hinv = torch.stack([torch.stack([h[0], h[1], h[2]], dim=1),
-                        torch.stack([h[1], h[3], h[4]], dim=1),
-                        torch.stack([h[2], h[4], h[5]], dim=1)], dim=1)
-    return Hinv + corr
+    return _hinv_at(b, ids) + corr
 
 
-def point_pair_covariance_blocks(p: engine.FMProblem, b: engine.FMBlocks,
-                                 Minv: rcs.Precond, pairs, tol=1e-8,
+def point_pair_covariance_blocks(p, b, Minv: rcs.Precond, pairs, tol=1e-8,
                                  maxiter=400, stats: dict | None = None):
     """Exact 3x3 cross-point posterior cofactor blocks Q[p, q] =
     C_p^T S^{-1} C_q for the given (p, q) pairs [k, 2] (p != q: Hpp is
@@ -232,8 +292,7 @@ def point_pair_covariance_blocks(p: engine.FMProblem, b: engine.FMBlocks,
             + torch.einsum("kab,kac->kbc", Cp_g, Xg))
 
 
-def camera_covariance_blocks(p: engine.FMProblem, b: engine.FMBlocks,
-                             Minv: rcs.Precond, image_ids, tol=1e-8,
+def camera_covariance_blocks(p, b, Minv: rcs.Precond, image_ids, tol=1e-8,
                              maxiter=400, stats: dict | None = None):
     """Exact 6x6 posterior cofactor blocks of the selected images' EO: the
     rows of S^{-1} at each image's 6 columns, by unit right-hand sides.

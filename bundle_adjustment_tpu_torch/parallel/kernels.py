@@ -283,9 +283,10 @@ cam_gather_rows.launches = 0
 
 
 def make_cam_gather(p):
-    """fn(tbl [M, c<=8]) -> [8, N] over an FMProblem's images, in its lane
-    order (point-major or view-major: the gather is an indexed load per
-    observation)."""
+    """fn(tbl [M, c<=8]) -> [8, N] over a problem's observations, in their
+    order: an FMProblem in either lane layout or an RCSProblem in either
+    layout (`rcs.LAYOUTS`); the gather is an indexed load per
+    observation."""
     obs_img = p.obs_image.to(torch.int32).contiguous()
 
     def gather(tbl):

@@ -1,16 +1,37 @@
-"""Reduced camera system pieces of the large-scale solver (PyTorch port of
-`bundle_adjustment_tpu/parallel/rcs.py`, the subset the feature-major
-engine uses): the problem container, the blocked image layout, the
-(coupled) block preconditioner, PCG on the implicit Schur complement and
-the state update.
+"""Reduced camera system of the large-scale solver (PyTorch port of
+`bundle_adjustment_tpu/parallel/rcs.py`): the problem container and its
+two layouts, the block-layout engine, the (coupled) block preconditioner,
+PCG on the implicit Schur complement and the state update.
 
 Eliminating the points from the bundle normal equations gives the reduced
 system over x = (cameras, globals)
 
     S x = rhs,   S = Hxx - Hxp Hpp^{-1} Hpx,   rhs = bx - Hxp Hpp^{-1} bp
 
-whose product is computed implicitly from per-observation rows
-(`engine.schur_matvec`, or the K1 kernel) and solved by PCG.
+whose product is computed implicitly from per-observation Jacobian blocks
+and solved by PCG.
+
+Layouts of the observations (`rcs_from_problem(layout=...)`):
+
+* ``"point_major"``: every point padded to the views of the most-viewed
+  one (zero-weight pad rows), ``point_uniform`` = that count: the layout
+  of the feature-major engine (`engine.py`) and of the CUDA kernels K1
+  and K2.  P x Vmax rows.
+* ``"file"``: the observations as given (`compile_problem` or file
+  order), any number of views per point, ``point_uniform`` None: the
+  layout of the block-layout engine below (`linearize` .. `lm_step_full`).
+  N rows.
+
+The block-layout engine holds per-observation blocks [N, 2, k] (`Blocks`)
+and sums them per point and per image in a fixed order, with no atomics
+on CUDA: per point by a point-sorted permutation made once on the host
+(``point_order`` / ``point_counts``) and `torch.segment_reduce` (one
+sequential sum per point), per image by the blocked image layout
+(``img_perm``: 512-row block sums, then a cumsum difference).  The EO
+gathers of `linearize` and `back_substitute_points` can go through the
+K3 kernel (``cam_gather=``, `kernels.make_cam_gather`).  JAX's dense
+visibility tables (``point2obs`` / ``img2obs``) are not ported: they
+bring back P x Vmax index memory.
 """
 
 from __future__ import annotations
@@ -73,6 +94,11 @@ class RCSProblem(NamedTuple):
     dpg_axis: object = None  # [n] int32 axis (0/1/2)
     dpg_val: object = None   # [n] observed values
     dpg_cov: object = None   # [n, n]
+    # file-order layout (point_uniform None): the observations sorted
+    # stably by point, and each point's count (`point_segments`), made
+    # once on the host; None = computed at each per-point sum
+    point_order: object = None   # [N] int64
+    point_counts: object = None  # [P] int64
 
     @property
     def has_extras(self) -> bool:
@@ -145,14 +171,53 @@ def point_major_layout(obs_point, num_points) -> PointMajor:
     return PointMajor(src=src, live=real.reshape(-1), views=V)
 
 
-def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
+#: the observation layouts of `rcs_from_problem` (module docstring)
+LAYOUTS = ("file", "point_major")
+
+
+def choose_layout(obs_point, num_points) -> str:
+    """The layout rule of ``layout=None``: ``"point_major"`` where padding
+    every point to the most views any point has costs at most twice the
+    rows (P x Vmax <= 2 N), else ``"file"``."""
+    counts = np.bincount(np.asarray(obs_point, np.int64),
+                         minlength=int(num_points))
+    vmax = max(int(counts.max()) if counts.size else 0, 1)
+    n = int(np.asarray(obs_point).shape[0])
+    return "point_major" if int(num_points) * vmax <= 2 * n else "file"
+
+
+def point_order(obs_point, num_points):
+    """Host-side: (order [N] int64, the observations sorted stably by
+    point; counts [P] int64, each point's observations), numpy."""
+    obs_point = np.asarray(obs_point, np.int64)
+    return (np.argsort(obs_point, kind="stable"),
+            np.bincount(obs_point, minlength=int(num_points)))
+
+
+def check_layout(layout):
+    """Raise ValueError for a layout that is not one of `LAYOUTS`."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS} or None, "
+                         f"not {layout!r}")
+
+
+def rcs_from_problem(bp, device, dtype=torch.float64,
+                     layout: str | None = None) -> RCSProblem:
     """The tensor RCSProblem of a compiled dense `models.problem.BundleProblem`
-    on ``device``, in the layout the feature-major engine reads: observations
-    point-major with a uniform V = the most views any point has, each point's
-    own observations first (in their order), then zero-weight pad rows that
-    repeat its first observation (image 0 at (0, 0) for a point no image
-    sees); and the blocked image layout.  Zero weights null every pad row's
-    contribution, so the sums are those of the observations alone.
+    on ``device``, in one of the `LAYOUTS` (None: `choose_layout`).
+
+    ``"file"``: the JAX `rcs.rcs_from_problem` layout (without its dense
+    visibility tables): the observations in `compile_problem` order,
+    ``point_uniform`` None, the point order (`point_order`) and the
+    blocked image layout; the block-layout engine reads it.
+
+    ``"point_major"``: the layout the feature-major engine reads:
+    observations point-major with a uniform V = the most views any point
+    has, each point's own observations first (in their order), then
+    zero-weight pad rows that repeat its first observation (image 0 at
+    (0, 0) for a point no image sees); and the blocked image layout.  Zero
+    weights null every pad row's contribution, so the sums are those of
+    the observations alone.
 
     Carried over as in the JAX `rcs.rcs_from_problem`: scale bars, the
     inner-constraint datum (``datum_mask_d`` = the problem's datum points,
@@ -162,6 +227,9 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
     distortion parameters raises ValueError, as in the reference."""
     P, M, C = bp.num_points, bp.num_images, bp.num_cameras
     K = bp.spec.num_coefficients
+    if layout is None:
+        layout = choose_layout(bp.obs_point, P)
+    check_layout(layout)
 
     def idx(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
@@ -169,15 +237,6 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
     def flt(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=device,
                                dtype=dtype)
-
-    pm = point_major_layout(bp.obs_point, P)
-    obs_image = pm.gather(bp.obs_image, 0).astype(np.int32)
-    var = flt(pm.gather(bp.obs_var, 1.0))
-    w2 = image_weight_2x2(var[:, 0], var[:, 1],
-                          flt(pm.gather(bp.obs_rho, 0.0)), bp.sigma2_apriori)
-    w2 = w2 * flt(pm.live)[:, None, None]
-    img_perm, img_bstarts = build_image_block_layout(obs_image, M)
-    V = pm.views
 
     free_global = np.concatenate(
         [np.concatenate([bp.col_io[c] >= 0, bp.col_dist[c] >= 0])
@@ -192,15 +251,67 @@ def rcs_from_problem(bp, device, dtype=torch.float64) -> RCSProblem:
                       defect_flags_d=tuple(bool(f) for f in bp.defect_flags))
     if bp.direct_groups:
         fields.update(_direct_fields(bp, C, K, idx, flt))
+    common = dict(
+        r0=flt(bp.r0), num_points=P, num_images=M,
+        free_point=flt(bp.col_points >= 0), free_eo=flt(bp.col_eo >= 0),
+        free_global=flt(free_global), cam_of_image=idx(bp.cam_of_image),
+        **fields)
 
+    if layout == "file":
+        w2 = image_weight_2x2(flt(bp.obs_var[:, 0]), flt(bp.obs_var[:, 1]),
+                              flt(bp.obs_rho), bp.sigma2_apriori)
+        img_perm, img_bstarts = build_image_block_layout(bp.obs_image, M)
+        order, counts = point_order(bp.obs_point, P)
+        return RCSProblem(
+            obs_point=idx(bp.obs_point), obs_image=idx(bp.obs_image),
+            obs_xy=flt(bp.obs_xy), obs_weight=w2,
+            img_perm=idx(img_perm), img_block_starts=idx(img_bstarts),
+            point_uniform=None,
+            point_order=torch.as_tensor(order, device=device),
+            point_counts=torch.as_tensor(counts, device=device), **common)
+
+    pm = point_major_layout(bp.obs_point, P)
+    obs_image = pm.gather(bp.obs_image, 0).astype(np.int32)
+    var = flt(pm.gather(bp.obs_var, 1.0))
+    w2 = image_weight_2x2(var[:, 0], var[:, 1],
+                          flt(pm.gather(bp.obs_rho, 0.0)), bp.sigma2_apriori)
+    w2 = w2 * flt(pm.live)[:, None, None]
+    img_perm, img_bstarts = build_image_block_layout(obs_image, M)
+    V = pm.views
     return RCSProblem(
         obs_point=idx(np.repeat(np.arange(P), V)), obs_image=idx(obs_image),
-        obs_xy=flt(pm.gather(bp.obs_xy, 0.0)), obs_weight=w2, r0=flt(bp.r0),
-        num_points=P, num_images=M,
-        free_point=flt(bp.col_points >= 0), free_eo=flt(bp.col_eo >= 0),
-        free_global=flt(free_global),
+        obs_xy=flt(pm.gather(bp.obs_xy, 0.0)), obs_weight=w2,
         img_perm=idx(img_perm), img_block_starts=idx(img_bstarts),
-        point_uniform=V, cam_of_image=idx(bp.cam_of_image), **fields)
+        point_uniform=V, **common)
+
+
+def to_point_major(problem: RCSProblem) -> RCSProblem:
+    """A file-order tensor RCSProblem re-laid point-major and padded
+    (`point_major_layout`: pad rows repeat the point's first observation,
+    with zero weight), with its blocked image layout: the same network in
+    the layout the feature-major engine reads.  Per-point and per-image
+    fields are unchanged.  No entry point calls it: padding a file-order
+    problem is the caller's choice."""
+    if problem.point_uniform is not None:
+        raise ValueError("the problem is point-major already")
+    dev = problem.obs_xy.device
+    P, M = problem.num_points, problem.num_images
+    pm = point_major_layout(problem.obs_point.cpu().numpy(), P)
+    src = torch.as_tensor(np.maximum(pm.src, 0), device=dev)
+    live = torch.as_tensor(pm.live, device=dev)
+    seen = torch.as_tensor(pm.src >= 0, device=dev)
+    obs_image = torch.where(seen, problem.obs_image[src], 0).to(torch.int32)
+    img_perm, img_bstarts = build_image_block_layout(obs_image.cpu().numpy(),
+                                                     M)
+    w = problem.obs_weight[src] * live.to(problem.obs_weight.dtype)[
+        :, None, None]
+    return problem._replace(
+        obs_point=torch.arange(P, dtype=torch.int32, device=dev)
+        .repeat_interleave(pm.views),
+        obs_image=obs_image, obs_xy=problem.obs_xy[src], obs_weight=w,
+        img_perm=torch.as_tensor(img_perm, device=dev),
+        img_block_starts=torch.as_tensor(img_bstarts, device=dev),
+        point_uniform=pm.views, point_order=None, point_counts=None)
 
 
 def _direct_fields(bp, C, K, idx, flt) -> dict:
@@ -283,6 +394,30 @@ def _psum(comm, x):
     return x if comm is None else comm.psum(x)
 
 
+#: apply the preconditioner blocks with elementwise multiply-sums instead
+#: of einsums (`exact_preconditioner`); off by default
+_EXACT_APPLY = False
+
+
+class exact_preconditioner:
+    """Context manager: the preconditioners built and applied inside it
+    (`finish_coupling`, `make_apply_M`) take elementwise multiply-sums
+    instead of einsums, as the JAX context manager of the same name does
+    (there it avoids the TPU's bf16 matmul passes; here it only fixes
+    the order of the small sums)."""
+
+    def __enter__(self):
+        global _EXACT_APPLY
+        self._old = _EXACT_APPLY
+        _EXACT_APPLY = True
+        return self
+
+    def __exit__(self, *exc):
+        global _EXACT_APPLY
+        _EXACT_APPLY = self._old
+        return False
+
+
 def finish_coupling(Minv: Precond, Scg, Sgg, comm_cam=None) -> Precond:
     """Complete a coupled `Precond` from the exact Scg [M, 6, G] and Sgg
     [G, G] blocks: W = D^{-1} Scg and the inverse of the global Schur
@@ -290,8 +425,13 @@ def finish_coupling(Minv: Precond, Scg, Sgg, comm_cam=None) -> Precond:
     `sharding.Comm` when the camera rows are sharded over its ranks
     (tensor-parallel mode): the sum over images is psum-ed, so every rank
     holds the same Sghat^{-1}."""
-    W = torch.einsum("mab,mbg->mag", Minv.Minv_c, Scg)
-    corr = _psum(comm_cam, torch.einsum("mag,mah->gh", Scg, W))
+    if _EXACT_APPLY:
+        W = (Minv.Minv_c[:, :, :, None] * Scg[:, None, :, :]).sum(dim=2)
+        corr = _psum(comm_cam, (Scg[:, :, :, None]
+                                * W[:, :, None, :]).sum(dim=(0, 1)))
+    else:
+        W = torch.einsum("mab,mbg->mag", Minv.Minv_c, Scg)
+        corr = _psum(comm_cam, torch.einsum("mag,mah->gh", Scg, W))
     return Minv._replace(Scg=Scg, W=W,
                          Sghat_inv=torch.linalg.inv_ex(Sgg - corr)[0])
 
@@ -304,7 +444,18 @@ def make_apply_M(Minv: Precond, comm_cam=None):
     form's Scg^T u is psum-ed)."""
     if callable(Minv):
         return Minv
-    if Minv.Scg is not None:
+    if _EXACT_APPLY and Minv.Scg is not None:
+        def apply_M(rc_, rg_):
+            u = (Minv.Minv_c * rc_[:, None, :]).sum(dim=2)
+            zg = Minv.Sghat_inv @ (rg_ - _psum(
+                comm_cam, (Minv.Scg * u[:, :, None]).sum(dim=(0, 1))))
+            zc = u - (Minv.W * zg[None, None, :]).sum(dim=2)
+            return zc, zg
+    elif _EXACT_APPLY:
+        def apply_M(rc_, rg_):
+            return ((Minv.Minv_c * rc_[:, None, :]).sum(dim=2),
+                    Minv.Minv_g @ rg_)
+    elif Minv.Scg is not None:
         def apply_M(rc_, rg_):
             u = torch.einsum("mab,mb->ma", Minv.Minv_c, rc_)
             zg = Minv.Sghat_inv @ (rg_ - _psum(
@@ -374,6 +525,446 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
         best = min(best, rnorm)
         it += 1
     return bxc, bxg, it
+
+
+# ---------------------------------------------------------------------------
+# the block-layout engine
+# ---------------------------------------------------------------------------
+
+class Blocks(NamedTuple):
+    """Linearisation of the block-layout engine: per-observation blocks
+    [N, 2, k] and the per-point / per-image / global sums."""
+
+    Jp: torch.Tensor       # [N, 2, 3]
+    Jc: torch.Tensor       # [N, 2, 6]
+    Jg: torch.Tensor       # [N, 2, G] (masked per camera where C > 1)
+    PJp: torch.Tensor      # [N, 2, 3]  P-weighted blocks
+    PJc: torch.Tensor      # [N, 2, 6]
+    PJg: torch.Tensor      # [N, 2, G]
+    P2: torch.Tensor       # [N, 2, 2]
+    w: torch.Tensor        # [N, 2]
+    Hpp_inv: torch.Tensor  # [P, 3, 3]
+    bp: torch.Tensor       # [P, 3]
+    bc: torch.Tensor       # [M, 6]
+    bg: torch.Tensor       # [G]
+    extra_c: torch.Tensor  # [M, 6] diagonal damping / fixed additions
+    extra_g: torch.Tensor  # [G]
+    omega0: torch.Tensor   # scalar: w^T P w at the linearisation point
+    # misclosures of directly observed parameters (None when absent)
+    w_dp: torch.Tensor | None = None  # [P, 3]
+    w_de: torch.Tensor | None = None  # [M, 6]
+    w_dg: torch.Tensor | None = None  # [G]
+
+
+def point_segments(p: RCSProblem):
+    """(order [N], counts [P]) int64 tensors of the per-point sums: the
+    problem's ``point_order`` / ``point_counts``, else computed from
+    ``obs_point`` (a stable sort on the device)."""
+    if p.point_order is not None:
+        return p.point_order, p.point_counts
+    ids = p.obs_point.long()
+    return (torch.argsort(ids, stable=True),
+            torch.bincount(ids, minlength=p.num_points))
+
+
+def _sorted_sum(x, order, counts):
+    """Segment sums of x [N, ...] over the segments of a sorted order:
+    one sequential sum per segment (`torch.segment_reduce`), the same
+    bits on every run; an empty segment sums to 0."""
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+
+
+def _seg_point(p: RCSProblem, x):
+    """Sum per point of x [N, ...]: a reshape in the uniform point-major
+    layout, else the point-sorted segment sums."""
+    if p.point_uniform is not None:
+        return x.reshape((p.num_points, p.point_uniform)
+                         + tuple(x.shape[1:])).sum(dim=1)
+    return _sorted_sum(x, *point_segments(p))
+
+
+def _expand_point(p: RCSProblem, z):
+    """Per-point values z [P, ...] gathered back to the observations."""
+    if p.point_uniform is not None:
+        return z.repeat_interleave(p.point_uniform, dim=0)
+    return z[p.obs_point.long()]
+
+
+def _seg_image(p: RCSProblem, x):
+    """Sum per image of x [N, ...]: the blocked image layout (one row
+    gather into image-sorted order, 512-row block sums, a cumsum
+    difference over the block boundaries), else image-sorted segment
+    sums."""
+    if p.img_perm is None:
+        ids = p.obs_image.long()
+        return _sorted_sum(x, torch.argsort(ids, stable=True),
+                           torch.bincount(ids, minlength=p.num_images))
+    flat = x.reshape(x.shape[0], -1)
+    xp = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+    xi = xp[p.img_perm.long()]
+    bl = xi.reshape(xi.shape[0] // IMG_BLOCK, IMG_BLOCK, -1).sum(dim=1)
+    cs = torch.cat([bl.new_zeros((1, bl.shape[1])), torch.cumsum(bl, dim=0)])
+    bs = p.img_block_starts.long()
+    out = cs[bs[1:]] - cs[bs[:-1]]
+    return out.reshape((p.num_images,) + tuple(x.shape[1:]))
+
+
+# products of the [N, 2, k] blocks, written out over the 2 rows (no
+# batched matmul of 2 x k tiles)
+
+def _wmul(P2, J):
+    """P J per observation: [N, 2, 2] x [N, 2, k] -> [N, 2, k]."""
+    return P2[:, :, 0, None] * J[:, None, 0, :] \
+        + P2[:, :, 1, None] * J[:, None, 1, :]
+
+
+def _tt(A, B):
+    """A^T B per observation: [N, 2, a] x [N, 2, b] -> [N, a, b]."""
+    return A[:, 0, :, None] * B[:, 0, None, :] \
+        + A[:, 1, :, None] * B[:, 1, None, :]
+
+
+def _tv(A, v):
+    """A^T v per observation: [N, 2, a] x [N, 2] -> [N, a]."""
+    return A[:, 0, :] * v[:, 0, None] + A[:, 1, :] * v[:, 1, None]
+
+
+def _mv(A, x):
+    """A x per observation: [N, 2, a] x [N, a] -> [N, 2]."""
+    return (A * x[:, None, :]).sum(dim=2)
+
+
+def _hv(H, v):
+    """H v per point: [P, 3, 3] x [..., P, 3] -> [..., P, 3]."""
+    return (H * v[..., None, :]).sum(dim=-1)
+
+
+def _cam_rows(p: RCSProblem, tbl, cam_gather=None):
+    """tbl [M, 6] at each observation's image: [N, 6] (``cam_gather``:
+    the K3 wrapper, whose [8, N] rows are read as [N, 6])."""
+    if cam_gather is not None:
+        return cam_gather(tbl)[:6].T
+    return tbl[p.obs_image.long()]
+
+
+def _cameras(p: RCSProblem):
+    """The camera of each image [M] int64 (all 0 where not given)."""
+    if p.cam_of_image is not None:
+        return p.cam_of_image.long()
+    return torch.zeros(p.num_images, dtype=torch.int64,
+                       device=p.obs_image.device)
+
+
+def linearize(problem: RCSProblem, state: ParamState, spec, damping,
+              skip_image_reductions: bool = False,
+              cam_gather=None) -> Blocks:
+    """Jacobian blocks, misclosures, point blocks (Hpp^{-1}, bp), the
+    per-image (bc, extra_c) and global (bg, extra_g) sums at ``state``,
+    any layout.  ``skip_image_reductions``: leave bc / extra_c zero
+    (`prepare` makes them in its fused reduction).  ``cam_gather``:
+    fn(tbl [M, c<=8]) -> [8, N] for the EO rows and the EO masks (the K3
+    wrapper, `kernels.make_cam_gather`; f32 CUDA)."""
+    from ..ops import analytic
+    from ..ops.residuals import image_point_jacobian, predict_image_point
+
+    p = problem
+    obs_point = p.obs_point.long()
+    cams = _cameras(p)[p.obs_image.long()]
+    local = torch.cat([state.points[obs_point], state.io[cams],
+                       _cam_rows(p, state.eo, cam_gather),
+                       state.dist[cams]], dim=1)
+    r0 = p.r0[cams]
+    if analytic.supports_spec(spec):
+        J, w = analytic.analytic_image_jacobian_and_residual(
+            local, p.obs_xy, spec, r0)
+    else:
+        J = image_point_jacobian(local, spec, r0)
+        w = p.obs_xy - predict_image_point(local, spec, r0)
+    P2 = p.obs_weight
+
+    # fixed parameters: mask the Jacobian columns
+    Jp = J[:, :, 0:3] * p.free_point[obs_point][:, None, :]
+    Jc = J[:, :, 6:12] * _cam_rows(p, p.free_eo, cam_gather)[:, None, :]
+
+    C = state.io.shape[0]
+    Gpc = J.shape[2] - 9     # 3 + K
+    Jg = torch.cat([J[:, :, 3:6], J[:, :, 12:]], dim=2)   # [N, 2, Gpc]
+    if C > 1:
+        # the masked [N, 2, C Gpc] rows: each observation's camera slot
+        sel = (cams[:, None] == torch.arange(C, device=cams.device)) \
+            .to(J.dtype)
+        Jg = (Jg[:, :, None, :] * sel[:, None, :, None]).reshape(
+            J.shape[0], 2, C * Gpc)
+    Jg = Jg * p.free_global
+
+    Pw = (P2 * w[:, None, :]).sum(dim=2)
+    omega0 = torch.sum(w * Pw)
+    PJp, PJc, PJg = _wmul(P2, Jp), _wmul(P2, Jc), _wmul(P2, Jg)
+
+    Hpp = _seg_point(p, _tt(Jp, PJp))
+    extra_p = damping * torch.diagonal(Hpp, dim1=1, dim2=2) \
+        + (1.0 - p.free_point)
+    bp = _seg_point(p, _tv(Jp, Pw))
+
+    # directly observed point coordinates (diagonal weights): W joins the
+    # damped diagonal and W (obs - x) the rhs
+    w_dp = w_de = w_dg = None
+    if p.dp_w is not None:
+        w_dp = p.dp_val - state.points
+        wp = p.dp_w * p.free_point
+        extra_p = extra_p + wp * (1.0 + damping)
+        bp = bp + wp * w_dp
+        omega0 = omega0 + torch.sum(p.dp_w * w_dp * w_dp)
+    Hpp_inv = torch.linalg.inv_ex(Hpp + torch.diag_embed(extra_p))[0]
+
+    M_ = p.num_images
+    if skip_image_reductions:
+        extra_c = J.new_zeros((M_, 6))
+        bc = J.new_zeros((M_, 6))
+    else:
+        red = _seg_image(p, torch.cat([(Jc * PJc).sum(dim=1),
+                                       _tv(Jc, Pw)], dim=1))
+        extra_c = damping * red[:, :6] + (1.0 - p.free_eo)
+        bc = red[:, 6:]
+        if p.de_w is not None:
+            we = p.de_w * p.free_eo
+            extra_c = extra_c + we * (1.0 + damping)
+            bc = bc + we * (p.de_val - state.eo)
+    if p.de_w is not None:
+        w_de = p.de_val - state.eo
+        omega0 = omega0 + torch.sum(p.de_w * w_de * w_de)
+
+    extra_g = damping * (Jg * PJg).sum(dim=(0, 1)) + (1.0 - p.free_global)
+    bg = _tv(Jg, Pw).sum(dim=0)
+    if p.dg_w is not None:
+        w_dg = p.dg_val - torch.cat([state.io, state.dist], dim=1).reshape(-1)
+        wg = p.dg_w * p.free_global
+        extra_g = extra_g + wg * (1.0 + damping)
+        bg = bg + wg * w_dg
+        omega0 = omega0 + torch.sum(p.dg_w * w_dg * w_dg)
+
+    return Blocks(Jp=Jp, Jc=Jc, Jg=Jg, PJp=PJp, PJc=PJc, PJg=PJg, P2=P2, w=w,
+                  Hpp_inv=Hpp_inv, bp=bp, bc=bc, bg=bg, extra_c=extra_c,
+                  extra_g=extra_g, omega0=omega0,
+                  w_dp=w_dp, w_de=w_de, w_dg=w_dg)
+
+
+def _hpx(p: RCSProblem, b: Blocks, xc, xg, cam_gather=None):
+    """(Hpx [xc; xg] per point [P, 3], t = P (Jc xc + Jg xg) [N, 2])."""
+    t = _mv(b.PJc, _cam_rows(p, xc, cam_gather)) + b.PJg @ xg
+    return _seg_point(p, _tv(b.Jp, t)), t
+
+
+def _one_schur_matvec(p: RCSProblem, b: Blocks, xc, xg):
+    y, t = _hpx(p, b, xc, xg)
+    tv = t - _mv(b.PJp, _expand_point(p, _hv(b.Hpp_inv, y)))
+    return (_seg_image(p, _tv(b.Jc, tv)) + b.extra_c * xc,
+            _tv(b.Jg, tv).sum(dim=0) + b.extra_g * xg)
+
+
+def schur_matvec(p: RCSProblem, b: Blocks, xc, xg):
+    """Implicit S @ [xc; xg]: O(N) per product, S never formed.  A leading
+    axis of xc [..., M, 6] / xg [..., G] runs one product per right-hand
+    side."""
+    if xc.dim() == 2:
+        return _one_schur_matvec(p, b, xc, xg)
+    outs = [schur_matvec(p, b, c, g) for c, g in zip(xc, xg)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def reduced_rhs(p: RCSProblem, b: Blocks):
+    """rhs = bx - Hxp Hpp^{-1} bp: (rc [M, 6], rg [G])."""
+    u0 = _mv(b.PJp, _expand_point(p, _hv(b.Hpp_inv, b.bp)))
+    return (b.bc - _seg_image(p, _tv(b.Jc, u0)),
+            b.bg - _tv(b.Jg, u0).sum(dim=0))
+
+
+def _scc_terms(p: RCSProblem, b: Blocks):
+    """Per-observation terms [N, 6, 6] of the exact camera blocks of S:
+    Jc^T P Jc - Hcp Hpp^{-1}[pt] Hpc (one observation per point and
+    image makes the per-image sum exact)."""
+    Hpc = _tt(b.Jp, b.PJc)                                   # [N, 3, 6]
+    corr = Hpc.transpose(1, 2) @ (_expand_point(p, b.Hpp_inv) @ Hpc)
+    return _tt(b.Jc, b.PJc) - corr
+
+
+def camera_block_preconditioner(p: RCSProblem, b: Blocks):
+    """The exact 6x6 camera blocks of S, inverted: [M, 6, 6]."""
+    Scc = _seg_image(p, _scc_terms(p, b)) + torch.diag_embed(b.extra_c)
+    return torch.linalg.inv_ex(Scc)[0]
+
+
+def couple_preconditioner(matvec, Minv: Precond, num_images: int, G: int,
+                          dtype=None) -> Precond:
+    """Upgrade a block `Precond` with the exact camera-global blocks: Scg
+    [M, 6, G] and Sgg [G, G] from the G products S @ [0; e_g] of
+    ``matvec`` (G is small: 3 + K per camera), then `finish_coupling`.
+    ``dtype``: that of the unit vectors (default: the preconditioner's)."""
+    dt = Minv.Minv_c.dtype if dtype is None else dtype
+    dev = Minv.Minv_c.device
+    cols_c, cols_g = [], []
+    for g in range(G):
+        eg = torch.zeros(G, dtype=dt, device=dev)
+        eg[g] = 1.0
+        sc, sg = matvec(torch.zeros((num_images, 6), dtype=dt, device=dev),
+                        eg)
+        cols_c.append(sc)
+        cols_g.append(sg)
+    return finish_coupling(Minv, torch.stack(cols_c, dim=2),
+                           torch.stack(cols_g, dim=1))
+
+
+def global_block_preconditioner(p: RCSProblem, b: Blocks):
+    """The exact global block of S, inverted: Sgg = Hgg - Hgp Hpp^{-1} Hpg
+    with Hpg summed per point."""
+    G = b.Jg.shape[2]
+    Hgg = b.Jg.reshape(-1, G).T @ b.PJg.reshape(-1, G) + torch.diag(b.extra_g)
+    Hpg = _seg_point(p, _tt(b.Jp, b.PJg))                    # [P, 3, G]
+    W = b.Hpp_inv @ Hpg
+    return torch.linalg.inv_ex(
+        Hgg - Hpg.reshape(-1, G).T @ W.reshape(-1, G))[0]
+
+
+def back_substitute_points(p: RCSProblem, b: Blocks, xc, xg,
+                           cam_gather=None):
+    """dx_p = Hpp^{-1} (bp - Hpx x): [P, 3]."""
+    return _hv(b.Hpp_inv, b.bp - _hpx(p, b, xc, xg, cam_gather)[0])
+
+
+def omega_at(p: RCSProblem, b: Blocks, dxp, dxc, dxg):
+    """Omega(dx) = sum (w - J dx)^T P (w - J dx) at the linearisation
+    point (getOmega semantics, BundleAdjustment.java:472-491)."""
+    v = b.w - (_mv(b.Jp, dxp[p.obs_point.long()])
+               + _mv(b.Jc, dxc[p.obs_image.long()]) + b.Jg @ dxg)
+    return torch.sum(v * (b.P2 * v[:, None, :]).sum(dim=2))
+
+
+def prepare(problem: RCSProblem, state: ParamState, spec, damping,
+            cam_gather=None):
+    """Linearise and build what the PCG needs, with every per-image
+    reduction fused into one [N, 54] pass: [bc | Hcc diagonal | Hxp
+    Hpp^{-1} bp | Scc blocks].  The preconditioner is block Jacobi: the
+    exact camera blocks and the exact global block.
+    Returns (blocks, rc, rg, Precond)."""
+    p = problem
+    b = linearize(p, state, spec, damping, skip_image_reductions=True,
+                  cam_gather=cam_gather)
+    u0 = _mv(b.PJp, _expand_point(p, _hv(b.Hpp_inv, b.bp)))
+    Pw = (b.P2 * b.w[:, None, :]).sum(dim=2)
+    big = torch.cat([_tv(b.Jc, Pw), (b.Jc * b.PJc).sum(dim=1), _tv(b.Jc, u0),
+                     _scc_terms(p, b).reshape(-1, 36)], dim=1)
+    red = _seg_image(p, big)                                 # [M, 54]
+
+    bc = red[:, :6]
+    extra_c = damping * red[:, 6:12] + (1.0 - p.free_eo)
+    if p.de_w is not None:
+        we = p.de_w * p.free_eo
+        bc = bc + we * (p.de_val - state.eo)
+        extra_c = extra_c + we * (1.0 + damping)
+    rc = bc - red[:, 12:18]
+    Scc = red[:, 18:].reshape(p.num_images, 6, 6) + torch.diag_embed(extra_c)
+    b = b._replace(bc=bc, extra_c=extra_c)
+    rg = b.bg - _tv(b.Jg, u0).sum(dim=0)
+    Minv = Precond(Minv_c=torch.linalg.inv_ex(Scc)[0],
+                   Minv_g=global_block_preconditioner(p, b))
+    return b, rc, rg, Minv
+
+
+def point_ops(p: RCSProblem, b: Blocks, cam_gather=None):
+    """The point-block closures `freenet` takes (`engine.PointOps`), on the
+    block layout.  ``hinv`` takes a leading batch axis."""
+    from .engine import PointOps
+
+    def hinv(v):
+        return _hv(b.Hpp_inv, v)
+
+    def hinv_at(idx):
+        return b.Hpp_inv[idx]
+
+    def hxp(v):
+        u = _mv(b.PJp, _expand_point(p, v))
+        return _seg_image(p, _tv(b.Jc, u)), _tv(b.Jg, u).sum(dim=0)
+
+    def hpx(xc, xg):
+        return _hpx(p, b, xc, xg, cam_gather)[0]
+
+    return PointOps(hinv=hinv, hinv_at=hinv_at, hxp=hxp, hpx=hpx)
+
+
+def omega_at_full(p: RCSProblem, b: Blocks, ext, dxp, dxc, dxg):
+    """Omega(dx) including the scale-bar and direct-group rows (``ext``, a
+    `freenet.Extras` or None) and the diagonal direct observations."""
+    from . import freenet
+
+    om = omega_at(p, b, dxp, dxc, dxg)
+    if ext is not None:
+        om = om + freenet.omega_extras(p, ext, dxp)
+    if b.w_dp is not None:
+        v = b.w_dp - dxp
+        om = om + torch.sum(p.dp_w * v * v)
+    if b.w_de is not None:
+        v = b.w_de - dxc
+        om = om + torch.sum(p.de_w * v * v)
+    if b.w_dg is not None:
+        v = b.w_dg - dxg
+        om = om + torch.sum(p.dg_w * v * v)
+    return om
+
+
+def lm_step_full(problem: RCSProblem, state: ParamState, spec, damping,
+                 cg_tol=1e-10, cg_maxiter=200, matvec_factory=None,
+                 cam_gather=None, stall_limit=None):
+    """`lm_step` with scale bars, the inner-constraint datum and populated
+    direct groups: the exact low-rank corrections of `freenet` around the
+    block-layout step.  ``matvec_factory(blocks) -> matvec``: another base
+    S @ x (the corrections wrap it).  ``cam_gather``: as `linearize`.
+    Returns (dxp, dxc, dxg, blocks, cg_iterations, Extras or None)."""
+    from . import freenet
+
+    b, rc, rg, Minv = prepare(problem, state, spec, damping,
+                              cam_gather=cam_gather)
+    ext = None
+    if problem.has_extras:
+        ext = freenet.prepare_extras(problem, state, b.bp, rc, rg,
+                                     point_ops(problem, b, cam_gather),
+                                     b.omega0)
+        b = b._replace(omega0=ext.omega0)
+        rc, rg = ext.rc, ext.rg
+    if matvec_factory is not None:
+        base = matvec_factory(b)
+    else:
+        def base(c, g):
+            return schur_matvec(problem, b, c, g)
+    mv = freenet.wrap_matvec(base, ext) if ext is not None else base
+    Mi = (freenet.wrap_precond(make_apply_M(Minv), ext)
+          if ext is not None else Minv)
+    xc, xg, it = pcg(rc, rg, Mi, mv, tol=cg_tol, maxiter=cg_maxiter,
+                     stall_limit=stall_limit)
+    if ext is not None:
+        dxp, _lam = freenet.back_substitute(
+            problem, ext, point_ops(problem, b, cam_gather), xc, xg)
+    else:
+        dxp = back_substitute_points(problem, b, xc, xg, cam_gather)
+    return dxp, xc, xg, b, it, ext
+
+
+def lm_step(problem: RCSProblem, state: ParamState, spec, damping,
+            cg_tol=1e-10, cg_maxiter=200, matvec=None, stall_limit=None,
+            cam_gather=None):
+    """One LM inner solve on the block layout: linearise, reduce, PCG,
+    back-substitute.  ``matvec``: another S @ x.  ``cam_gather``: as
+    `linearize`.  Returns (dxp [P, 3], dxc [M, 6], dxg [G], blocks,
+    cg_iterations)."""
+    b, rc, rg, Minv = prepare(problem, state, spec, damping,
+                              cam_gather=cam_gather)
+    if matvec is None:
+        def matvec(c, g):
+            return schur_matvec(problem, b, c, g)
+    xc, xg, it = pcg(rc, rg, Minv, matvec, tol=cg_tol, maxiter=cg_maxiter,
+                     stall_limit=stall_limit)
+    dxp = back_substitute_points(problem, b, xc, xg, cam_gather)
+    return dxp, xc, xg, b, it
 
 
 def apply_step(state: ParamState, dxp, dxc, dxg):

@@ -12,8 +12,8 @@ its own stop is frozen, as a `vmap` of JAX's `while_loop` freezes it: its
 iterate and its count stay where they stopped while the others go on.
 The loop reads the [S] stop mask once per iteration.
 
-(The JAX module vmaps the block-layout `rcs.lm_step`, which the port does
-not have; the feature-major step solves the same normal equations.)
+(The JAX module vmaps the block-layout `rcs.lm_step`; the port batches
+the feature-major step, which solves the same normal equations.)
 """
 
 from __future__ import annotations

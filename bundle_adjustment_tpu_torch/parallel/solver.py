@@ -1,13 +1,19 @@
 """Large-scale LM loop: the reference's damping semantics over the
-feature-major engine (PyTorch port of
+reduced camera system (PyTorch port of
 `bundle_adjustment_tpu/parallel/solver.py`).
 
 The Levenberg-Marquardt bookkeeping of the dense solver (multiplicative
 damping, alpha-scaled steps, the 0.2x / 5x gain schedule on Omega, step
-rejection, damping shut-off, convergence on max|dx|) drives
-`engine.lm_step_full`: linearise, the fused assembly, PCG on the implicit
-Schur complement with the free-network corrections of `freenet`, and
-back-substitution.
+rejection, damping shut-off, convergence on max|dx|) drives one LM step
+per iteration: linearise, the fused assembly, PCG on the implicit Schur
+complement with the free-network corrections of `freenet`, and
+back-substitution.  The problem's layout picks the engine:
+
+* uniform point-major (``point_uniform`` set): the feature-major engine,
+  `engine.lm_step_full`, with the CUDA kernels K1, K2 and K3;
+* file order (``point_uniform`` None, any number of views per point): the
+  block-layout engine, `rcs.lm_step_full` / `rcs.omega_at_full`, as the
+  JAX `solve` steps, with K3 for the EO gathers.
 
 The convergence criterion at scale: the dense solver's sqrt(eps_f64)
 threshold is unreachable in f32, so the default tolerance is scaled to the
@@ -52,6 +58,37 @@ class RCSResult:
                            else EstimationState.NO_CONVERGENCE)
 
 
+#: the CUDA kernels each layout's route runs (``use_kernels``)
+ROUTE_KERNELS = {"point_major": ("K1", "K2", "K3"), "file": ("K3",)}
+
+
+def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
+                 use_kernels) -> bool:
+    """``solve``'s ``use_kernels`` (None, a bool, or kernel names) as a
+    bool for the problem's route; names the route does not run raise
+    ValueError that names the layout."""
+    layout = "file" if problem.point_uniform is None else "point_major"
+    f32_cuda = state.points.is_cuda and state.points.dtype == torch.float32
+    if use_kernels is None:
+        # the FM kernels take one camera; K3 gathers any camera's EO
+        return f32_cuda and (layout == "file" or state.io.shape[0] == 1)
+    if isinstance(use_kernels, bool):
+        return use_kernels
+    names = set(use_kernels)
+    takes = set(ROUTE_KERNELS[layout])
+    if names - takes:
+        raise ValueError(
+            f"{sorted(names - takes)} cannot run on a problem in the "
+            f"{layout!r} layout: K1 and K2 read the packed rows of the "
+            f"uniform point-major layout, and the file-order route runs "
+            f"{ROUTE_KERNELS['file']} only (rcs.to_point_major re-lays a "
+            f"network on request)")
+    if names and names != takes:
+        raise ValueError(f"the {layout!r} route runs {sorted(takes)} "
+                         f"together, not {sorted(names)}")
+    return bool(names)
+
+
 def solve(problem: rcs.RCSProblem, state: ParamState, spec,
           damping: float = 0.0,
           max_iterations: int = 100,
@@ -69,14 +106,21 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     `convert.problem_to_torch` / `state_to_torch`; the solve runs on their
     device).
 
-    ``use_kernels``: run every step through K3 / K2 / K1
-    (`engine.lm_step_full`); the default is True for a single-camera
-    problem in f32 CUDA tensors and False otherwise: the kernels take f32
-    and one camera only, so an f64 solve and a multi-camera (compact)
+    The layout picks the engine (module docstring); a file-order problem
+    is never padded.
+
+    ``use_kernels``: True runs the route's CUDA kernels (`ROUTE_KERNELS`),
+    also given as their names.  Point-major: every step through K3 / K2
+    / K1 (`engine.lm_step_full`); the default is True for a single-camera
+    problem in f32 CUDA tensors and False otherwise: those kernels take
+    f32 and one camera only, so an f64 solve and a multi-camera (compact)
     solve on the card run the plain path (``use_kernels=True`` raises
     ValueError for more than one camera).  With the kernels the point
     count is padded to their block size with dummy points
-    (`engine.pad_problem`), which the returned state drops again.
+    (`engine.pad_problem`), which the returned state drops again.  File
+    order: K3 gathers the EO rows of `rcs.linearize` and of the
+    back-substitution (default: f32 CUDA tensors); naming K1 or K2
+    raises ValueError.
     ``checkpoint_path`` / ``checkpoint_every``: every k-th iteration
     (k = checkpoint_every > 0) the state without the dummy points, the
     iteration, the damping, Omega and max|dx| go to an atomic
@@ -95,34 +139,51 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     dtype = state.points.dtype
     if tolerance is None:
         tolerance = math.sqrt(torch.finfo(dtype).eps)
-    if use_kernels is None:
-        use_kernels = (state.points.is_cuda
-                       and state.points.dtype == torch.float32
-                       and state.io.shape[0] == 1)
+    use_kernels = _use_kernels(problem, state, use_kernels)
 
     def fire(name, old, new):
         for fn in (listeners or ()):
             fn(name, old, new)
 
     num_points = problem.num_points
-    if use_kernels:
-        from . import kernels
-
-        engine.refuse_kernels(problem)
-        problem, state, _ = engine.pad_problem(problem, state, 128)
-    fmp = engine.fm_problem(problem)
-    if use_kernels:
-        fmp = engine.to_view_major(
-            fmp, kernels.choose_pb(fmp.num_points, fmp.views,
-                                   fmp.free_global.shape[0]))
 
     def unpadded(st):
         return st._replace(points=st.points[:num_points])
 
-    def step(st, lam, maxiter):
-        return engine.lm_step_full(fmp, problem, st, spec, lam,
-                                   cg_tol=cg_tol, cg_maxiter=maxiter,
-                                   use_kernels=use_kernels)
+    if problem.point_uniform is None:
+        # file order: the block-layout engine, as the JAX solve steps
+        cgf = None
+        if use_kernels:
+            from . import kernels
+
+            cgf = kernels.make_cam_gather(problem)
+
+        def step(st, lam, maxiter):
+            return rcs.lm_step_full(problem, st, spec, lam, cg_tol=cg_tol,
+                                    cg_maxiter=maxiter, cam_gather=cgf)
+
+        def omega_at(b, ext, dxp, dxc, dxg, st):
+            return rcs.omega_at_full(problem, b, ext, dxp, dxc, dxg)
+    else:
+        if use_kernels:
+            from . import kernels
+
+            engine.refuse_kernels(problem)
+            problem, state, _ = engine.pad_problem(problem, state, 128)
+        fmp = engine.fm_problem(problem)
+        if use_kernels:
+            fmp = engine.to_view_major(
+                fmp, kernels.choose_pb(fmp.num_points, fmp.views,
+                                       fmp.free_global.shape[0]))
+
+        def step(st, lam, maxiter):
+            return engine.lm_step_full(fmp, problem, st, spec, lam,
+                                       cg_tol=cg_tol, cg_maxiter=maxiter,
+                                       use_kernels=use_kernels)
+
+        def omega_at(b, ext, dxp, dxc, dxg, st):
+            return engine.omega_at_full(fmp, problem, b, ext, dxp, dxc, dxg,
+                                        st)
 
     if simulation:
         # zero rhs => dx = 0 exactly; one linearisation pass so that
@@ -156,9 +217,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         alpha = 1.0
         if adapted > 0:
             alpha = min(0.25 * adapted ** -0.05, 0.75)
-            cur = float(engine.omega_at_full(
-                fmp, problem, b, ext, alpha * dxp, alpha * dxc, alpha * dxg,
-                state))
+            cur = float(omega_at(b, ext, alpha * dxp, alpha * dxc,
+                                 alpha * dxg, state))
             lam_old = adapted
             adapted, omega_prev, accepted = lm_gain_update(
                 adapted, omega_prev, cur)
@@ -220,18 +280,21 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
 class ScaleBundleAdjustment(_DenseBundleAdjustment):
     """The reference `BundleAdjustment` user API (setters, listeners,
     interrupt, SIMULATION, result writers, checkpoints) solved by the
-    feature-major engine instead of the dense bordered factorisation.
+    reduced camera system instead of the dense bordered factorisation.
 
     Subclasses the dense solver and swaps its `_Kernels`:
 
-    * intermediate iterations run `engine.lm_step_full` on the problem's
-      `rcs.rcs_from_problem` (point-eliminated implicit-Schur PCG, the
-      scale bars, inner constraints and direct groups of `freenet`) in
-      float64 on the solver's device, through the plain path (the CUDA
-      kernels take f32 only), and scatter the step back into the dense
-      column layout, so the parent's LM bookkeeping, event stream,
-      interrupt, centroiding and checkpointing run unchanged; any number
-      of cameras (more than one: the engine's compact global rows);
+    * intermediate iterations run one LM step on the problem's
+      `rcs.rcs_from_problem` (layout by `rcs.choose_layout`:
+      `engine.lm_step_full` on the point-major layout, `rcs.lm_step_full`
+      on a network of uneven visibility in file order; point-eliminated
+      implicit-Schur PCG, the scale bars, inner constraints and direct
+      groups of `freenet`) in float64 on the solver's device, through the
+      plain path (the CUDA kernels take f32 only), and scatter the step
+      back into the dense column layout, so the parent's LM bookkeeping,
+      event stream, interrupt, centroiding and checkpointing run
+      unchanged; any number of cameras (more than one: the engine's
+      compact global rows, or the block layout's masked ones);
     * the FINAL stochastic pass (covariance by the requested
       MatrixInversion mode) keeps the parent's dense kernel: Qxx is dense
       by contract there.  At array scale use `solve()` +
@@ -247,7 +310,18 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
         base = super()._build_kernels()
         dev, dt = self.device, self.dtype
         rp = rcs.rcs_from_problem(bp, dev, dt)
-        fmp = engine.fm_problem(rp)
+        if rp.point_uniform is None:
+            def lm_step(state, damping):
+                return rcs.lm_step_full(rp, state, spec, damping,
+                                        cg_tol=self.cg_tol,
+                                        cg_maxiter=self.cg_maxiter)
+        else:
+            fmp = engine.fm_problem(rp)
+
+            def lm_step(state, damping):
+                return engine.lm_step_full(fmp, rp, state, spec, damping,
+                                           cg_tol=self.cg_tol,
+                                           cg_maxiter=self.cg_maxiter)
         spec = bp.spec
         simulation = self.estimation_type == EstimationType.SIMULATION
         T = bp.total_size
@@ -266,9 +340,7 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
         def solve_intermediate(state, damping):
             if simulation:
                 return torch.zeros(T, dtype=dt, device=dev)
-            dxp, dxc, dxg, _, _, _ = engine.lm_step_full(
-                fmp, rp, state, spec, damping, cg_tol=self.cg_tol,
-                cg_maxiter=self.cg_maxiter)
+            dxp, dxc, dxg, _, _, _ = lm_step(state, damping)
             dx = torch.zeros(T + 1, dtype=dt, device=dev)
             dx[cols_p] = dxp.reshape(-1)
             dx[cols_e] = dxc.reshape(-1)

@@ -302,21 +302,60 @@ def free_network(problem, state, bars=8, direct=None, seed=0, truth=None,
     return problem._replace(**fields)
 
 
+def _real_points(problem) -> int:
+    """The points before the trailing dummy points (those whose
+    observations all weigh 0)."""
+    seen = np.bincount(np.asarray(problem.obs_point),
+                       weights=np.asarray(problem.obs_weight)[:, 0, 0],
+                       minlength=problem.num_points)
+    return int(np.flatnonzero(seen > 0).max()) + 1
+
+
+def thin_views(problem, state, views=12, every=100):
+    """A network of uneven visibility cut from a `build_problem` network
+    (host arrays in, host arrays out): point p keeps all its views where
+    p % ``every`` == 0 and its first ``views`` elsewhere (dropping views
+    keeps the network consistent; noise and start stay as they were);
+    the dummy points dropped; the observations in file order grouped by
+    image (a stable sort by image, as an image-coordinate file lists
+    them), ``point_uniform`` None, the blocked image layout rebuilt.
+    Returns (problem, state)."""
+    P, V = problem.num_points, problem.point_uniform
+    n = _real_points(problem)
+    pt = np.repeat(np.arange(P), V)
+    view = np.tile(np.arange(V), P)
+    keep = np.flatnonzero((pt < n) & ((view < views) | (pt % every == 0)))
+    obs_image = np.asarray(problem.obs_image)[keep]
+    rows = keep[np.argsort(obs_image, kind="stable")]
+    obs_image = np.asarray(problem.obs_image)[rows]
+    img_perm, img_bstarts = build_image_block_layout(obs_image,
+                                                     problem.num_images)
+    return problem._replace(
+        obs_point=np.asarray(problem.obs_point)[rows], obs_image=obs_image,
+        obs_xy=np.asarray(problem.obs_xy)[rows],
+        obs_weight=np.asarray(problem.obs_weight)[rows], num_points=n,
+        free_point=np.asarray(problem.free_point)[:n],
+        img_perm=img_perm, img_block_starts=img_bstarts,
+        point_uniform=None), \
+        state._replace(points=np.asarray(state.points)[:n])
+
+
 def as_read_from_files(problem, state):
     """What `io.columnar.build_rcs_problem` builds from the files of
     `write_flat`: the problem and state (host arrays) without the dummy
     points (the trailing points whose observations all weigh 0), with
-    r0 = 0 (the files carry no distortion reference radius)."""
-    P, V = problem.num_points, problem.point_uniform
-    seen = np.asarray(problem.obs_weight)[:, 0, 0].reshape(P, V).sum(axis=1)
-    n = int(np.flatnonzero(seen > 0).max()) + 1
-    obs_image = np.asarray(problem.obs_image)[:n * V]
+    r0 = 0 (the files carry no distortion reference radius).  Either
+    layout: a point-major problem stays point-major, one in file order
+    (`thin_views`) keeps its order."""
+    n = _real_points(problem)
+    rows = np.asarray(problem.obs_point) < n
+    obs_image = np.asarray(problem.obs_image)[rows]
     img_perm, img_bstarts = build_image_block_layout(obs_image,
                                                      problem.num_images)
     return problem._replace(
-        obs_point=np.asarray(problem.obs_point)[:n * V], obs_image=obs_image,
-        obs_xy=np.asarray(problem.obs_xy)[:n * V],
-        obs_weight=np.asarray(problem.obs_weight)[:n * V],
+        obs_point=np.asarray(problem.obs_point)[rows], obs_image=obs_image,
+        obs_xy=np.asarray(problem.obs_xy)[rows],
+        obs_weight=np.asarray(problem.obs_weight)[rows],
         r0=np.zeros_like(np.asarray(problem.r0)), num_points=n,
         free_point=np.asarray(problem.free_point)[:n],
         img_perm=img_perm, img_block_starts=img_bstarts), \
@@ -324,8 +363,8 @@ def as_read_from_files(problem, state):
 
 
 def write_flat(base: str, problem, state):
-    """Write a one-camera `build_problem` network without its dummy points
-    as the generic flat files `io.columnar.build_rcs_problem` reads (17
+    """Write a one-camera `build_problem` network (or its `thin_views`)
+    without its dummy points as the generic flat files `io.columnar.build_rcs_problem` reads (17
     significant digits): points named by their index, the datum column on
     the fixed ones; image coordinates `1 <image + 1> <point> x y SIGMA
     SIGMA 0`; EO; IO.  Returns the paths ({points, imagecoords, eor,

@@ -242,8 +242,31 @@ Phases (any failed check exits non-zero, before the result line):
      of scenario 0); the batched
      step's time against the 16 sequential steps' (each run twice, the
      first recorded apart); no kernel launch.
+  15. a network of uneven visibility (the block-layout engine of
+     parallel/rcs.py): `synthetic.thin_views` of build_problem(100,000,
+     500, 64, seed=0): every 100th point keeps its 64 views, every other
+     point its first 12 (N = 1,252,000 rows in file order, grouped by
+     image; 6,400,000 padded point-major); the layout rule must pick
+     "file"; the byte reckoning of 1,000 targets in all 500 images is
+     printed, not run.  (a) f64 `solve` (cg_tol 1e-10) to its default
+     tolerance on the file order (block-layout engine) and on the padded
+     layout (`rcs.to_point_major`, feature-major engine): sigma0 within 1%
+     of 5e-4, Omega rtol 1e-8 and coordinates within 1e-7 of the field
+     across the two; rows, peak memory, s and CG per step, steps printed.
+     (b) K3 on the file order equal to its plain version bit for bit; f32
+     `solve` through K3 (damping 1e-2) to max|dx| <= 1e-3, K3 launched and
+     K1 / K2 not; then f64 `solve` from its end within (a)'s gates.  (c)
+     one f32 step five times: equal bits.  (d) 4 point and 2 camera
+     covariance blocks on demand on the file order against the padded
+     feature-major route within 1e-6 of each block's largest entry.  (e)
+     the network written as flat files and read back by
+     `build_rcs_problem` (layout None: must pick "file"), every field
+     equal to the in-memory control bit for bit, and its f32 `solve`
+     equal to the control's.  K3's launches of (b) and (e) join the
+     kernels line.
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6, 7, 8 and 11, each between a reset and a read of the counters;
+phases 3, 5, 6, 7, 8, 11 and 15, each between a reset and a read of the
+counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -392,6 +415,22 @@ FLEET_TOL = 1e-12          # state, max_dx, omega0 against each own step
 # batched reductions (bmm for mm, other reduction orders) differ in the
 # last bits, and the count of a CG run near its floor follows them
 FLEET_CG_SLACK = 3
+# phase 15: a network of uneven visibility at 100k / 500, cut from
+# build_problem(100k, 500, 64): every UNEVEN_EVERY-th point keeps its 64
+# views, every other point its first 12 (N = 1,252,000)
+UNEVEN_VIEWS = 64
+UNEVEN_KEEP = 12
+UNEVEN_EVERY = 100
+UNEVEN_REPEATS = 5         # f32 steps that must give the same bits
+UNEVEN_OMEGA_RTOL = 1e-8   # tests/test_torch_solver.py: Omega rtol 1e-8,
+UNEVEN_XYZ_TOL = 1e-7      # coordinates within 1e-7 of the field
+UNEVEN_COV_POINTS = (0, 100, 1, 54321)  # two seen 64 times, two 12 times
+UNEVEN_COV_IMAGES = (0, 250)
+K2_ROW_BYTES = 312         # K2 reads 78 f32 rows per observation
+# the f64 solves of (a) and (b) to `solve`'s default tolerance, with a CG
+# that resolves the weakly determined directions: at the default cg_tol
+# 1e-6 two starts end 5e-8 apart in Omega (the 2,000-point rehearsal)
+UNEVEN_F64 = dict(cg_tol=1e-10, cg_maxiter=500)
 
 
 def fail(msg: str):
@@ -2391,6 +2430,271 @@ def fleet_phase(dev, fleet=FLEET):
                 fleet_vmap_bits=bits), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: a network of uneven visibility (the block-layout engine)
+# ---------------------------------------------------------------------------
+
+def uneven_phase(dev, shape=(NUM_POINTS, NUM_IMAGES)):
+    """Phase 15 (see the module docstring).  Returns (summary dict, the
+    launch counts of (b)'s f32 solve and (e)'s file-route solve)."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.io import columnar
+    from bundle_adjustment_tpu_torch.parallel import (covariance, engine,
+                                                      kernels, rcs, solver)
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.time()
+    P, M = shape
+    ph, sh, spec = synthetic.build_problem(P, M, UNEVEN_VIEWS, seed=0)
+    fh, fsh = synthetic.thin_views(ph, sh, views=UNEVEN_KEEP,
+                                   every=UNEVEN_EVERY)
+    del ph
+    N = int(fh.obs_point.shape[0])
+    P = int(fh.num_points)
+    counts = np.bincount(fh.obs_point, minlength=P)
+    u = int(fh.free_point.sum() + fh.free_eo.sum() + fh.free_global.sum())
+    dof = 2 * N - u
+    layout = rcs.choose_layout(fh.obs_point, P)
+    log(f"network: P={P} M={M} N={N} (views {counts.min()}..{counts.max()},"
+        f" {int((counts == counts.max()).sum())} points in all "
+        f"{UNEVEN_VIEWS}); padded point-major {P * int(counts.max())} rows "
+        f"({P * int(counts.max()) / N:.2f}x); the layout rule picks "
+        f"{layout!r}; u={u} dof={dof}; built in {time.time() - t_phase:.1f} s")
+    if layout != "file":
+        fail(f"phase 15: the layout rule picked {layout!r} for the uneven "
+             f"network")
+    # the reckoning of the issue's case, not run: 1,000 targets in all 500
+    # images, the rest in 12
+    n_t = (P - 1000) * 12 + 1000 * 500
+    pad_t = P * 500
+    log(f"not run: 1,000 targets in all 500 images and the rest in 12 give "
+        f"N={n_t:,} rows against {pad_t:,} padded ({pad_t / n_t:.1f}x); "
+        f"K2's 78 f32 rows per observation ({K2_ROW_BYTES} B) need "
+        f"{pad_t * K2_ROW_BYTES / 1e9:.1f} GB padded against "
+        f"{n_t * K2_ROW_BYTES / 1e9:.2f} GB, and the same rows in f64 on "
+        f"the plain path {2 * pad_t * K2_ROW_BYTES / 1e9:.1f} GB")
+
+    p64 = convert.problem_to_torch(fh, dev, f64)
+    s64 = convert.state_to_torch(fsh, dev, f64)
+    pm64 = rcs.to_point_major(p64)
+
+    def sigma0_at(state):
+        om = float(rcs.linearize(p64, state, spec, 0.0).omega0)
+        return om, (om / dof) ** 0.5
+
+    def field_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # ---- (a) f64 solve to its default tolerance in both layouts -----------
+    runs = {}
+    for name, prob in (("file", p64), ("point_major", pm64)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = solver.solve(prob, s64, spec, **UNEVEN_F64)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        om, s0 = sigma0_at(res.state)
+        cg = [h["cg_it"] for h in res.history]
+        runs[name] = dict(
+            rows=int(prob.obs_point.shape[0]), steps=res.iterations,
+            converged=res.converged, seconds=secs,
+            s_per_step=secs / max(res.iterations, 1),
+            cg_per_step=cg, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            omega=om, sigma0=s0, max_dx=res.max_abs_dx, state=res.state)
+        log(f"(a) f64 solve, {name} layout: {runs[name]['rows']:,} rows, "
+            f"{res.status.name} after {res.iterations} steps in {secs:.3f} s "
+            f"({runs[name]['s_per_step']:.3f} s per step), CG per step {cg}, "
+            f"max|dx| {res.max_abs_dx:.3e}, peak memory "
+            f"{runs[name]['peak_gb']:.2f} GB; Omega {om:.10e}, sigma0 "
+            f"{s0:.6e}")
+    fa, pa = runs["file"], runs["point_major"]
+    om_rel = abs(fa["omega"] / pa["omega"] - 1.0)
+    xyz = field_err(fa["state"].points, pa["state"].points)
+    log(f"(a) file vs point-major: Omega {om_rel:.2e} relative, coordinates "
+        f"{xyz:.2e} of the field")
+    problems = []
+    for name, r in runs.items():
+        if not r["converged"]:
+            problems.append(f"{name} solve did not converge")
+        if not abs(r["sigma0"] / SIGMA - 1.0) < 0.01:
+            problems.append(f"{name} sigma0 {r['sigma0']:.6e}")
+    if not om_rel <= UNEVEN_OMEGA_RTOL:
+        problems.append(f"Omega {om_rel:.2e} apart")
+    if not xyz <= UNEVEN_XYZ_TOL:
+        problems.append(f"coordinates {xyz:.2e} of the field apart")
+    if problems:
+        fail("phase 15 (a): " + "; ".join(problems))
+    del pm64
+
+    # ---- (b) f32 solve with K3 to F32_STOP, then f64 from its end -------
+    p32 = convert.problem_to_torch(fh, dev, f32)
+    s32 = convert.state_to_torch(fsh, dev, f32)
+    img32 = p32.obs_image.to(torch.int32).contiguous()
+    g_k = kernels.cam_gather_rows(s32.eo.contiguous(), img32)
+    g_p = kernels.cam_gather_plain(s32.eo, img32)
+    k3_exact = same_bits(g_k, g_p)
+    log(f"(b) K3 on the file-order layout ({N:,} rows): equal to its plain "
+        f"version bit for bit: {k3_exact}")
+    if not k3_exact:
+        fail("phase 15 (b): K3 differs from its plain version on the "
+             "file-order layout")
+    del g_k, g_p
+    kw32 = dict(damping=1e-2, max_iterations=30, tolerance=F32_STOP)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r32 = solver.solve(p32, s32, spec, **kw32)
+    torch.cuda.synchronize()
+    s32_s = time.perf_counter() - t
+    launches_b = kernels.launch_counts()
+    cg32 = [h["cg_it"] for h in r32.history]
+    log(f"(b) f32 solve through K3: {r32.status.name} after {r32.iterations} "
+        f"steps in {s32_s:.3f} s, max|dx| {r32.max_abs_dx:.3e}, CG per step "
+        f"{cg32}; launches {launches_b}")
+    t = time.perf_counter()
+    rb = solver.solve(p64, type(r32.state)(*(a.double()
+                                            for a in r32.state)), spec,
+                      **UNEVEN_F64)
+    torch.cuda.synchronize()
+    b64_s = time.perf_counter() - t
+    om_b, s0_b = sigma0_at(rb.state)
+    om_b_rel = abs(om_b / fa["omega"] - 1.0)
+    xyz_b = field_err(rb.state.points, fa["state"].points)
+    log(f"(b) f64 solve from there: {rb.status.name} after {rb.iterations} "
+        f"steps in {b64_s:.3f} s, CG per step "
+        f"{[h['cg_it'] for h in rb.history]}; sigma0 {s0_b:.6e}, Omega "
+        f"{om_b_rel:.2e} and coordinates {xyz_b:.2e} of the field from (a)'s")
+    problems = []
+    if launches_b["cam_gather"] <= 0:
+        problems.append(f"K3 never launched: {launches_b}")
+    if launches_b["schur_matvec"] or launches_b["prepare_reduction"]:
+        problems.append(f"K1 / K2 launched on the file order: {launches_b}")
+    if not r32.converged:
+        problems.append(f"the f32 solve did not reach {F32_STOP}")
+    if not rb.converged:
+        problems.append("the f64 solve from its end did not converge")
+    if not abs(s0_b / SIGMA - 1.0) < 0.01:
+        problems.append(f"sigma0 {s0_b:.6e}")
+    if not om_b_rel <= UNEVEN_OMEGA_RTOL:
+        problems.append(f"Omega {om_b_rel:.2e} from (a)'s")
+    if not xyz_b <= UNEVEN_XYZ_TOL:
+        problems.append(f"coordinates {xyz_b:.2e} of the field from (a)'s")
+    if problems:
+        fail("phase 15 (b): " + "; ".join(problems))
+    del rb
+
+    # ---- (c) one f32 step, five times: equal bits ------------------------
+    cgf = kernels.make_cam_gather(p32)
+    t = time.perf_counter()
+    steps = [rcs.lm_step_full(p32, s32, spec, 1e-2, cg_tol=1e-6,
+                              cam_gather=cgf)
+             for _ in range(UNEVEN_REPEATS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / UNEVEN_REPEATS
+    same = all(same_bits(a, b) for s in steps[1:]
+               for a, b in zip(s[:3], steps[0][:3]))
+    same = same and len({s[4] for s in steps}) == 1
+    log(f"(c) one f32 step ({steps[0][4]} CG) {UNEVEN_REPEATS} times: "
+        f"{step_s:.3f} s each, equal bits: {same}")
+    if not same:
+        fail("phase 15 (c): repeated f32 steps on the file order differ")
+    del steps
+
+    # ---- (d) covariance on demand: file order against padded FM ----------
+    st = fa["state"]
+    ids = np.array(UNEVEN_COV_POINTS, np.int32)
+    imgs = np.array(UNEVEN_COV_IMAGES, np.int32)
+    cov = {}
+    for name, prob in (("file", p64),
+                       ("point_major",
+                        engine.fm_problem(rcs.to_point_major(p64)))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b, Minv = covariance.prepare(prob, st, spec)
+        sp, sc = {}, {}
+        qp = covariance.point_covariance_blocks(prob, b, Minv, ids, stats=sp)
+        qc = covariance.camera_covariance_blocks(prob, b, Minv, imgs,
+                                                 stats=sc)
+        torch.cuda.synchronize()
+        cov[name] = dict(points=qp, cameras=qc, s=time.perf_counter() - t,
+                         pcg=(sp["iterations"], sc["iterations"]),
+                         coupled=Minv.Scg is not None)
+        del b, Minv
+    errs = {k: block_err(cov["file"][k], cov["point_major"][k])
+            for k in ("points", "cameras")}
+    log("(d) covariance on demand, " + "; ".join(
+        f"{n}: {c['s']:.2f} s, PCG {c['pcg']}, coupled {c['coupled']}"
+        for n, c in cov.items()) + f"; file vs point-major: points "
+        f"{errs['points']:.2e}, cameras {errs['cameras']:.2e} of each "
+        f"block's largest entry")
+    if not max(errs.values()) <= COV_BLOCK_TOL:
+        fail(f"phase 15 (d): blocks differ between the layouts: {errs}")
+
+    # ---- (e) the file route ---------------------------------------------
+    work = WORK / "phase15"
+    work.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    paths = synthetic.write_flat(str(work / "net"), fh, fsh)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fp, fs, _ = columnar.build_rcs_problem(
+        paths["points"], paths["imagecoords"], paths["eor"],
+        io_path=paths["ior"], spec=synthetic.scale_spec(), dist=fsh.dist,
+        device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    cp_h, cs_h = synthetic.as_read_from_files(fh, fsh)
+    cp = convert.problem_to_torch(cp_h, dev, f32)
+    cs = convert.state_to_torch(cs_h, dev, f32)
+    diff = [f for f in fp._fields
+            if not (same_bits(getattr(fp, f), getattr(cp, f))
+                    if isinstance(getattr(cp, f), torch.Tensor)
+                    or getattr(cp, f) is None
+                    else getattr(fp, f) == getattr(cp, f))]
+    diff += [f"state.{f}" for f in fs._fields
+             if not same_bits(getattr(fs, f), getattr(cs, f))]
+    log(f"(e) files written in {write_s:.2f} s; build_rcs_problem "
+        f"(layout None) in {build_s:.2f} s: point_uniform "
+        f"{fp.point_uniform}, N={fp.obs_point.shape[0]:,}; every field and "
+        f"the state equal to the in-memory control bit for bit: {not diff}")
+    if fp.point_uniform is not None:
+        fail("phase 15 (e): build_rcs_problem did not pick the file order")
+    if diff:
+        fail(f"phase 15 (e): the file-built problem differs in {diff}")
+    kernels.reset_launch_counts()
+    rf = solver.solve(fp, fs, spec, **kw32)
+    launches_e = kernels.launch_counts()
+    rc = solver.solve(cp, cs, spec, **kw32)
+    equal = (rf.iterations == rc.iterations
+             and all(same_bits(getattr(rf.state, f), getattr(rc.state, f))
+                     for f in rf.state._fields))
+    log(f"(e) f32 solve on the file route: {rf.status.name} after "
+        f"{rf.iterations} steps, launches {launches_e}; equal bits and "
+        f"steps to the control: {equal}")
+    if not equal:
+        fail("phase 15 (e): solve on the file-built problem differs from "
+             "the control's")
+    if launches_e["cam_gather"] <= 0:
+        fail(f"phase 15 (e): K3 never launched: {launches_e}")
+    seconds = time.time() - t_phase
+    launches = {k: launches_b[k] + launches_e[k] for k in launches_b}
+    log(f"phase 15: {seconds:.1f} s; launches {launches}")
+    summary = dict(
+        uneven_rows=N, uneven_padded_rows=pa["rows"], uneven_dof=dof,
+        uneven_solve={n: {k: v for k, v in r.items() if k != "state"}
+                      for n, r in runs.items()},
+        uneven_f32_steps=r32.iterations, uneven_f32_s=s32_s,
+        uneven_f32_cg=cg32, uneven_step_s=step_s,
+        uneven_cov={n: dict(s=c["s"], pcg=c["pcg"]) for n, c in cov.items()},
+        uneven_cov_err=errs, uneven_file_build_s=build_s,
+        uneven_phase_s=seconds)
+    return summary, launches
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -2882,6 +3186,12 @@ def main(profile_refinement=False):
     fleet_res, launches14 = fleet_phase(dev)
     by_phase["fleet"] = launches14
 
+    # ---- 15. uneven visibility: the block-layout engine ------------------
+    log(f"-- phase 15 at {time.time() - t_start:.1f} s")
+    uneven, launches15 = uneven_phase(dev)
+    total = {k: total[k] + launches15[k] for k in total}
+    by_phase["uneven"] = launches15
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -2899,7 +3209,8 @@ def main(profile_refinement=False):
         "stage_ms": sm, "launches_by_phase": by_phase,
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
-        **rig, **files, **cli_res, "sharded": shard_res, **fleet_res}))
+        **rig, **files, **cli_res, "sharded": shard_res, **fleet_res,
+        **uneven}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

@@ -40,7 +40,11 @@ CPU (rtol 3e-4, atol 1e-6 of max), the f32 step twice bit for bit, and
 `io.columnar.build_rcs_problem` on the card equals its in-memory control
 bit for bit, and `solve` on it runs through K1, K2 and K3 (launches > 0)
 to the control's bits and steps; the CLI as a subprocess on the card
-prints what its ``--cpu`` run prints (1e-9 relative).
+prints what its ``--cpu`` run prints (1e-9 relative).  The file-order
+layout (a 1,000-point network of uneven visibility, `synthetic.thin_views`):
+K3 equal to its plain version bit for bit, one f32 step of the
+block-layout engine through K3 twice to the same bits, and `solve`'s
+default there launching K3 and not K1.
 """
 
 import pytest
@@ -881,3 +885,55 @@ def test_scenario_step_on_the_card():
             assert _scaled(getattr(new, name)[s], getattr(ref, name)) <= 1e-12
         assert abs(float(mdx[s] / mdx1) - 1) <= 1e-10
         assert abs(float(om[s] / b.omega0) - 1) <= 1e-12
+
+
+@pytest.fixture(scope="module")
+def file_order():
+    """A 1,000-point network of uneven visibility in file order on the
+    card (`synthetic.thin_views`: every 10th point in 8 views, the rest in
+    3), f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from bundle_adjustment_tpu_torch import convert, synthetic
+
+    dev = torch.device("cuda", 0)
+    ph, sh, spec = synthetic.build_problem(1000, 24, 8, seed=5)
+    ph, sh = synthetic.thin_views(ph, sh, views=3, every=10)
+    prob = convert.problem_to_torch(ph, dev, torch.float32)
+    assert prob.point_uniform is None
+    return prob, convert.state_to_torch(sh, dev, torch.float32), spec
+
+
+def test_cam_gather_kernel_is_exact_file_order(file_order):
+    """K3 over the file-order layout (the block-layout engine's EO gather)
+    equals the plain gather bit for bit."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    prob, state, _ = file_order
+    before = kernels.cam_gather_rows.launches
+    for tbl in (state.eo, prob.free_eo):
+        out = kernels.make_cam_gather(prob)(tbl)
+        torch.testing.assert_close(
+            out, kernels.cam_gather_plain(tbl, prob.obs_image), rtol=0,
+            atol=0)
+    assert kernels.cam_gather_rows.launches == before + 2
+
+
+def test_file_order_step_repeats_bit_for_bit(file_order):
+    """One f32 step of the block-layout engine through K3, run twice: the
+    same bits (no per-point or per-image sum uses atomics), K3 launched;
+    and `solve`'s default on f32 CUDA takes K3 on this layout."""
+    from bundle_adjustment_tpu_torch.parallel import kernels, rcs, solver
+
+    prob, state, spec = file_order
+    cg = kernels.make_cam_gather(prob)
+    kernels.reset_launch_counts()
+    runs = [rcs.lm_step_full(prob, state, spec, 1e-2, cg_tol=1e-6,
+                             cam_gather=cg)[:3] for _ in range(2)]
+    assert kernels.launch_counts()["cam_gather"] > 0
+    for a, b in zip(*runs):
+        assert _bits(a, b)
+    kernels.reset_launch_counts()
+    solver.solve(prob, state, spec, damping=1e-2, max_iterations=1)
+    counts = kernels.launch_counts()
+    assert counts["cam_gather"] > 0 and counts["schur_matvec"] == 0

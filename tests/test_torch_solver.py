@@ -1,9 +1,12 @@
 """The port's LM loop (parallel/solver.py `solve`) against the JAX
 `parallel/solver.solve`, on the CPU in f64.
 
-The JAX loop steps through its block-layout engine, the port through the
-feature-major engine, so the two are compared on what does not depend on
-the path: both converge from the same start of the same free network (200
+This network is point-major (uniform views): the JAX loop steps through
+its block-layout engine, the port through the feature-major engine, so
+the two are compared on what does not depend on the path.  (A file-order
+network takes the port's block-layout engine, JAX's route: its
+step-for-step comparison, CG count per iteration included, is
+tests/test_torch_rcs_entry.py.)  Here: both converge from the same start of the same free network (200
 points padded to 256, 2 scale bars, six-defect inner-constraint datum,
 damping 1e-2) with the same sequence of events; Omega agrees at rtol 1e-8,
 the bar lengths and seeded inter-point distances at rtol 1e-8 (datum
