@@ -464,8 +464,9 @@ def make_apply_M(Minv: Precond, comm_cam=None):
             return zc, zg
     else:
         def apply_M(rc_, rg_):
-            return (torch.einsum("mab,mb->ma", Minv.Minv_c, rc_),
-                    Minv.Minv_g @ rg_)
+            return (_per_item(lambda a, r: torch.einsum("mab,mb->ma", a, r),
+                              Minv.Minv_c, rc_),
+                    _per_item(torch.matmul, Minv.Minv_g, rg_))
     return apply_M
 
 
@@ -567,19 +568,115 @@ def point_segments(p: RCSProblem):
             torch.bincount(ids, minlength=p.num_points))
 
 
+def _batched(*args) -> bool:
+    """Whether a tensor among ``args`` carries a `torch.func.vmap` batch."""
+    return any(isinstance(a, torch.Tensor)
+               and torch._C._functorch.is_batchedtensor(a) for a in args)
+
+
+def _segment_sum(x, order, counts):
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+
+
+class _SortedSum(torch.autograd.Function):
+    """`_segment_sum` with a batching rule: `torch.func.vmap` has none for
+    ``aten::segment_reduce`` and would loop over the batch in Python.
+    Under vmap the batch axis of x moves behind its columns, [S, N, ...]
+    -> [N, ..., S], and one sum takes every scenario: each column is
+    summed on its own in the segment's order, so the batched sums are the
+    bits of the unbatched ones."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(x, order, counts):
+        return _segment_sum(x, order, counts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, order, counts):
+        if in_dims[1] is not None or in_dims[2] is not None:
+            raise ValueError("the point order is shared by the batch")
+        out = _segment_sum(x.movedim(in_dims[0], -1), order, counts)
+        return out, out.dim() - 1
+
+
 def _sorted_sum(x, order, counts):
     """Segment sums of x [N, ...] over the segments of a sorted order:
     one sequential sum per segment (`torch.segment_reduce`), the same
-    bits on every run; an empty segment sums to 0."""
-    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+    bits on every run and under `torch.func.vmap`; an empty segment sums
+    to 0."""
+    if _batched(x):
+        return _SortedSum.apply(x, order, counts)
+    return _segment_sum(x, order, counts)
+
+
+class _PerItem(torch.autograd.Function):
+    """fn(*tensors) -> one tensor, with a batching rule that runs fn on
+    each batch item in turn.  Under `torch.func.vmap` a batched reduction
+    or product (more outputs per launch, bmm for mm) sums in another order
+    than the unbatched one, on the card and on the CPU, and those last
+    bits steer a fleet's CG counts away from each network's own step; one
+    call per item gives the unbatched bits (`scenario`)."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *args):
+        cols = [[_as_unbatched(i) for i in a.movedim(d, 0).unbind(0)]
+                if d is not None else [a] * info.batch_size
+                for a, d in zip(args, in_dims[1:])]
+        outs = [fn(*item) for item in zip(*cols)]
+        # stacked in the items' own dense layout (an inverse's transposed
+        # one), which the next product reads as the unbatched one does
+        order = sorted(range(outs[0].dim()),
+                       key=lambda k: -outs[0].stride(k))
+        out = torch.stack([o.permute(order) for o in outs])
+        return out.permute(0, *(1 + order.index(k)
+                                for k in range(len(order)))), 0
+
+
+def _as_unbatched(item):
+    """A batch item laid out as the unbatched tensor is: fresh from the
+    allocator in its own dense layout (the transposed one of an inverse
+    stays transposed), else copied row-major; loads and reductions are
+    vectorised by the address and the strides."""
+    order = sorted(range(item.dim()), key=lambda k: -item.stride(k))
+    if not item.permute(order).is_contiguous():
+        return item.contiguous()
+    return item if item.data_ptr() % 512 == 0 else item.clone()
+
+
+def _per_item(fn, *args):
+    """fn(*args); under `torch.func.vmap` one call per item (`_PerItem`)."""
+    if _batched(*args):
+        return _PerItem.apply(fn, *args)
+    return fn(*args)
+
+
+def _sum_rows(x):
+    """x.sum(dim=0), the unbatched bits under `torch.func.vmap`."""
+    return _per_item(lambda a: a.sum(dim=0), x)
 
 
 def _seg_point(p: RCSProblem, x):
     """Sum per point of x [N, ...]: a reshape in the uniform point-major
     layout, else the point-sorted segment sums."""
     if p.point_uniform is not None:
-        return x.reshape((p.num_points, p.point_uniform)
-                         + tuple(x.shape[1:])).sum(dim=1)
+        return _per_item(lambda a: a.reshape(
+            (p.num_points, p.point_uniform) + tuple(a.shape[1:])).sum(dim=1),
+            x)
     return _sorted_sum(x, *point_segments(p))
 
 
@@ -588,6 +685,14 @@ def _expand_point(p: RCSProblem, z):
     if p.point_uniform is not None:
         return z.repeat_interleave(p.point_uniform, dim=0)
     return z[p.obs_point.long()]
+
+
+def _block_prefix(xi):
+    """[0; cumsum of the IMG_BLOCK-row block sums] of image-sorted rows
+    xi [Nip, F]: [Nip / IMG_BLOCK + 1, F]."""
+    bl = xi.reshape(xi.shape[0] // IMG_BLOCK, IMG_BLOCK, -1).sum(dim=1)
+    return torch.cat([bl.new_zeros((1, bl.shape[1])),
+                      torch.cumsum(bl, dim=0)])
 
 
 def _seg_image(p: RCSProblem, x):
@@ -601,9 +706,7 @@ def _seg_image(p: RCSProblem, x):
                            torch.bincount(ids, minlength=p.num_images))
     flat = x.reshape(x.shape[0], -1)
     xp = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
-    xi = xp[p.img_perm.long()]
-    bl = xi.reshape(xi.shape[0] // IMG_BLOCK, IMG_BLOCK, -1).sum(dim=1)
-    cs = torch.cat([bl.new_zeros((1, bl.shape[1])), torch.cumsum(bl, dim=0)])
+    cs = _per_item(_block_prefix, xp[p.img_perm.long()])
     bs = p.img_block_starts.long()
     out = cs[bs[1:]] - cs[bs[:-1]]
     return out.reshape((p.num_images,) + tuple(x.shape[1:]))
@@ -698,7 +801,7 @@ def linearize(problem: RCSProblem, state: ParamState, spec, damping,
     Jg = Jg * p.free_global
 
     Pw = (P2 * w[:, None, :]).sum(dim=2)
-    omega0 = torch.sum(w * Pw)
+    omega0 = _per_item(torch.sum, w * Pw)
     PJp, PJc, PJg = _wmul(P2, Jp), _wmul(P2, Jc), _wmul(P2, Jg)
 
     Hpp = _seg_point(p, _tt(Jp, PJp))
@@ -734,8 +837,9 @@ def linearize(problem: RCSProblem, state: ParamState, spec, damping,
         w_de = p.de_val - state.eo
         omega0 = omega0 + torch.sum(p.de_w * w_de * w_de)
 
-    extra_g = damping * (Jg * PJg).sum(dim=(0, 1)) + (1.0 - p.free_global)
-    bg = _tv(Jg, Pw).sum(dim=0)
+    extra_g = damping * _per_item(lambda a: a.sum(dim=(0, 1)), Jg * PJg) \
+        + (1.0 - p.free_global)
+    bg = _sum_rows(_tv(Jg, Pw))
     if p.dg_w is not None:
         w_dg = p.dg_val - torch.cat([state.io, state.dist], dim=1).reshape(-1)
         wg = p.dg_w * p.free_global
@@ -751,7 +855,8 @@ def linearize(problem: RCSProblem, state: ParamState, spec, damping,
 
 def _hpx(p: RCSProblem, b: Blocks, xc, xg, cam_gather=None):
     """(Hpx [xc; xg] per point [P, 3], t = P (Jc xc + Jg xg) [N, 2])."""
-    t = _mv(b.PJc, _cam_rows(p, xc, cam_gather)) + b.PJg @ xg
+    t = _mv(b.PJc, _cam_rows(p, xc, cam_gather)) \
+        + _per_item(torch.matmul, b.PJg, xg)
     return _seg_point(p, _tv(b.Jp, t)), t
 
 
@@ -759,7 +864,7 @@ def _one_schur_matvec(p: RCSProblem, b: Blocks, xc, xg):
     y, t = _hpx(p, b, xc, xg)
     tv = t - _mv(b.PJp, _expand_point(p, _hv(b.Hpp_inv, y)))
     return (_seg_image(p, _tv(b.Jc, tv)) + b.extra_c * xc,
-            _tv(b.Jg, tv).sum(dim=0) + b.extra_g * xg)
+            _sum_rows(_tv(b.Jg, tv)) + b.extra_g * xg)
 
 
 def schur_matvec(p: RCSProblem, b: Blocks, xc, xg):
@@ -777,7 +882,7 @@ def reduced_rhs(p: RCSProblem, b: Blocks):
     """rhs = bx - Hxp Hpp^{-1} bp: (rc [M, 6], rg [G])."""
     u0 = _mv(b.PJp, _expand_point(p, _hv(b.Hpp_inv, b.bp)))
     return (b.bc - _seg_image(p, _tv(b.Jc, u0)),
-            b.bg - _tv(b.Jg, u0).sum(dim=0))
+            b.bg - _sum_rows(_tv(b.Jg, u0)))
 
 
 def _scc_terms(p: RCSProblem, b: Blocks):
@@ -818,12 +923,15 @@ def couple_preconditioner(matvec, Minv: Precond, num_images: int, G: int,
 def global_block_preconditioner(p: RCSProblem, b: Blocks):
     """The exact global block of S, inverted: Sgg = Hgg - Hgp Hpp^{-1} Hpg
     with Hpg summed per point."""
-    G = b.Jg.shape[2]
-    Hgg = b.Jg.reshape(-1, G).T @ b.PJg.reshape(-1, G) + torch.diag(b.extra_g)
-    Hpg = _seg_point(p, _tt(b.Jp, b.PJg))                    # [P, 3, G]
-    W = b.Hpp_inv @ Hpg
-    return torch.linalg.inv_ex(
-        Hgg - Hpg.reshape(-1, G).T @ W.reshape(-1, G))[0]
+    def block(Jg, PJg, Jp, Hpp_inv, extra_g):
+        G = Jg.shape[2]
+        Hgg = Jg.reshape(-1, G).T @ PJg.reshape(-1, G) + torch.diag(extra_g)
+        Hpg = _seg_point(p, _tt(Jp, PJg))                      # [P, 3, G]
+        W = Hpp_inv @ Hpg
+        return torch.linalg.inv_ex(
+            Hgg - Hpg.reshape(-1, G).T @ W.reshape(-1, G))[0]
+
+    return _per_item(block, b.Jg, b.PJg, b.Jp, b.Hpp_inv, b.extra_g)
 
 
 def back_substitute_points(p: RCSProblem, b: Blocks, xc, xg,
@@ -865,7 +973,7 @@ def prepare(problem: RCSProblem, state: ParamState, spec, damping,
     rc = bc - red[:, 12:18]
     Scc = red[:, 18:].reshape(p.num_images, 6, 6) + torch.diag_embed(extra_c)
     b = b._replace(bc=bc, extra_c=extra_c)
-    rg = b.bg - _tv(b.Jg, u0).sum(dim=0)
+    rg = b.bg - _sum_rows(_tv(b.Jg, u0))
     Minv = Precond(Minv_c=torch.linalg.inv_ex(Scc)[0],
                    Minv_g=global_block_preconditioner(p, b))
     return b, rc, rg, Minv

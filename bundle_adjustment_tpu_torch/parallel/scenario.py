@@ -4,16 +4,21 @@
 Fleets of independent networks with one static shape (the same rig, target
 field and visibility: repeated calibrations) take one LM step together:
 S scenarios share the index arrays and differ in observations, weights and
-parameter values.  The step is one batched program over a leading S axis
-on the feature-major engine: `torch.func.vmap` over `engine.prepare`,
-`engine.schur_matvec` and `engine.back_substitute_points`, and a PCG whose
-scalars (alpha, beta, the stop) are per scenario.  A scenario that has met
-its own stop is frozen, as a `vmap` of JAX's `while_loop` freezes it: its
-iterate and its count stay where they stopped while the others go on.
-The loop reads the [S] stop mask once per iteration.
-
-(The JAX module vmaps the block-layout `rcs.lm_step`; the port batches
-the feature-major step, which solves the same normal equations.)
+parameter values.  As in the JAX module, the step of each scenario is that
+of the block-layout `rcs.lm_step` (block-Jacobi PCG: the exact camera
+blocks and the exact global block), in either layout of `rcs.LAYOUTS`: a
+file-order fleet runs unpadded.  It is one batched program over a leading
+S axis: `torch.func.vmap` over `rcs.prepare`, `rcs.schur_matvec` and
+`rcs.back_substitute_points`, and a PCG whose scalars (alpha, beta, the
+best iterate, the stop) are per scenario.  A scenario that has met its own
+stop is frozen, as a `vmap` of JAX's `while_loop` freezes it: its iterate
+and its count stay where they stopped while the others go on.  The loop
+reads the [S] stop mask once per iteration.  Elementwise work and the
+per-point sums are batched; every other reduction and product runs once
+per scenario (`rcs._PerItem`), so each scenario's step is that of
+`rcs.lm_step` on its own network bit for bit: a batched sum rounds
+otherwise, and near the f64 floor those bits move the CG count by up to
+~10 iterations.  No CUDA kernel runs here.
 """
 
 from __future__ import annotations
@@ -25,29 +30,27 @@ import torch
 from torch.func import vmap
 
 from ..models.problem import ParamState
-from . import engine, rcs
+from . import rcs
 
 
 class ScenarioBatch(NamedTuple):
-    """S problems of one static shape.  ``problem``: the shared
-    feature-major problem (its index arrays, layouts and masks; its
-    observations are not read); per scenario the observations, their 2x2
-    weights and the parameters, each with a leading S axis."""
+    """S problems of one static shape.  ``problem``: the shared tensor
+    `rcs.RCSProblem` (its index arrays and layouts; its observations are
+    not read); per scenario the observations, their 2x2 weights and the
+    parameters, each with a leading S axis."""
 
-    problem: engine.FMProblem
+    problem: rcs.RCSProblem
     obs_xy: torch.Tensor       # [S, N, 2]
     obs_weight: torch.Tensor   # [S, N, 2, 2]
     states: ParamState         # leading S axis on every block
 
 
-def make_batch(problem, obs_xy_batch, obs_weight_batch,
+def make_batch(problem: rcs.RCSProblem, obs_xy_batch, obs_weight_batch,
                states: ParamState) -> ScenarioBatch:
-    """A batch on the device of ``problem`` (a tensor `rcs.RCSProblem`,
-    converted by `engine.fm_problem`, or an `engine.FMProblem`) in its
-    float dtype; the per-scenario arrays may be numpy."""
-    if isinstance(problem, rcs.RCSProblem):
-        problem = engine.fm_problem(problem)
-    dev, dt = problem.obs_x.device, problem.obs_x.dtype
+    """A batch on the device of ``problem`` (a tensor `rcs.RCSProblem` in
+    either layout; a file-order one carries its point order) in its float
+    dtype; the per-scenario arrays may be numpy."""
+    dev, dt = problem.obs_xy.device, problem.obs_xy.dtype
 
     def t(a):
         if not isinstance(a, torch.Tensor):
@@ -74,9 +77,12 @@ def _pcg_frozen(rc, rg, apply_M, matvec, tol, maxiter):
     scenario that stops is frozen.  The stop rule is `rcs.pcg`'s, its
     quantities compared in float64 as `rcs.pcg` compares Python floats.
     Returns (xc, xg, iterations [S] int64)."""
+    def dot_one(a, b, c, d):  # `rcs.pcg`'s, each sum per scenario
+        return rcs._per_item(torch.sum, a * c) \
+            + rcs._per_item(torch.sum, b * d)
+
     def dot(ac, ag, bc_, bg_):
-        return vmap(lambda a, b, c, d: torch.sum(a * c) + torch.sum(b * d))(
-            ac, ag, bc_, bg_)
+        return vmap(dot_one)(ac, ag, bc_, bg_)
 
     S = rc.shape[0]
     stall_limit = 8 if rc.dtype == torch.float32 else maxiter + 1
@@ -126,27 +132,25 @@ def _pcg_frozen(rc, rg, apply_M, matvec, tol, maxiter):
 
 
 def prepare_batch(batch: ScenarioBatch, spec, damping):
-    """`engine.prepare` (coupled preconditioner, as `engine.lm_step`) of
-    every scenario, vmapped: (blocks, rc [S, M, 6], rg [S, G],
-    preconditioner), blocks and preconditioner as dicts of their tensor
-    fields with a leading S axis."""
+    """`rcs.prepare` (block Jacobi, as `rcs.lm_step`) of every scenario,
+    vmapped: (blocks, rc [S, M, 6], rg [S, G], preconditioner), blocks and
+    preconditioner as dicts of their tensor fields with a leading S
+    axis."""
     p = batch.problem
 
     def prepare_one(xy, w, st):
-        q = p._replace(obs_x=xy[:, 0], obs_y=xy[:, 1], wxx=w[:, 0, 0],
-                       wxy=w[:, 0, 1], wyy=w[:, 1, 1])
-        b, rc, rg, Minv = engine.prepare(q, st, spec, damping,
-                                         couple_global=True)
+        b, rc, rg, Minv = rcs.prepare(p._replace(obs_xy=xy, obs_weight=w),
+                                      st, spec, damping)
         return _fields(b), rc, rg, _fields(Minv)
 
     return vmap(prepare_one)(batch.obs_xy, batch.obs_weight, batch.states)
 
 
-def matvec_batch(p: engine.FMProblem, blocks: dict, xc, xg):
-    """`engine.schur_matvec` of every scenario ([S, M, 6], [S, G]),
-    vmapped over `prepare_batch`'s blocks."""
+def matvec_batch(p: rcs.RCSProblem, blocks: dict, xc, xg):
+    """`rcs.schur_matvec` of every scenario ([S, M, 6], [S, G]), vmapped
+    over `prepare_batch`'s blocks."""
     def matvec_one(bd_, c, g):
-        return engine.schur_matvec(p, _rebuild(engine.FMBlocks, bd_), c, g)
+        return rcs.schur_matvec(p, _rebuild(rcs.Blocks, bd_), c, g)
 
     return vmap(matvec_one)(blocks, xc, xg)
 
@@ -154,7 +158,7 @@ def matvec_batch(p: engine.FMProblem, blocks: dict, xc, xg):
 def scenario_lm_step(batch: ScenarioBatch, spec, damping, cg_tol=1e-8,
                      cg_maxiter=100):
     """One LM iteration for every scenario at once, the step of
-    `engine.lm_step` (plain path, its default preconditioner and stall
+    `rcs.lm_step` (its block-Jacobi preconditioner and `rcs.pcg`'s stop
     rule) per scenario.
 
     Returns (new_states, max_dx [S], omega0 [S], cg_iters [S])."""
@@ -169,8 +173,7 @@ def scenario_lm_step(batch: ScenarioBatch, spec, damping, cg_tol=1e-8,
         lambda c, g: matvec_batch(p, bd, c, g), cg_tol, cg_maxiter)
 
     def finish_one(bd_, st, c, g):
-        dxp = engine.back_substitute_points(
-            p, _rebuild(engine.FMBlocks, bd_), c, g)
+        dxp = rcs.back_substitute_points(p, _rebuild(rcs.Blocks, bd_), c, g)
         return rcs.apply_step(st, dxp, c, g)
 
     new_states, max_dx = vmap(finish_one)(bd, batch.states, xc, xg)

@@ -62,16 +62,12 @@ class RCSResult:
 ROUTE_KERNELS = {"point_major": ("K1", "K2", "K3"), "file": ("K3",)}
 
 
-def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
-                 use_kernels) -> bool:
-    """``solve``'s ``use_kernels`` (None, a bool, or kernel names) as a
-    bool for the problem's route; names the route does not run raise
-    ValueError that names the layout."""
-    layout = "file" if problem.point_uniform is None else "point_major"
-    f32_cuda = state.points.is_cuda and state.points.dtype == torch.float32
+def route_kernels(layout: str, use_kernels, default: bool) -> bool:
+    """``use_kernels`` (None, a bool, or kernel names) as a bool for the
+    route of ``layout``: None takes ``default``; names the route does not
+    run raise ValueError that names the layout."""
     if use_kernels is None:
-        # the FM kernels take one camera; K3 gathers any camera's EO
-        return f32_cuda and (layout == "file" or state.io.shape[0] == 1)
+        return default
     if isinstance(use_kernels, bool):
         return use_kernels
     names = set(use_kernels)
@@ -87,6 +83,17 @@ def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
         raise ValueError(f"the {layout!r} route runs {sorted(takes)} "
                          f"together, not {sorted(names)}")
     return bool(names)
+
+
+def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
+                 use_kernels) -> bool:
+    """``solve``'s ``use_kernels`` as a bool for the problem's route
+    (`route_kernels`)."""
+    layout = "file" if problem.point_uniform is None else "point_major"
+    f32_cuda = state.points.is_cuda and state.points.dtype == torch.float32
+    # the FM kernels take one camera; K3 gathers any camera's EO
+    return route_kernels(layout, use_kernels, f32_cuda and (
+        layout == "file" or state.io.shape[0] == 1))
 
 
 def solve(problem: rcs.RCSProblem, state: ParamState, spec,

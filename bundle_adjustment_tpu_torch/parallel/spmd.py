@@ -1,22 +1,29 @@
 """The observation-sharded LM step (port of
-`bundle_adjustment_tpu/parallel/spmd.py`) on the feature rows.
+`bundle_adjustment_tpu/parallel/spmd.py`) on the block-layout engine.
 
-Every rank holds a contiguous shard of the point-major observation rows
-(lane = point * V + view; a shard may split a point) and the replicated
-parameters.  Each rank linearises its rows and forms partial sums; the
-collectives combine them:
+Every rank holds a contiguous shard of the observation rows in the
+problem's own order (file order, or the point-major rows of a uniform
+problem; a shard may split a point), padded to a multiple of the ranks
+with zero-weight rows at point 0 / image 0 as the JAX module pads them,
+and the replicated parameters.  Each rank linearises its rows with
+`rcs.linearize` on a local `rcs.RCSProblem` of its rows (its own point
+order and blocked image layout), so that `rcs._seg_point` /
+`rcs._seg_image` give its [P, k] / [M, k] partial sums in a fixed order,
+without atomics; the collectives combine them:
 
-* per point: the rank's rows are written at their lanes into a zero
-  [P V, k] buffer and reshape-summed over the views (no atomics), then
-  psum-ed, so Hpp, bp and Hpg are global before Hpp^{-1} is applied;
-* per image: the blocked image layout of the rank's own rows, then psum;
-* global: plain sums, then psum.
+* per point: Hpp, bp and Hpg in one psum, so that they are global before
+  Hpp^{-1} is formed (the shard's own Hpp^{-1}, the inverse of a partial
+  sum, is not used), and Hpx x in each matvec;
+* per image and global: the right-hand side, the camera blocks, Hgg and
+  Omega in one psum, and the image and global sums of each matvec in one.
 
 The PCG runs on every rank on the replicated reduced quantities with the
-exact camera-block and global-block preconditioners (as the JAX module:
-no camera-global coupling, no best-iterate or stall rule), one psum per
-point and image sum of each matvec.  Gauss-Newton (no damping), as the
-JAX step.  The point-sharded step of the flagship engine is `spmd_fm`.
+exact camera-block and global-block preconditioners (as the JAX module: no
+camera-global coupling, no best-iterate or stall rule), two psums per
+matvec.  Gauss-Newton (no damping), as the JAX step.  K3 gathers the EO
+rows of the linearisation and the back-substitution where ``use_kernels``
+says so (as `solver.solve`'s file route).  The point-sharded step of the
+flagship engine is `spmd_fm`.
 """
 
 from __future__ import annotations
@@ -26,192 +33,127 @@ from typing import NamedTuple
 import torch
 
 from ..models.problem import ParamState
-from . import engine, rcs
+from . import kernels, rcs, solver
 from .sharding import pad_to_multiple
 
 
 class ShardedProblem(NamedTuple):
-    """This rank's rows of a point-major problem (pad rows: zero weight,
-    lanes past P V) and the replicated metadata."""
+    """This rank's rows of a problem and where they lie in it."""
 
-    lane: torch.Tensor        # [n] int64 global lane of each row
-    obs_image: torch.Tensor   # [n] int64
-    obs_xy: torch.Tensor      # [n, 2]
-    obs_weight: torch.Tensor  # [n, 2, 2]
-    img_perm: torch.Tensor    # the rank's blocked image layout
-    img_block_starts: torch.Tensor
-    r0: torch.Tensor          # [C]
-    cam_of_image: torch.Tensor  # [M] int64
-    free_point: torch.Tensor  # [P, 3]
-    free_eo: torch.Tensor     # [M, 6]
-    free_global: torch.Tensor  # [G]
-    num_points: int
-    num_images: int
-    views: int
-    rows_padded: int          # N padded to a multiple of the ranks
-    offset: int               # lane of the rank's first row
+    problem: rcs.RCSProblem  # the rows as a file-order problem (pad rows last)
+    offset: int              # the problem's row at which the shard starts
+    rows: int                # the problem's rows in the shard; then pad rows
+    rows_padded: int         # N padded to a multiple of the ranks
 
 
 def shard_problem(problem: rcs.RCSProblem, comm) -> ShardedProblem:
-    """This rank's contiguous shard of a tensor RCSProblem (uniform
-    point-major layout) on ``comm.device``: rows [r Np / D, (r + 1) Np /
-    D) of the observations padded to Np, a multiple of the ranks, with
-    zero-weight pad rows.  Scale bars, inner constraints and direct
+    """This rank's contiguous shard of a tensor RCSProblem in either layout
+    on ``comm.device``: rows [r Np / D, (r + 1) Np / D) of the observations
+    in the problem's order, padded to Np, a multiple of the ranks, with
+    zero-weight rows at point 0 / image 0; the shard's point order and
+    blocked image layout.  Scale bars, inner constraints and direct
     observations are not taken (ValueError)."""
-    if problem.point_uniform is None:
-        raise ValueError("shard_problem takes the uniform point-major layout")
     if problem.has_extras or any(getattr(problem, f) is not None for f in (
             "dp_w", "de_w", "dg_w")):
         raise ValueError("the observation-sharded step takes image "
                          "observations only")
     D, r = comm.size, comm.rank
-    P, V, M = problem.num_points, problem.point_uniform, problem.num_images
-    N = P * V
+    P, M = problem.num_points, problem.num_images
+    N = int(problem.obs_point.shape[0])
     Np = pad_to_multiple(N, D)
     n = Np // D
-    lo, hi = r * n, min((r + 1) * n, N)
-    k = max(hi - lo, 0)
+    lo = r * n
+    k = max(min(lo + n, N) - lo, 0)
     dev = comm.device
     dt = problem.obs_xy.dtype
 
-    def rows(a, tail):
+    def rows(a):
         a = a[lo:lo + k].to(dev)
-        return torch.cat([a, a.new_zeros((n - k,) + tuple(tail))])
+        return torch.cat([a, a.new_zeros((n - k,) + tuple(a.shape[1:]))])
 
-    obs_image = rows(problem.obs_image, ()).long()
+    obs_point = rows(problem.obs_point).to(torch.int32)
+    obs_image = rows(problem.obs_image).to(torch.int32)
+    order, counts = rcs.point_order(obs_point.cpu().numpy(), P)
     perm, starts = rcs.build_image_block_layout(obs_image.cpu().numpy(), M)
     cam = problem.cam_of_image
-    cam = torch.zeros(M, dtype=torch.int64) if cam is None else cam.long()
-    return ShardedProblem(
-        lane=torch.arange(lo, lo + n, device=dev), obs_image=obs_image,
-        obs_xy=rows(problem.obs_xy, (2,)),
-        obs_weight=rows(problem.obs_weight, (2, 2)),
-        img_perm=torch.as_tensor(perm, device=dev),
-        img_block_starts=torch.as_tensor(starts, device=dev),
-        r0=problem.r0.to(dev), cam_of_image=cam.to(dev),
+    local = rcs.RCSProblem(
+        obs_point=obs_point, obs_image=obs_image,
+        obs_xy=rows(problem.obs_xy), obs_weight=rows(problem.obs_weight),
+        r0=problem.r0.to(dev), num_points=P, num_images=M,
         free_point=problem.free_point.to(dev, dt),
         free_eo=problem.free_eo.to(dev, dt),
         free_global=problem.free_global.to(dev, dt),
-        num_points=P, num_images=M, views=V, rows_padded=Np, offset=lo)
-
-
-def _point_sum(sp: ShardedProblem, x, comm):
-    """[n, k] per-row terms -> [P, k] global per-point sums: the rows at
-    their lanes of a zero [Np, k] buffer, summed over the views, psum."""
-    buf = x.new_zeros((sp.rows_padded, x.shape[1]))
-    buf[sp.offset:sp.offset + x.shape[0]] = x
-    P, V = sp.num_points, sp.views
-    return comm.psum(buf[:P * V].reshape(P, V, -1).sum(dim=1))
-
-
-def _image_sum(sp: ShardedProblem, x, comm):
-    """[n, k] -> [M, k] global per-image sums."""
-    return comm.psum(engine._image_sum_stack(sp, list(x.unbind(1))))
-
-
-def linearize_rows(sp: ShardedProblem, state: ParamState, spec):
-    """(Jp [n, 2, 3], Jc [n, 2, 6], Jg [n, 2, G], w [n, 2]) of the rank's
-    rows, fixed parameters masked (a camera's global columns only on its
-    images' rows)."""
-    from ..ops import fm
-
-    P, V = sp.num_points, sp.views
-    pt = torch.clamp(sp.lane // V, max=P - 1)
-    img = sp.obs_image
-    X, Y, Z = (state.points[pt, a] for a in range(3))
-    eo = [state.eo[img, a] for a in range(6)]
-    cams = sp.cam_of_image[img]
-    C, K = state.io.shape[0], state.dist.shape[1]
-    Gp = 3 + K
-    rows_x, rows_y, pred_x, pred_y = fm.jacobian_rows(
-        X, Y, Z, *(state.io[cams, a] for a in range(3)), *eo,
-        [state.dist[cams, k] for k in range(K)], spec, sp.r0[cams])
-    w = sp.obs_xy - torch.stack([pred_x, pred_y], dim=1)
-    one, zero = torch.ones_like(X), torch.zeros_like(X)
-
-    fp = sp.free_point[pt]
-    fe = sp.free_eo[img]
-    Jp = torch.stack([torch.stack(rows_x[:3], 1), torch.stack(rows_y[:3], 1)],
-                     dim=1) * fp[:, None, :]
-    Jc = torch.stack([torch.stack(rows_x[6:12], 1),
-                      torch.stack(rows_y[6:12], 1)], dim=1) * fe[:, None, :]
-    gx = torch.stack([one, zero, rows_x[5]] + rows_x[12:12 + K], 1)
-    gy = torch.stack([zero, one, rows_y[5]] + rows_y[12:12 + K], 1)
-    onehot = (cams[:, None] == torch.arange(C, device=cams.device)).to(X.dtype)
-    Jg = (torch.stack([gx, gy], dim=1)[:, :, None, :]
-          * onehot[:, None, :, None]).reshape(-1, 2, C * Gp) \
-        * sp.free_global
-    return Jp, Jc, Jg, w
+        img_perm=torch.as_tensor(perm, device=dev),
+        img_block_starts=torch.as_tensor(starts, device=dev),
+        cam_of_image=None if cam is None else cam.to(dev),
+        point_order=torch.as_tensor(order, device=dev),
+        point_counts=torch.as_tensor(counts, device=dev))
+    return ShardedProblem(problem=local, offset=lo, rows=k, rows_padded=Np)
 
 
 def make_spmd_lm_step(sp: ShardedProblem, spec, comm, cg_tol=1e-8,
-                      cg_maxiter=100):
+                      cg_maxiter=100, use_kernels=None):
     """The observation-sharded Gauss-Newton step on this rank: returns
     ``step(state) -> (new_state, max_dx, omega0, cg_it)`` with the state
-    replicated (the same on every rank in and out; max_dx and omega0 0-d
-    tensors, cg_it an int)."""
-    P2 = sp.obs_weight
-    extra_c = 1.0 - sp.free_eo
-    extra_g = 1.0 - sp.free_global
-    pt = torch.clamp(sp.lane // sp.views, max=sp.num_points - 1)
-    img = sp.obs_image
+    replicated on ``comm.device`` in the problem's dtype (the same on
+    every rank in and out; max_dx and omega0 0-d tensors, cg_it an int).
+    ``use_kernels``: as `solver.solve`'s on the file order
+    (`solver.ROUTE_KERNELS["file"]`): None runs K3 for f32 CUDA tensors,
+    a bool says so, naming K1 or K2 raises ValueError."""
+    lp = sp.problem
+    f32_cuda = lp.obs_xy.is_cuda and lp.obs_xy.dtype == torch.float32
+    cg = kernels.make_cam_gather(lp) \
+        if solver.route_kernels("file", use_kernels, f32_cuda) else None
+    P, M = lp.num_points, lp.num_images
+    extra_c = 1.0 - lp.free_eo
+    extra_g = 1.0 - lp.free_global
 
     def step(state: ParamState):
-        Jp, Jc, Jg, w = linearize_rows(sp, state, spec)
-        PJp = torch.einsum("nij,nja->nia", P2, Jp)
-        PJc = torch.einsum("nij,nja->nia", P2, Jc)
-        PJg = torch.einsum("nij,nja->nia", P2, Jg)
-        Pw = torch.einsum("nij,nj->ni", P2, w)
-        omega0 = comm.psum(torch.sum(w * Pw))
-        G = Jg.shape[2]
+        b = rcs.linearize(lp, state, spec, 0.0, skip_image_reductions=True,
+                          cam_gather=cg)
+        G = b.Jg.shape[2]
+        Pw = (b.P2 * b.w[:, None, :]).sum(dim=2)
 
-        # global per-point blocks: Hpp (+ unit rows for fixed coordinates),
-        # bp and Hpg in one psum
-        hpp = torch.einsum("nia,nib->nab", Jp, PJp).reshape(-1, 9)
-        bpo = torch.einsum("nia,ni->na", Jp, Pw)
-        hpg = torch.einsum("nia,nig->nag", Jp, PJg).reshape(-1, 3 * G)
-        pts = _point_sum(sp, torch.cat([hpp, bpo, hpg], dim=1), comm)
-        Hpp = pts[:, :9].reshape(-1, 3, 3) + torch.diag_embed(
-            1.0 - sp.free_point)
-        Hpp_inv = torch.linalg.inv(Hpp)
+        # per point: Hpp, bp and Hpg, global before Hpp^{-1}
+        pts = comm.psum(rcs._seg_point(lp, torch.cat([
+            rcs._tt(b.Jp, b.PJp).reshape(-1, 9), rcs._tv(b.Jp, Pw),
+            rcs._tt(b.Jp, b.PJg).reshape(-1, 3 * G)], dim=1)))
+        Hpp_inv = torch.linalg.inv_ex(
+            pts[:, :9].reshape(P, 3, 3)
+            + torch.diag_embed(1.0 - lp.free_point))[0]
         bp = pts[:, 9:12]
-        Hpg = pts[:, 12:].reshape(-1, 3, G)
-        bc = _image_sum(sp, torch.einsum("nia,ni->na", Jc, Pw), comm)
-        bg = comm.psum(torch.einsum("nig,ni->g", Jg, Pw))
+        Hpg = pts[:, 12:].reshape(P, 3, G)
+        b = b._replace(Hpp_inv=Hpp_inv, bp=bp, extra_c=extra_c,
+                       extra_g=extra_g)
 
-        def t_rows(xc, xg):
-            return torch.einsum("nia,na->ni", PJc, xc[img]) \
-                + torch.einsum("nig,g->ni", PJg, xg)
+        # per image and global: rc, the camera blocks of S, rg, Hgg, Omega
+        u0 = rcs._mv(b.PJp, rcs._expand_point(lp, rcs._hv(Hpp_inv, bp)))
+        img = rcs._seg_image(lp, torch.cat([
+            rcs._tv(b.Jc, Pw - u0), rcs._scc_terms(lp, b).reshape(-1, 36)],
+            dim=1))
+        glob = torch.cat([rcs._tv(b.Jg, Pw - u0).sum(dim=0),
+                          (b.Jg.reshape(-1, G).T
+                           @ b.PJg.reshape(-1, G)).reshape(-1),
+                          b.omega0.reshape(1)])
+        red = comm.psum(torch.cat([img.reshape(-1), glob]))
+        img, glob = red[:M * 42].reshape(M, 42), red[M * 42:]
+        rc, rg, omega0 = img[:, :6], glob[:G], glob[-1]
+        Hgg = glob[G:G + G * G].reshape(G, G) + torch.diag(extra_g)
+        Sgg = Hgg - Hpg.reshape(-1, G).T @ (Hpp_inv @ Hpg).reshape(-1, G)
+        apply_M = rcs.make_apply_M(rcs.Precond(
+            Minv_c=torch.linalg.inv_ex(img[:, 6:].reshape(M, 6, 6)
+                                       + torch.diag_embed(extra_c))[0],
+            Minv_g=torch.linalg.inv_ex(Sgg)[0]))
 
         def matvec(xc, xg):
-            t = t_rows(xc, xg)
-            y = _point_sum(sp, torch.einsum("nia,ni->na", Jp, t), comm)
-            z = torch.einsum("pab,pb->pa", Hpp_inv, y)
-            tv = t - torch.einsum("nia,na->ni", PJp, z[pt])
-            oc = _image_sum(sp, torch.einsum("nia,ni->na", Jc, tv), comm)
-            og = comm.psum(torch.einsum("nig,ni->g", Jg, tv))
-            return oc + extra_c * xc, og + extra_g * xg
-
-        # rhs
-        z0 = torch.einsum("pab,pb->pa", Hpp_inv, bp)
-        u0 = torch.einsum("nia,na->ni", PJp, z0[pt])
-        rc = bc - _image_sum(sp, torch.einsum("nia,ni->na", Jc, u0), comm)
-        rg = bg - comm.psum(torch.einsum("nig,ni->g", Jg, u0))
-
-        # exact camera blocks (per-observation Schur correction) and the
-        # exact global block
-        Hpc = torch.einsum("nia,nib->nab", Jp, PJc)
-        corr = torch.einsum("nab,nac,ncd->nbd", Hpc, Hpp_inv[pt], Hpc)
-        Scc = _image_sum(sp, (torch.einsum("nia,nib->nab", Jc, PJc)
-                              - corr).reshape(-1, 36), comm).reshape(-1, 6, 6)
-        Minv_c = torch.linalg.inv(Scc + torch.diag_embed(extra_c))
-        Hgg = comm.psum(torch.einsum("nia,nib->ab", Jg, PJg)) \
-            + torch.diag(extra_g)
-        Sgg = Hgg - torch.einsum("pag,pab,pbh->gh", Hpg, Hpp_inv, Hpg)
-        Minv_g = torch.linalg.inv(Sgg)
-
-        def apply_M(rc_, rg_):
-            return torch.einsum("mab,mb->ma", Minv_c, rc_), Minv_g @ rg_
+            y, t = rcs._hpx(lp, b, xc, xg)
+            z = rcs._hv(Hpp_inv, comm.psum(y))
+            tv = t - rcs._mv(b.PJp, rcs._expand_point(lp, z))
+            o = comm.psum(torch.cat([
+                rcs._seg_image(lp, rcs._tv(b.Jc, tv)).reshape(-1),
+                rcs._tv(b.Jg, tv).sum(dim=0)]))
+            return (o[:M * 6].reshape(M, 6) + extra_c * xc,
+                    o[M * 6:] + extra_g * xg)
 
         def dot(ac, ag, bc_, bg_):
             return torch.sum(ac * bc_) + torch.sum(ag * bg_)
@@ -236,10 +178,9 @@ def make_spmd_lm_step(sp: ShardedProblem, spec, comm, cg_tol=1e-8,
             it += 1
 
         # back-substitution (a global point sum)
-        y = _point_sum(sp, torch.einsum("nia,ni->na", Jp, t_rows(xc, xg)),
-                       comm)
-        dxp = torch.einsum("pab,pb->pa", Hpp_inv, bp - y)
-        new_state, max_dx = rcs.apply_step(state, dxp, xc, xg)
+        y = comm.psum(rcs._hpx(lp, b, xc, xg, cg)[0])
+        new_state, max_dx = rcs.apply_step(state, rcs._hv(Hpp_inv, bp - y),
+                                           xc, xg)
         return new_state, max_dx, omega0, it
 
     return step

@@ -311,6 +311,19 @@ def _real_points(problem) -> int:
     return int(np.flatnonzero(seen > 0).max()) + 1
 
 
+def thin_rows(problem, views=12, every=100):
+    """The rows `thin_views` keeps of a `build_problem` network, in its
+    file order: (rows [N'] int64 into the problem's rows, the points
+    kept)."""
+    P, V = problem.num_points, problem.point_uniform
+    n = _real_points(problem)
+    pt = np.repeat(np.arange(P), V)
+    view = np.tile(np.arange(V), P)
+    keep = np.flatnonzero((pt < n) & ((view < views) | (pt % every == 0)))
+    obs_image = np.asarray(problem.obs_image)[keep]
+    return keep[np.argsort(obs_image, kind="stable")], n
+
+
 def thin_views(problem, state, views=12, every=100):
     """A network of uneven visibility cut from a `build_problem` network
     (host arrays in, host arrays out): point p keeps all its views where
@@ -318,15 +331,9 @@ def thin_views(problem, state, views=12, every=100):
     keeps the network consistent; noise and start stay as they were);
     the dummy points dropped; the observations in file order grouped by
     image (a stable sort by image, as an image-coordinate file lists
-    them), ``point_uniform`` None, the blocked image layout rebuilt.
-    Returns (problem, state)."""
-    P, V = problem.num_points, problem.point_uniform
-    n = _real_points(problem)
-    pt = np.repeat(np.arange(P), V)
-    view = np.tile(np.arange(V), P)
-    keep = np.flatnonzero((pt < n) & ((view < views) | (pt % every == 0)))
-    obs_image = np.asarray(problem.obs_image)[keep]
-    rows = keep[np.argsort(obs_image, kind="stable")]
+    them; `thin_rows`), ``point_uniform`` None, the blocked image layout
+    rebuilt.  Returns (problem, state)."""
+    rows, n = thin_rows(problem, views, every)
     obs_image = np.asarray(problem.obs_image)[rows]
     img_perm, img_bstarts = build_image_block_layout(obs_image,
                                                      problem.num_images)
@@ -338,6 +345,21 @@ def thin_views(problem, state, views=12, every=100):
         img_perm=img_perm, img_block_starts=img_bstarts,
         point_uniform=None), \
         state._replace(points=np.asarray(state.points)[:n])
+
+
+def thin_scenarios(problem, obs_xy, obs_weight, states, views=12,
+                   every=100):
+    """`thin_views` of a `scenario_batch` fleet: the same rows
+    (`thin_rows`) cut from every scenario's observations and weights and
+    the dummy points from every state, so the fleet keeps one index
+    structure, in file order.  Returns (problem, obs_xy [S, N', 2],
+    obs_weight [S, N', 2, 2], states), host arrays."""
+    rows, n = thin_rows(problem, views, every)
+    thinned, _ = thin_views(problem, ParamState(*(a[0] for a in states)),
+                            views, every)
+    return (thinned, np.asarray(obs_xy)[:, rows],
+            np.asarray(obs_weight)[:, rows],
+            states._replace(points=np.asarray(states.points)[:, :n]))
 
 
 def as_read_from_files(problem, state):

@@ -225,21 +225,36 @@ Phases (any failed check exits non-zero, before the result line):
      within 1e-8 of their largest entry, every rank's S the same bits;
      times of the assembly, the factorisation (against
      `torch.linalg.cholesky`), the solve and the columns.  (d) `spmd`
-     (observation-sharded Gauss-Newton, cg_tol 1e-13) against the engine's
-     Gauss-Newton step: points and eo within 1e-9, max_dx rtol 1e-8,
-     omega0 rtol 1e-10 (tests/test_spmd.py:44-49).  Wall time per step for
-     each world size; no kernel launch in any rank (gated).
-  14. the scenario fleet (parallel/scenario.py): synthetic.scenario_batch
-     of 16 networks of 5,000 points / 50 images / 12 views sharing one
-     index structure (BASELINE config 3's network as config 5's fleet),
-     float64, one `scenario_lm_step` (damping 1e-4, cg_tol 1e-14) against
-     `engine.lm_step` on each network in turn: per scenario the state,
-     max_dx and omega0 within 1e-12 relative and the CG count within 3 of
-     its own step's (the batched reductions sum in another order, and a
-     CG count near the floor follows the last bits; the equal counts are
+     (observation-sharded Gauss-Newton on the block-layout engine, cg_tol
+     1e-13) on the point-major rows against the engine's Gauss-Newton
+     step: points and eo within 1e-9, max_dx rtol 1e-8, omega0 rtol 1e-10
+     (tests/test_spmd.py:44-49).  (e) the same step on phase 15's network
+     in file order (N = 1,252,000 rows, each rank's contiguous shard, no
+     padding beyond a multiple of the ranks; built once and handed to the
+     ranks as an .npz in .chipwork/) against `rcs.lm_step` on the card,
+     with (d)'s gates; rows per rank, peak memory per rank and the bytes
+     all-reduced per matvec printed; at world size 1 one f32 step through
+     K3 (`use_kernels` None) equal bit for bit to the same step on the
+     plain gather, K3 launched and K1 / K2 not (its K3 launches join the
+     kernels line).  Wall time per step for each world size; no kernel
+     launch in any rank but (e)'s f32 step through K3 (gated).
+  14. the scenario fleets (parallel/scenario.py, JAX's route: the
+     block-layout `rcs.lm_step` vmapped): synthetic.scenario_batch of 16
+     networks of 5,000 points / 50 images / 12 views sharing one index
+     structure (BASELINE config 3's network as config 5's fleet), and the
+     file-order fleet of `synthetic.thin_scenarios`: 16 networks of 5,000
+     points in all 50 images cut so that every 10th point keeps its 50
+     views and the rest 12 (N = 79,000 rows against 250,000 padded; the
+     layout rule must pick "file"); each in float64, one
+     `scenario_lm_step` (damping 1e-4, cg_tol 1e-14) against `rcs.lm_step`
+     on each network in turn: per scenario the state, max_dx and omega0
+     within 1e-12 relative and the CG count within 3 of its own step's
+     (the batched reductions sum in another order on the card, and a CG
+     count near the floor follows the last bits; the equal counts are
      printed, and recorded: the same comparison at cg_tol 1e-12, and the
-     gaps between the vmapped and the unbatched rg, Sghat^-1 and matvec
-     of scenario 0); the batched
+     gaps between the vmapped and the unbatched rg, block-Jacobi blocks
+     and matvec of scenario 0); two batched runs equal bit for bit; no
+     `torch.func.vmap` fallback warning ("batching rule"); the batched
      step's time against the 16 sequential steps' (each run twice, the
      first recorded apart); no kernel launch.
   15. a network of uneven visibility (the block-layout engine of
@@ -265,8 +280,8 @@ Phases (any failed check exits non-zero, before the result line):
      equal to the control's.  K3's launches of (b) and (e) join the
      kernels line.
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6, 7, 8, 11 and 15, each between a reset and a read of the
-counters;
+phases 3, 5, 6, 7, 8, 11, 13 (e) and 15, each between a reset and a read
+of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -407,7 +422,14 @@ TP_COLUMN_TOL = 1e-8       # of their largest entry
 SPMD_CG_TOL = 1e-13        # tests/test_spmd.py:17-49: Gauss-Newton,
 SPMD_ATOL = 1e-9           # points / eo atol 1e-9, max_dx rtol 1e-8
 SPMD_MAXDX_RTOL = 1e-8
+SPMD_F32 = dict(cg_tol=1e-6, cg_maxiter=100)  # (e)'s f32 step through K3
 FLEET = (16, 5000, 50, 12)  # BASELINE config 3's network as config 5's fleet
+# the file-order fleet: 5,000 points in all 50 images, cut so that every
+# THIN_FLEET_EVERY-th point keeps its 50 views and the rest THIN_FLEET_KEEP
+# (N = 79,000 against 250,000 padded)
+THIN_FLEET = (16, 5000, 50, 50)
+THIN_FLEET_KEEP = 12
+THIN_FLEET_EVERY = 10
 FLEET_CG_TOL = 1e-14
 FLEET_CG_MAXITER = 1000
 FLEET_TOL = 1e-12          # state, max_dx, omega0 against each own step
@@ -2033,16 +2055,20 @@ def _timed(fn):
     return out, time.perf_counter() - t
 
 
-def sharded_rank(comm, shape):
+def sharded_rank(comm, shape, uneven_path):
     """Phase 13 on one rank of ``comm`` (a spawned process on the card):
     the point-sharded step (replicated and cam_shard, SHARD_STEPS steps
     each), the block-cyclic Cholesky of the reduced system and the
-    observation-sharded step, with wall times.  At world size 1 it also
-    computes the single-process references on the card: engine.lm_step
-    (SHARD_STEPS steps), torch.linalg.cholesky, PCG at TP_PCG_TOL,
-    torch.cholesky_inverse, and the Gauss-Newton engine step of (d).
-    ``shape``: (points, images, views) of `synthetic.build_problem`.
-    Every value returned is on the host."""
+    observation-sharded step on the uniform network and, (e), on the
+    file-order network saved at ``uneven_path`` (`save_network`), with
+    wall times.  At world size 1 it also computes the single-process
+    references on the card: engine.lm_step (SHARD_STEPS steps),
+    torch.linalg.cholesky, PCG at TP_PCG_TOL, torch.cholesky_inverse, the
+    Gauss-Newton engine step of (d) and `rcs.lm_step` of (e), and runs
+    (e)'s f32 step through K3 and on the plain gather.  ``shape``:
+    (points, images, views) of `synthetic.build_problem`.  Every value
+    returned is on the host; ``launches`` counts (a)-(e) but (e)'s f32
+    step through K3, which ``launches_k3`` counts."""
     import hashlib
 
     import torch
@@ -2133,8 +2159,86 @@ def sharded_rank(comm, shape):
         s, mdx = rcs.apply_step(st, dxp, dxc, dxg)
         out["spmd_ref"] = _state_rec(*s, max_dx=float(mdx),
                                      omega0=float(b.omega0), it=it, s=sec)
+    del sp, step, fmp
+
+    # (e): the observation-sharded step on the file-order network
+    fh, fsh = load_network(uneven_path)
+    p64 = convert.problem_to_torch(fh, dev, torch.float64)
+    s64 = convert.state_to_torch(fsh, dev, torch.float64)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    sp = spmd.shard_problem(p64, comm)
+    step = spmd.make_spmd_lm_step(sp, spec, comm, cg_tol=SPMD_CG_TOL,
+                                  cg_maxiter=SHARD_CG_MAXITER)
+    (new, mdx, om, it), sec = _timed(lambda: step(s64))
+    out["spmd_file"] = _state_rec(
+        *new, max_dx=float(mdx), omega0=float(om), it=it, s=sec,
+        rows=sp.rows, rows_padded=sp.rows_padded,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+        else float("nan"))
+    if comm.size == 1:
+        (dxp, dxc, dxg, b, it), sec = _timed(lambda: rcs.lm_step(
+            p64, s64, spec, 0.0, cg_tol=SPMD_CG_TOL,
+            cg_maxiter=SHARD_CG_MAXITER))
+        s, mdx = rcs.apply_step(s64, dxp, dxc, dxg)
+        out["spmd_file_ref"] = _state_rec(*s, max_dx=float(mdx),
+                                          omega0=float(b.omega0), it=it,
+                                          s=sec)
+    del sp, step, p64, s64
     out["launches"] = kernels.launch_counts()
+    if comm.size == 1:  # the f32 step through K3, then on the plain gather
+        sp = spmd.shard_problem(
+            convert.problem_to_torch(fh, dev, torch.float32), comm)
+        s32 = convert.state_to_torch(fsh, dev, torch.float32)
+        runs = []
+        for use in (None, False):
+            step = spmd.make_spmd_lm_step(sp, spec, comm, **SPMD_F32,
+                                          use_kernels=use)
+            step(s32)  # warm
+            kernels.reset_launch_counts()
+            (new, mdx, om, it), sec = _timed(lambda: step(s32))
+            runs.append((new, float(mdx), float(om), it, sec,
+                         kernels.launch_counts()))
+        (k_new, k_mdx, k_om, k_it, k_s, k_l), (p_new, p_mdx, p_om, p_it,
+                                               p_s, _) = runs
+        out["launches_k3"] = k_l
+        out["spmd_file_f32"] = dict(
+            equal_bits=all(torch.equal(a, b) for a, b in zip(k_new, p_new))
+            and (k_mdx, k_om, k_it) == (p_mdx, p_om, p_it),
+            cg=k_it, s=k_s, plain_s=p_s, max_dx=k_mdx)
     return out
+
+
+def save_network(path, problem, state):
+    """A file-order host network (`synthetic.thin_views`) as one .npz the
+    rank processes read (`load_network`)."""
+    import numpy as np
+
+    arrays = {f"p_{k}": np.asarray(v) for k, v in problem._asdict().items()
+              if v is not None and k not in ("num_points", "num_images")}
+    arrays.update({f"s_{k}": np.asarray(v)
+                   for k, v in state._asdict().items()})
+    np.savez(path, num_points=problem.num_points,
+             num_images=problem.num_images, **arrays)
+
+
+def load_network(path):
+    """(problem, state) of `save_network`'s file, host arrays."""
+    import numpy as np
+
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.parallel.rcs import RCSProblem
+
+    with np.load(path) as z:
+        prob = RCSProblem(num_points=int(z["num_points"]),
+                          num_images=int(z["num_images"]),
+                          **{k[2:]: z[k] for k in z.files
+                             if k.startswith("p_")})
+        state = ParamState(**{k[2:]: z[k] for k in z.files
+                              if k.startswith("s_")})
+    return prob, state
 
 
 def _step_err(got, ref):
@@ -2163,22 +2267,37 @@ def _step_err(got, ref):
 def sharded_phase(shape=(NUM_POINTS, NUM_IMAGES, VIEWS),
                   launches=SHARD_LAUNCHES):
     """Phase 13 (see the module docstring).  Returns (summary dict, the
-    launch counts of the ranks: none, the sharded steps run the plain
-    path).  ``launches``: (world size, device, backend) of each launch."""
+    launch counts of the ranks' (a)-(e) but (e)'s f32 step through K3:
+    none, gated; the K3 launches of that step at world size 1).
+    ``launches``: (world size, device, backend) of each launch."""
     import shutil
 
     import torch
 
+    from bundle_adjustment_tpu_torch import synthetic
     from bundle_adjustment_tpu_torch.parallel import multihost
 
     work = WORK / "phase13"
     shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # (e)'s network, phase 15's, built once for every rank
+    t = time.perf_counter()
+    ph, sh, _ = synthetic.build_problem(shape[0], shape[1], UNEVEN_VIEWS,
+                                        seed=0)
+    fh, fsh = synthetic.thin_views(ph, sh, views=UNEVEN_KEEP,
+                                   every=UNEVEN_EVERY)
+    del ph
+    uneven_path = work / "uneven.npz"
+    save_network(uneven_path, fh, fsh)
+    log(f"(e)'s network: N = {fh.obs_point.shape[0]:,} rows in file order, "
+        f"built and saved in {time.perf_counter() - t:.1f} s")
+    del fh, fsh
     runs, walls = {}, {}
     for D, device, backend in launches:
         t = time.perf_counter()
         runs[D] = multihost.run_ranks(
-            sharded_rank, D, (shape,), workdir=work / f"ranks{D}",
-            device=device,
+            sharded_rank, D, (shape, str(uneven_path)),
+            workdir=work / f"ranks{D}", device=device,
             backend=backend, timeout=SHARD_TIMEOUT, wait=SHARD_WAIT,
             threads=SHARD_THREADS)
         walls[D] = time.perf_counter() - t
@@ -2316,6 +2435,56 @@ def sharded_phase(shape=(NUM_POINTS, NUM_IMAGES, VIEWS),
         out[f"spmd_{D}"] = dict(cg=res["it"], step_s=res["s"], points=dp,
                                 eo=de, max_dx_rel=dm, omega0_rel=dom)
     out["spmd_engine_s"] = sr["s"]
+
+    # (e) the observation-sharded step on the file-order network against
+    # rcs.lm_step, and its f32 step through K3 against the plain gather
+    fr = one["spmd_file_ref"]
+    for D in (1, 2):
+        res = runs[D][0]["spmd_file"]
+        dp = float((res["points"] - fr["points"]).abs().max())
+        de = float((res["eo"] - fr["eo"]).abs().max())
+        dm = abs(res["max_dx"] / fr["max_dx"] - 1.0)
+        dom = abs(res["omega0"] / fr["omega0"] - 1.0)
+        same = all(all(torch.equal(r["spmd_file"][n], res[n])
+                       for n in ("points", "io", "dist", "eo"))
+                   and r["spmd_file"]["it"] == res["it"] for r in runs[D])
+        rows = [r["spmd_file"]["rows"] for r in runs[D]]
+        peak = [round(r["spmd_file"]["peak_gb"], 3) for r in runs[D]]
+        # the two psums of each matvec: Hpx x [P, 3], then the image and
+        # global sums [M, 6] + [G]
+        mv_bytes = 8 * (3 * fr["points"].shape[0]
+                        + 6 * fr["eo"].shape[0] + fr["io"].numel()
+                        + fr["dist"].numel())
+        log(f"(e) spmd on the file order at {D} rank(s): rows per rank "
+            f"{rows} of {res['rows_padded']:,} (padded to the ranks); CG "
+            f"{res['it']} (rcs.lm_step {fr['it']}); points {dp:.2e}, eo "
+            f"{de:.2e} absolute; max_dx {dm:.2e}, omega0 {dom:.2e} "
+            f"relative; ranks equal: {same}; step {res['s']:.3f} s "
+            f"(rcs.lm_step {fr['s']:.3f} s); peak memory per rank {peak} "
+            f"GB; {mv_bytes / 1e6:.2f} MB all-reduced per matvec")
+        if not (dp <= SPMD_ATOL and de <= SPMD_ATOL
+                and dm <= SPMD_MAXDX_RTOL and dom <= SHARD_OMEGA_RTOL
+                and same):
+            problems.append(f"spmd file order at {D}: points {dp:.2e}, eo "
+                            f"{de:.2e}, max_dx {dm:.2e}, omega0 {dom:.2e}, "
+                            f"ranks equal {same}")
+        out[f"spmd_file_{D}"] = dict(
+            cg=res["it"], step_s=res["s"], rows=rows, peak_gb=peak,
+            points=dp, eo=de, max_dx_rel=dm, omega0_rel=dom,
+            matvec_allreduce_mb=mv_bytes / 1e6)
+    out["spmd_file_rcs_s"] = fr["s"]
+    out["spmd_file_rcs_cg"] = fr["it"]
+    f32 = one["spmd_file_f32"]
+    k3 = one["launches_k3"]
+    log(f"(e) f32 step at world size 1 through K3: {f32['cg']} CG in "
+        f"{f32['s']:.3f} s (plain gather {f32['plain_s']:.3f} s), equal "
+        f"bits to the plain gather's step: {f32['equal_bits']}; launches "
+        f"{k3}")
+    if not (f32["equal_bits"] and k3["cam_gather"] > 0
+            and k3["schur_matvec"] == 0 and k3["prepare_reduction"] == 0):
+        problems.append(f"spmd f32 through K3: equal bits "
+                        f"{f32['equal_bits']}, launches {k3}")
+    out["spmd_file_f32"] = f32
     launches = {}
     for D in (1, 2):
         for r in runs[D]:
@@ -2326,29 +2495,68 @@ def sharded_phase(shape=(NUM_POINTS, NUM_IMAGES, VIEWS),
                         f"{launches}")
     if problems:
         fail("phase 13: " + "; ".join(problems))
-    return out, launches
+    return out, launches, k3
 
 
-def fleet_phase(dev, fleet=FLEET):
+def fleet_phase(dev, fleet=FLEET, thin_fleet=THIN_FLEET):
     """Phase 14 (see the module docstring): ``fleet`` = (networks, points,
-    images, views).  Returns (summary dict, the launch counts of the
-    phase: none)."""
+    images, views), uniform; ``thin_fleet`` = the same with the views of
+    the network `synthetic.thin_scenarios` cuts to file order.  Returns
+    (summary dict, the launch counts of the phase: none)."""
+    import numpy as np
     import torch
 
     from bundle_adjustment_tpu_torch import convert, synthetic
-    from bundle_adjustment_tpu_torch.models.problem import ParamState
-    from bundle_adjustment_tpu_torch.parallel import (engine, kernels, rcs,
-                                                      scenario)
+    from bundle_adjustment_tpu_torch.parallel import kernels, rcs, scenario
 
     kernels.reset_launch_counts()
-    S, P, M, V = fleet
-    t = time.perf_counter()
-    prob_h, xy, w, states, spec = synthetic.scenario_batch(S, P, M, V, seed=0)
-    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
-    batch = scenario.make_batch(prob, xy, w, states)
-    log(f"fleet of {S} networks ({P} points, {M} images, {V} views; "
-        f"N = {prob.obs_image.shape[0]} rows each) built in "
-        f"{time.perf_counter() - t:.1f} s")
+    summary = {}
+    for name, shape in (("uniform", fleet), ("file", thin_fleet)):
+        S, P, M, V = shape
+        t = time.perf_counter()
+        prob_h, xy, w, states, spec = synthetic.scenario_batch(S, P, M, V,
+                                                               seed=0)
+        if name == "file":
+            prob_h, xy, w, states = synthetic.thin_scenarios(
+                prob_h, xy, w, states, views=THIN_FLEET_KEEP,
+                every=THIN_FLEET_EVERY)
+        layout = rcs.choose_layout(prob_h.obs_point, prob_h.num_points)
+        counts = np.bincount(prob_h.obs_point, minlength=prob_h.num_points)
+        padded = prob_h.num_points * int(counts.max())
+        prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+        batch = scenario.make_batch(prob, xy, w, states)
+        N = int(prob.obs_image.shape[0])
+        log(f"{name} fleet of {S} networks ({prob.num_points} points, {M} "
+            f"images, views {counts.min()}..{counts.max()}; N = {N:,} rows "
+            f"each against {padded:,} padded; the layout rule picks "
+            f"{layout!r}, the batch holds point_uniform "
+            f"{prob.point_uniform}) built in {time.perf_counter() - t:.1f} s")
+        if (name == "file") != (layout == "file" and prob.point_uniform
+                                is None):
+            fail(f"phase 14: the {name} fleet is laid out {layout!r} "
+                 f"(point_uniform {prob.point_uniform})")
+        summary[name] = _fleet_run(batch, spec, S)
+        summary[name].update(rows=N, padded_rows=padded)
+    launches = kernels.launch_counts()
+    log(f"phase 14 launches {launches}")
+    if any(launches.values()):
+        fail(f"phase 14: kernel launches {launches}")
+    return {"fleet": summary}, launches
+
+
+def _fleet_run(batch, spec, S):
+    """One fleet of phase 14: the batched step against `rcs.lm_step` on
+    each network (the gates), its repeat, the times, the fallback warning;
+    recorded: the same at cg_tol 1e-12 and the vmapped against the
+    unbatched blocks of scenario 0."""
+    import warnings
+
+    import torch
+
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.parallel import rcs, scenario
+
+    prob = batch.problem
 
     def batched(tol):
         return scenario.scenario_lm_step(batch, spec, SHARD_DAMPING,
@@ -2358,10 +2566,10 @@ def fleet_phase(dev, fleet=FLEET):
     def sequential(tol):
         res = []
         for s in range(S):
-            p = engine.fm_problem(prob._replace(
-                obs_xy=batch.obs_xy[s], obs_weight=batch.obs_weight[s]))
+            p = prob._replace(obs_xy=batch.obs_xy[s],
+                              obs_weight=batch.obs_weight[s])
             st = ParamState(*(a[s] for a in batch.states))
-            dxp, dxc, dxg, b, it = engine.lm_step(
+            dxp, dxc, dxg, b, it = rcs.lm_step(
                 p, st, spec, SHARD_DAMPING, cg_tol=tol,
                 cg_maxiter=FLEET_CG_MAXITER)
             new, mdx = rcs.apply_step(st, dxp, dxc, dxg)
@@ -2385,8 +2593,14 @@ def fleet_phase(dev, fleet=FLEET):
                 bad.append((s, int(its[s]), it1, e))
         return worst, bad, same_cg
 
-    _, t_b0 = _timed(lambda: batched(FLEET_CG_TOL))
-    out, t_b = _timed(lambda: batched(FLEET_CG_TOL))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out0, t_b0 = _timed(lambda: batched(FLEET_CG_TOL))
+        out, t_b = _timed(lambda: batched(FLEET_CG_TOL))
+    fallback = [str(c.message)[:120] for c in caught
+                if "batching rule" in str(c.message)]
+    repeat = all(torch.equal(a, b) for a, b in zip(out0[0], out[0])) \
+        and all(torch.equal(a, b) for a, b in zip(out0[1:], out[1:]))
     _, t_s0 = _timed(lambda: sequential(FLEET_CG_TOL))
     seq, t_s = _timed(lambda: sequential(FLEET_CG_TOL))
     worst, bad, same_cg = compare(out, seq)
@@ -2395,39 +2609,35 @@ def fleet_phase(dev, fleet=FLEET):
     # vmapped prepare and matvec against the unbatched ones (scenario 0)
     worst12, _, same12 = compare(batched(SHARD_CG_TOL),
                                  sequential(SHARD_CG_TOL))
-    bd, _rc, rg, md = scenario.prepare_batch(batch, spec, SHARD_DAMPING)
-    p0 = engine.fm_problem(prob._replace(obs_xy=batch.obs_xy[0],
-                                         obs_weight=batch.obs_weight[0]))
-    b0, rc0, rg0, M0 = engine.prepare(
-        p0, ParamState(*(a[0] for a in batch.states)), spec, SHARD_DAMPING,
-        couple_global=True)
-    oc, og = scenario.matvec_batch(batch.problem, bd, _rc, rg)
-    oc0, og0 = engine.schur_matvec(p0, b0, rc0, rg0)
+    bd, rc, rg, md = scenario.prepare_batch(batch, spec, SHARD_DAMPING)
+    p0 = prob._replace(obs_xy=batch.obs_xy[0], obs_weight=batch.obs_weight[0])
+    b0, rc0, rg0, M0 = rcs.prepare(
+        p0, ParamState(*(a[0] for a in batch.states)), spec, SHARD_DAMPING)
+    oc, og = scenario.matvec_batch(prob, bd, rc, rg)
+    oc0, og0 = rcs.schur_matvec(p0, b0, rc0, rg0)
     bits = dict(rg=scaled_err(rg[0], rg0),
-                Sghat_inv=scaled_err(md["Sghat_inv"][0], M0.Sghat_inv),
+                Minv_c=scaled_err(md["Minv_c"][0], M0.Minv_c),
+                Minv_g=scaled_err(md["Minv_g"][0], M0.Minv_g),
                 matvec_c=scaled_err(oc[0], oc0),
                 matvec_g=scaled_err(og[0], og0))
-    launches = kernels.launch_counts()
-    log(f"scenario_lm_step: CG per scenario {its.tolist()} (the sequential "
-        f"steps: {[r[3] for r in seq]}, {same_cg} of {S} equal); worst state "
+    log(f"scenario_lm_step: CG per scenario {its.tolist()} (rcs.lm_step on "
+        f"each: {[r[3] for r in seq]}, {same_cg} of {S} equal); worst state "
         f"{worst['state']:.2e}, max_dx {worst['max_dx']:.2e}, omega0 "
-        f"{worst['omega0']:.2e} relative; batched step {t_b:.3f} s (first "
-        f"{t_b0:.3f} s), {S} sequential engine steps {t_s:.3f} s (first "
-        f"{t_s0:.3f} s); at cg_tol {SHARD_CG_TOL:g} (recorded): {same12} of "
-        f"{S} counts equal, worst state {worst12['state']:.2e}, max_dx "
-        f"{worst12['max_dx']:.2e}; vmapped against unbatched (scenario 0): "
-        + ", ".join(f"{k} {v:.1e}" for k, v in bits.items())
-        + f"; launches {launches}")
-    if bad or any(launches.values()):
-        fail(f"phase 14: scenarios off their single step {bad[:4]}; "
-             f"launches {launches}")
-    return dict(fleet_cg=its.tolist(),
-                fleet_cg_sequential=[r[3] for r in seq],
-                fleet_same_cg=same_cg, fleet_batched_s=t_b,
-                fleet_batched_first_s=t_b0, fleet_sequential_s=t_s,
-                fleet_sequential_first_s=t_s0, fleet_worst=worst,
-                fleet_same_cg_1e12=same12, fleet_worst_1e12=worst12,
-                fleet_vmap_bits=bits), launches
+        f"{worst['omega0']:.2e} relative; two batched runs equal bits: "
+        f"{repeat}; vmap fallback warnings: {len(fallback)}; batched step "
+        f"{t_b:.3f} s (first {t_b0:.3f} s), {S} sequential steps "
+        f"{t_s:.3f} s (first {t_s0:.3f} s); at cg_tol {SHARD_CG_TOL:g} "
+        f"(recorded): {same12} of {S} counts equal, worst state "
+        f"{worst12['state']:.2e}, max_dx {worst12['max_dx']:.2e}; vmapped "
+        f"against unbatched (scenario 0): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in bits.items()))
+    if bad or not repeat or fallback:
+        fail(f"phase 14: scenarios off their single step {bad[:4]}; equal "
+             f"bits on repeat {repeat}; vmap fallback {fallback[:1]}")
+    return dict(cg=its.tolist(), cg_sequential=[r[3] for r in seq],
+                same_cg=same_cg, batched_s=t_b, batched_first_s=t_b0,
+                sequential_s=t_s, sequential_first_s=t_s0, worst=worst,
+                same_cg_1e12=same12, worst_1e12=worst12, vmap_bits=bits)
 
 
 # ---------------------------------------------------------------------------
@@ -3178,8 +3388,10 @@ def main(profile_refinement=False):
 
     # ---- 13. the sharded steps and the distributed Cholesky ----------------
     log(f"-- phase 13 at {time.time() - t_start:.1f} s")
-    shard_res, launches13 = sharded_phase()
+    shard_res, launches13, k3_13 = sharded_phase()
+    total = {k: total[k] + k3_13[k] for k in total}
     by_phase["sharded"] = launches13
+    by_phase["sharded_file_f32"] = k3_13
 
     # ---- 14. the scenario-batched fleet ------------------------------------
     log(f"-- phase 14 at {time.time() - t_start:.1f} s")

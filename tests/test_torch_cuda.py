@@ -774,7 +774,8 @@ def _sharded_worker(comm):
     """`spmd_fm` (both modes), `tp` and `spmd` on a 512-point network on
     the card (a spawned rank; imports torch and the port only)."""
     from bundle_adjustment_tpu_torch import convert, synthetic
-    from bundle_adjustment_tpu_torch.parallel import engine, spmd, spmd_fm, tp
+    from bundle_adjustment_tpu_torch.parallel import (engine, kernels, spmd,
+                                                      spmd_fm, tp)
 
     prob_h, state_h, spec = synthetic.build_problem(512, 24, 8, seed=3)
     prob = convert.problem_to_torch(prob_h, comm.device, torch.float64)
@@ -800,7 +801,35 @@ def _sharded_worker(comm):
         spmd.shard_problem(prob, comm), spec, comm, cg_tol=1e-13,
         cg_maxiter=1000)(st)
     out["spmd"] = dict(points=new.points.cpu(), max_dx=float(mdx))
+    fh, fs, _ = _thinned_host()
+    fprob = convert.problem_to_torch(fh, comm.device, torch.float64)
+    new, mdx, _om, _it = spmd.make_spmd_lm_step(
+        spmd.shard_problem(fprob, comm), spec, comm, cg_tol=1e-13,
+        cg_maxiter=1000)(convert.state_to_torch(fs, comm.device,
+                                                torch.float64))
+    out["spmd_file"] = dict(points=new.points.cpu(), max_dx=float(mdx))
+    if comm.size == 1:  # K3 in the f32 step: an exact gather
+        sp = spmd.shard_problem(
+            convert.problem_to_torch(fh, comm.device, torch.float32), comm)
+        s32 = convert.state_to_torch(fs, comm.device, torch.float32)
+        kernels.reset_launch_counts()
+        runs = [spmd.make_spmd_lm_step(sp, spec, comm, cg_tol=1e-6,
+                                       use_kernels=use)(s32)
+                for use in (None, False)]
+        out["k3"] = dict(launches=kernels.launch_counts(), same=all(
+            torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+            and runs[0][3] == runs[1][3])
     return out
+
+
+def _thinned_host():
+    """A 512-point network of uneven visibility in file order (host
+    arrays): every 10th point in 8 views, the rest in 4."""
+    from bundle_adjustment_tpu_torch import synthetic
+
+    ph, sh, spec = synthetic.build_problem(512, 24, 8, seed=3)
+    ph, sh = synthetic.thin_views(ph, sh, views=4, every=10)
+    return ph, sh, spec
 
 
 @pytest.mark.parametrize("world,device,backend",
@@ -853,38 +882,63 @@ def test_sharded_paths_on_the_card(tmp_path, world, device, backend):
     torch.testing.assert_close(out["spmd"]["points"], ref.points.cpu(),
                                rtol=0, atol=1e-9)
     assert abs(out["spmd"]["max_dx"] / float(mdx) - 1) <= 1e-8
+    # the file order (uneven visibility) against rcs.lm_step on the card
+    fh, fs, _ = _thinned_host()
+    fprob = convert.problem_to_torch(fh, dev, torch.float64)
+    fst = convert.state_to_torch(fs, dev, torch.float64)
+    dxp, dxc, dxg, b, _ = rcs.lm_step(fprob, fst, spec, 0.0, cg_tol=1e-13,
+                                      cg_maxiter=1000)
+    ref, mdx = rcs.apply_step(fst, dxp, dxc, dxg)
+    for r in res:
+        assert torch.equal(r["spmd_file"]["points"],
+                           out["spmd_file"]["points"])
+    torch.testing.assert_close(out["spmd_file"]["points"], ref.points.cpu(),
+                               rtol=0, atol=1e-9)
+    assert abs(out["spmd_file"]["max_dx"] / float(mdx) - 1) <= 1e-8
+    if world == 1:  # K3 launched in the f32 step, equal to the plain one
+        k3 = out["k3"]
+        assert k3["same"] and k3["launches"]["cam_gather"] > 0
+        assert k3["launches"]["schur_matvec"] == 0
+        assert k3["launches"]["prepare_reduction"] == 0
 
 
 def test_scenario_step_on_the_card():
-    """`scenario_lm_step` on the card against `engine.lm_step` per network
-    (3 networks of 300 points, f64, cg_tol 1e-14): states and omega0
+    """`scenario_lm_step` on the card against `rcs.lm_step` per network
+    (3 networks of 300 points, uniform and cut to file order by
+    `synthetic.thin_scenarios`, f64, cg_tol 1e-14): states and omega0
     within 1e-12, max_dx within 1e-10, CG counts within 3 (the batched
-    reductions sum in another order)."""
+    reductions over the rows sum in another order on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     from bundle_adjustment_tpu_torch import convert, synthetic
     from bundle_adjustment_tpu_torch.models.problem import ParamState
-    from bundle_adjustment_tpu_torch.parallel import engine, rcs, scenario
+    from bundle_adjustment_tpu_torch.parallel import rcs, scenario
 
     dev = torch.device("cuda", 0)
-    prob_h, xy, w, states, spec = synthetic.scenario_batch(3, 300, 12, 6,
-                                                           seed=2)
-    prob = convert.problem_to_torch(prob_h, dev, torch.float64)
-    batch = scenario.make_batch(prob, xy, w, states)
-    new, mdx, om, it = scenario.scenario_lm_step(batch, spec, 1e-4,
-                                                 cg_tol=1e-14, cg_maxiter=600)
-    for s in range(3):
-        p = engine.fm_problem(prob._replace(obs_xy=batch.obs_xy[s],
-                                            obs_weight=batch.obs_weight[s]))
-        st = ParamState(*(a[s] for a in batch.states))
-        dxp, dxc, dxg, b, it1 = engine.lm_step(p, st, spec, 1e-4,
-                                               cg_tol=1e-14, cg_maxiter=600)
-        ref, mdx1 = rcs.apply_step(st, dxp, dxc, dxg)
-        assert abs(int(it[s]) - it1) <= 3
-        for name in ParamState._fields:
-            assert _scaled(getattr(new, name)[s], getattr(ref, name)) <= 1e-12
-        assert abs(float(mdx[s] / mdx1) - 1) <= 1e-10
-        assert abs(float(om[s] / b.omega0) - 1) <= 1e-12
+    for views, thin in ((6, None), (12, dict(views=4, every=10))):
+        prob_h, xy, w, states, spec = synthetic.scenario_batch(
+            3, 300, 12, views, seed=2)
+        if thin:
+            prob_h, xy, w, states = synthetic.thin_scenarios(
+                prob_h, xy, w, states, **thin)
+        prob = convert.problem_to_torch(prob_h, dev, torch.float64)
+        assert (prob.point_uniform is None) == bool(thin)
+        batch = scenario.make_batch(prob, xy, w, states)
+        new, mdx, om, it = scenario.scenario_lm_step(
+            batch, spec, 1e-4, cg_tol=1e-14, cg_maxiter=600)
+        for s in range(3):
+            p = prob._replace(obs_xy=batch.obs_xy[s],
+                              obs_weight=batch.obs_weight[s])
+            st = ParamState(*(a[s] for a in batch.states))
+            dxp, dxc, dxg, b, it1 = rcs.lm_step(p, st, spec, 1e-4,
+                                                cg_tol=1e-14, cg_maxiter=600)
+            ref, mdx1 = rcs.apply_step(st, dxp, dxc, dxg)
+            assert abs(int(it[s]) - it1) <= 3
+            for name in ParamState._fields:
+                assert _scaled(getattr(new, name)[s],
+                               getattr(ref, name)) <= 1e-12
+            assert abs(float(mdx[s] / mdx1) - 1) <= 1e-10
+            assert abs(float(om[s] / b.omega0) - 1) <= 1e-12
 
 
 @pytest.fixture(scope="module")
