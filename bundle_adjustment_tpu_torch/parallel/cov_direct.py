@@ -1,9 +1,10 @@
 """Direct (dense factored) posterior covariance: the one-program (fused)
 path of `bundle_adjustment_tpu/parallel/cov_direct.py`.
 
-The reduced camera + global system S (u = 6M + G; 3,010 at 500 images) is
-small, so it is assembled densely once, factorised, inverted, and every
-point's 3x3 posterior cofactor block is recovered from S^{-1}:
+The reduced camera + global system S (u = 6M + G; 3,010 at 500 images,
+30,010 at 5,000) is small next to the points, so it is assembled densely
+once, factorised, inverted, and every point's 3x3 posterior cofactor
+block is recovered from S^{-1}:
 
     Q_cam   = S^{-1}
     Qpp[p]  = Hpp^{-1}[p] + C_p^T S^{-1} C_p
@@ -13,13 +14,21 @@ point's 3x3 posterior cofactor block is recovered from S^{-1}:
 `cov_all` runs the path as `bench.py` times it: linearise at damping 0,
 `assemble_reduced_dense`, `reduced_inverse`, `point_covariance_dense`.
 
-What the port drops, and why: the JAX module shapes its data movement for
-the TPU (split-bf16 matrix products, one-hot fills, e-major panel orders,
-blocked triangular solves against XLA's temporaries on a 16 GB chip).
-Here every product is a plain `torch.matmul` in exact f32 or f64 (TF32 is
-off, see the package's ``__init__``), the recovery's panels are filled
-camera-major by indexed adds, the corrections are pair blocks (see
-`assemble_reduced_dense`), and the factorisation is `torch.linalg`.
+What the port keeps and drops, and why: the JAX module shapes its data
+movement for the TPU (split-bf16 matrix products, one-hot fills, e-major
+panel orders, blocked triangular solves against XLA's temporaries, and
+for its 1M-point configuration panel chunking, grouped dispatches of the
+corrections and the recovery against a watchdog and a 16 GB chip).  Here
+every product is a plain `torch.matmul` in exact f32 or f64 (TF32 is off,
+see the package's ``__init__``), the corrections are pair blocks (see
+`assemble_reduced_dense`), the factorisation and the inverse are one
+`torch.linalg` call each, and the recovery gathers the blocks of S^{-1}
+each point meets (`_pcd_chunk`); the dense panels (`_pcd_dense_all`) stay
+as the recovery it is checked against.  At BASELINE config 5 (1M points,
+5,000 images, u = 30,010) in f64 on an H100 80GB HBM3 at 700 W the whole
+path takes 2.4 s at a 41 GB peak: corrections 0.27 s, inverse 1.66 s,
+recovery 0.26 s (`chip_smoke.py` phase 16; PERF.md), so none of
+the TPU's staging is needed.
 
 Every function takes the feature-major `engine.FMProblem` in the uniform
 point-major layout (observation n = point * V + view): the chunked passes
@@ -32,7 +41,10 @@ direct groups (`FMProblem.has_extras`) have no branch here, as in the JAX
 module, and are refused.
 
 Dtype: run it in f64.  At 100k points the Jacobi-scaled S has a condition
-number ~1e8, and the S assembled in f32 is indefinite (`PERF.md`).
+number ~1e8, and the S assembled in f32 is indefinite (`PERF.md`); at 1M
+points it is 8.0e8 or more: an LU solve of the raw f64 S lies 2.2e-6 (of
+each block's largest entry) from the Cholesky route, one of the
+Jacobi-scaled S 1.6e-9.
 """
 
 from __future__ import annotations
@@ -41,11 +53,6 @@ import numpy as np
 import torch
 
 from . import engine
-
-#: reduced-system size up to which all points are recovered by dense
-#: panels (O(2 u^2 3P) flops, no gathers); above it, or for selected
-#: points, by row gathers of S^{-1} (value set for a TPU)
-DENSE_RECOVERY_U_MAX = 8192
 
 
 def _choose_chunk(P: int, target: int = 4096) -> int:
@@ -81,11 +88,6 @@ def _sym_rows(Q):
                         Q[:, 1, 1], Q[:, 1, 2], Q[:, 2, 2]])
 
 
-def _hpc_rows(b: engine.FMBlocks):
-    """Per-observation Hpc = Jp^T P Jc as [N, 3, 6]."""
-    return _hpc_rows2d(b).T.reshape(-1, 3, 6)
-
-
 def _hpc_rows2d(b: engine.FMBlocks):
     """Hpc as 18 rows [18, N], row index a*6 + e."""
     return torch.stack([b.Jp[a] * b.PJc[e] + b.Jp[3 + a] * b.PJc[6 + e]
@@ -105,12 +107,6 @@ def _w_rows2d(b: engine.FMBlocks, hpg_rows, G2):
     z = [engine._hinv_apply(b.Hpp_inv, hpg_rows[g], hpg_rows[G2 + g],
                             hpg_rows[2 * G2 + g]) for g in range(G2)]
     return torch.stack([z[g][a] for a in range(3) for g in range(G2)])
-
-
-def _hpg_points(p: engine.FMProblem, b: engine.FMBlocks):
-    """Per-point Hpg [P, 3, G]."""
-    G2 = len(b.Jg) // 2
-    return _hpg_rows2d(p, b).reshape(3, G2, -1).permute(2, 0, 1)
 
 
 def _hinv3(b: engine.FMBlocks):
@@ -286,11 +282,12 @@ def assemble_reduced_dense(p: engine.FMProblem, b: engine.FMBlocks,
     `assemble_reduced_base` with the pair-block corrections.
 
     The JAX module also has a dense-panel form of the corrections (its
-    choice below 6 P K^2 = 3e13 flops on a TPU).  On an H100 at 100k
-    points the pair blocks take a fifth of its time for the same S, and
-    at 1M points they need ~1e5 times fewer flops, so the port keeps one
-    form.  ``extra_c``: see `assemble_reduced_base`; ``deterministic``:
-    see `assemble_reduced_corrections`."""
+    choice below 6 P K^2 = 3e13 flops on a TPU).  On an H100 80GB HBM3 at
+    700 W the pair blocks take 27 ms at 100k points and 0.27 s at 1M
+    points / 5,000 images, where panels would need 6 P K^2 ~ 5e15 flops
+    (PERF.md), so the port keeps one form.  ``extra_c``: see
+    `assemble_reduced_base`; ``deterministic``: see
+    `assemble_reduced_corrections`."""
     S0 = assemble_reduced_base(p, b, damping, extra_c=extra_c)
     return assemble_reduced_corrections(p, b, S0,
                                         deterministic=deterministic)
@@ -315,103 +312,147 @@ def reduced_inverse(S):
 # recovery
 # ---------------------------------------------------------------------------
 
-def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int, chunk: int):
-    """All points' blocks by dense panels: per chunk the coupling panel
+def _pcd_dense_all(p, brow2, w_rows, hinv_rows, Qred, G2: int, chunk: int,
+                   starts=None):
+    """Points' blocks by dense panels: per chunk the coupling panel
     C [c, 3, u] (row (j, b) = C_p's column b of point j: camera columns
     6m + e from the Hpp^{-1}-applied rows ``brow2``, global columns from
     ``w_rows``), Y = C Q^T in one product, and the 6 symmetric rows
-    h + sum_u C_b * Y_d.  O(2 u^2 3P) flops, no gathers.  Returns the 6
-    symmetric rows [6, P]."""
+    h + sum_u C_b * Y_d.  O(2 u^2 3P) flops, no gathers.  ``starts``: the
+    first points of the chunks to recover (default: every chunk, all
+    points).  Returns the 6 symmetric rows [6, k] of those points."""
     img = _obs_image(p)
     V = p.views
     u = Qred.shape[0]
     P_ = p.num_points
-    out = Qred.new_empty((6, P_))
-    for c0 in range(0, P_, chunk):
+    parts = []
+    for c0 in (range(0, P_, chunk) if starts is None else starts):
         c = min(chunk, P_ - c0)
         w = w_rows[:, c0:c0 + c].reshape(3, G2, c).permute(2, 0, 1)
         Cb = torch.cat([_fill_panel(brow2, img[c0:c0 + c], c0 * V,
                                     p.num_images), w], dim=2)
         Y = (Cb.reshape(3 * c, u) @ Qred.mT).reshape(c, 3, u)
         h = hinv_rows[:, c0:c0 + c]
-        out[:, c0:c0 + c] = torch.stack([
+        parts.append(torch.stack([
             h[k] + (Cb[:, bq] * Y[:, dq]).sum(dim=1)
             for k, (bq, dq) in enumerate(
-                ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))])
-    return out
+                ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)))]))
+    return torch.cat(parts, dim=1)
+
+
+def dense_recovery_chunk(P: int, u: int) -> int:
+    """Points per `_pcd_dense_all` chunk: its [3c, u] panel and product
+    stay near 260 MB each in f64."""
+    return _choose_chunk(P, min(4096, max(64, int(1.1e7 / max(u, 1)))))
+
+
+def point_covariance_panels(p: engine.FMProblem, b: engine.FMBlocks, Qred,
+                            starts=None):
+    """The dense-panel recovery (`_pcd_dense_all`) of every point, or of
+    the chunks of `dense_recovery_chunk` points that begin at ``starts``:
+    the reference the block gathers of `point_covariance_dense` are held
+    against.  Returns [k, 3, 3].
+
+    Timed by `chip_smoke.py` on an NVIDIA H100 80GB HBM3, 700.00 W, f64:
+    at u = 3,010 (100,352 points) the panels take 144.5 ms and the block
+    gathers 25.4 ms (phase 7); at u = 30,010 (1,000,448 points) the
+    panels take 643 ms for 4,096 points, ~157 s for all, and the block
+    gathers 0.26 s for all (phase 16).  The gathers win at both sizes and
+    their lead grows with u, so no problem takes the panels."""
+    b = engine.materialize_global_rows(p, b)
+    _, brow2, W_rows = panel_rows(p, b)
+    return _sym3(_pcd_dense_all(
+        p, brow2, W_rows, torch.stack(b.Hpp_inv), Qred, len(b.Jg) // 2,
+        dense_recovery_chunk(p.num_points, Qred.shape[0]), starts))
 
 
 def recovery_rows(p: engine.FMProblem, b: engine.FMBlocks):
     """(hpc2 [18, N], hinv_rows [6, P], hpg_rows [3G, P]): the rows the
-    row-gather recovery (`_pcd_chunk`) reads."""
+    block-gather recovery (`_pcd_chunk`) and the pair blocks read."""
     b = engine.materialize_global_rows(p, b)
     return _hpc_rows2d(b), torch.stack(list(b.Hpp_inv)), _hpg_rows2d(p, b)
 
 
-def recovery_chunk(k: int, V: int, u: int, target_bytes: float = 4.0e8,
-                   cap: int = 2048) -> int:
-    """Row-gather chunk bounded by its [c, 6V, u] row panel."""
-    c = max(16, int(target_bytes / (6 * V * u * 4)))
-    return _choose_chunk(k, min(cap, c))
+def recovery_bytes(V: int, G: int, itemsize: int) -> int:
+    """Bytes per point of `_pcd_chunk`'s temporaries: the [6V, 6V] blocks
+    of S^{-1} at its image pairs, two [6V, G] camera-global row panels,
+    the [6V, 3] rows of E and of their product, and its 6V row indices
+    (int64)."""
+    V6 = 6 * V
+    return V6 * (V6 + 2 * G + 6) * itemsize + 8 * V6
+
+
+def recovery_chunk(k: int, V: int, G: int, dtype: torch.dtype,
+                   target_bytes: float = 4.0e8, cap: int = 8192) -> int:
+    """Points per `_pcd_chunk` call: as many as keep its temporaries
+    (`recovery_bytes` in ``dtype``) within ``target_bytes``, at most
+    ``cap`` and ``k``.  The callers take a remainder chunk, so the count
+    need not divide ``k``."""
+    per = recovery_bytes(V, G, torch.empty((), dtype=dtype).element_size())
+    return max(1, min(k, cap, int(target_bytes // per)))
+
+
+def _coupling(img, hpc2, hinv_rows, hpg_rows, G2, ids):
+    """One side of C_p^T S^{-1} C_q for the points ``ids``: (Hpp^{-1}
+    [c, 3, 3], E = Hpc^T Hpp^{-1} with rows (view v, component e)
+    [c, 6V, 3], C_g = Hpg^T Hpp^{-1} [c, G, 3], the rows 6 m_v + e of
+    S^{-1} that E meets [c, 6V])."""
+    c, V = ids.shape[0], img.shape[1]
+    dev = hpc2.device
+    hin = _sym3(hinv_rows[:, ids])
+    obs = ids[:, None] * V + torch.arange(V, device=dev)[None, :]
+    hpc_v = hpc2[:, obs.reshape(-1)].T.reshape(c, V, 3, 6)
+    hpg_c = hpg_rows[:, ids].reshape(3, G2, c).permute(2, 0, 1)
+    E = torch.einsum("cvae,cab->cveb", hpc_v, hin).reshape(c, 6 * V, 3)
+    Cg = torch.einsum("cag,cab->cgb", hpg_c, hin)
+    rows = (6 * img[ids][:, :, None]
+            + torch.arange(6, device=dev)[None, None, :]).reshape(c, 6 * V)
+    return hin, E, Cg, rows
+
+
+def _cross_blocks(Qred, G2, side_p, side_q):
+    """C_p^T S^{-1} C_q [c, 3, 3] for paired sides (`_coupling`), from the
+    blocks of S^{-1} they meet: the [c, 6V, 6V] camera blocks at their
+    image pairs, each side's [c, 6V, G] camera-global rows and the global
+    block.  A point that sees an image twice has two row groups for it,
+    and both enter."""
+    _, Ep, Cgp, rp = side_p
+    _, Eq, Cgq, rq = side_q
+    K = Qred.shape[0] - G2
+    Qcg = Qred[:, K:]
+    out = Ep.mT @ (Qred[rp[:, :, None], rq[:, None, :]] @ Eq)
+    out = out + Ep.mT @ (Qcg[rp] @ Cgq)
+    out = out + (Eq.mT @ (Qcg[rq] @ Cgp)).mT
+    return out + Cgp.mT @ (Qred[K:, K:] @ Cgq)
 
 
 def _pcd_chunk(img, hpc2, hinv_rows, hpg_rows, Qred, G2, ids):
-    """The blocks of the points ``ids`` by row gathers: gather the 6V rows
-    of S^{-1} each point's coupling touches, contract with E = Hpc^T
-    Hpp^{-1} first (Y = E^T R, still u wide), then pick the point's own
-    columns; the global cross terms come from Y's global columns.
-    Returns the 6 symmetric rows [6, c]."""
-    c = ids.shape[0]
-    V = img.shape[1]
-    V6 = 6 * V
-    K = Qred.shape[0] - G2
-    dev = Qred.device
-    hin = _sym3(hinv_rows[:, ids])                        # [c, 3, 3]
-    obs = (ids[:, None] * V + torch.arange(V, device=dev)[None, :])
-    hpc_v = hpc2[:, obs.reshape(-1)].T.reshape(c, V, 3, 6)
-    hpg_c = hpg_rows[:, ids].reshape(3, G2, c).permute(2, 0, 1)
-    E2 = torch.einsum("cvae,cab->cveb", hpc_v, hin).reshape(c, V6, 3)
-    Cg = torch.einsum("cag,cab->cgb", hpg_c, hin)         # [c, G, 3]
-    I2 = (6 * img[ids][:, :, None]
-          + torch.arange(6, device=dev)[None, None, :]).reshape(c, V6)
-    R = Qred[I2.reshape(-1)].reshape(c, V6, -1)           # [c, V6, u]
-    Y = torch.einsum("cub,cux->cbx", E2, R)               # [c, 3, u]
-    t = torch.take_along_dim(Y[:, :, :K], I2[:, None, :].expand(c, 3, V6),
-                             dim=2)
-    corr = torch.einsum("cbw,cwd->cbd", t, E2)
-    cross = torch.einsum("cbg,cgd->cbd", Y[:, :, K:], Cg)
-    corr = corr + cross + cross.mT
-    corr = corr + torch.einsum("cgb,gh,chd->cbd", Cg, Qred[K:, K:], Cg)
-    return _sym_rows(hin + corr)
+    """The blocks of the points ``ids`` by block gathers: Hpp^{-1} +
+    C_p^T S^{-1} C_p (`_cross_blocks`), the quantity of the JAX module's
+    row-gather `_pcd_chunk`, exact for any visibility.  A point reads
+    6V (6V + 2G) values of S^{-1}, against the 6V u of a row panel (~370x
+    fewer at u = 30,010).  Returns the 6 symmetric rows [6, c]."""
+    side = _coupling(img, hpc2, hinv_rows, hpg_rows, G2, ids)
+    return _sym_rows(side[0] + _cross_blocks(Qred, G2, side, side))
 
 
 def point_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks, Qred,
                            point_ids=None, chunk: int | None = None):
     """3x3 posterior cofactor blocks Qpp[p] = Hpp^{-1} + C_p^T S^{-1} C_p
     of the selected points (all when ``point_ids`` is None), given
-    Qred = S^{-1} (`reduced_inverse`).  All points with u <=
-    DENSE_RECOVERY_U_MAX and no ``chunk``: dense panels
-    (`_pcd_dense_all`); otherwise row gathers of Qred (`_pcd_chunk`),
-    ``chunk`` points at a time.  Returns [k, 3, 3]."""
+    Qred = S^{-1} (`reduced_inverse`), by block gathers of Qred
+    (`_pcd_chunk`), ``chunk`` points at a time (default `recovery_chunk`).
+    Returns [k, 3, 3]."""
     b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
     G2 = len(b.Jg) // 2
-    u = Qred.shape[0]
-    if point_ids is None and chunk is None and u <= DENSE_RECOVERY_U_MAX:
-        # the [3, c, u] panel and its product: ~260 MB each in f64
-        cd = _choose_chunk(p.num_points,
-                           min(4096, max(64, int(1.1e7 / max(u, 1)))))
-        _, brow2, W_rows = panel_rows(p, b)
-        rows6 = _pcd_dense_all(p, brow2, W_rows, torch.stack(b.Hpp_inv),
-                               Qred, G2, cd)
-        return _sym3(rows6)
     hpc2, hinv_rows, hpg_rows = recovery_rows(p, b)
     if point_ids is None:
         point_ids = torch.arange(p.num_points, device=Qred.device)
     ids = torch.as_tensor(point_ids, device=Qred.device).long()
     k = ids.shape[0]
     if chunk is None:
-        chunk = recovery_chunk(k, p.views, u)
+        chunk = recovery_chunk(k, p.views, G2, Qred.dtype)
     return torch.cat([
         _sym3(_pcd_chunk(img, hpc2, hinv_rows, hpg_rows, Qred, G2,
                          ids[i:i + chunk]))
@@ -429,36 +470,22 @@ def camera_covariance_dense(Qred, image_ids):
 def point_pair_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks,
                                 Qred, pairs):
     """Cross-point 3x3 cofactor blocks Q[p, q] = C_p^T S^{-1} C_q of the
-    given (p, q) pairs [k, 2]: the off-diagonal dispersion structure.
-    Returns [k, 3, 3]."""
+    given (p, q) pairs [k, 2]: the off-diagonal dispersion structure (for
+    p = q this is the block without its direct term Hpp^{-1}, as in the
+    JAX module).  Block gathers (`_cross_blocks`), `recovery_chunk` pairs
+    at a time.  Returns [k, 3, 3]."""
     b = engine.materialize_global_rows(p, b)
     img = _obs_image(p)
-    M, G2, V = p.num_images, len(b.Jg) // 2, p.views
-    K = 6 * M
-    dev = Qred.device
-    HpcM = _hpc_rows(b).reshape(p.num_points, V, 3, 6)
-    Hinv = _hinv3(b)
-    HpgP = _hpg_points(p, b)
-    Qcg = Qred[:K, K:].reshape(M, 6, G2)
-    Qgg = Qred[K:, K:]
-    pairs = torch.as_tensor(np.asarray(pairs), device=dev).long()
-
-    def side(ids):
-        hin = Hinv[ids]
-        E = torch.einsum("cvae,cab->cveb", HpcM[ids], hin)
-        Cg = torch.einsum("cag,cab->cgb", HpgP[ids], hin)
-        return E, Cg, img[ids]
-
-    Ep, Cgp, imp = side(pairs[:, 0])
-    Eq, Cgq, imq = side(pairs[:, 1])
-    i6 = torch.arange(6, device=dev)
-    I = (6 * imp)[:, :, None, None, None] + i6[None, None, None, :, None]
-    J = (6 * imq)[:, None, :, None, None] + i6[None, None, None, None, :]
-    Qb = Qred[I, J]                                       # [k, V, V, 6, 6]
-    out = torch.einsum("cveb,cvwef,cwfd->cbd", Ep, Qb, Eq)
-    out = out + torch.einsum("cveb,cveg,cgd->cbd", Ep, Qcg[imp], Cgq)
-    out = out + torch.einsum("cgb,cwfg,cwfd->cbd", Cgp, Qcg[imq], Eq)
-    return out + torch.einsum("cgb,gh,chd->cbd", Cgp, Qgg, Cgq)
+    G2 = len(b.Jg) // 2
+    rows = recovery_rows(p, b)
+    pairs = torch.as_tensor(np.asarray(pairs), device=Qred.device).long()
+    k = pairs.shape[0]
+    chunk = recovery_chunk(k, p.views, G2, Qred.dtype)
+    return torch.cat([
+        _cross_blocks(Qred, G2,
+                      _coupling(img, *rows, G2, pairs[i:i + chunk, 0]),
+                      _coupling(img, *rows, G2, pairs[i:i + chunk, 1]))
+        for i in range(0, k, chunk)])
 
 
 def cov_all(fmp: engine.FMProblem, state, spec, cam_gather=None):

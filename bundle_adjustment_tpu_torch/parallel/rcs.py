@@ -121,7 +121,11 @@ def build_image_block_layout(obs_image, num_images, block=IMG_BLOCK):
     [M+1] in block units), both int32 numpy."""
     obs_image = np.asarray(obs_image)
     N = obs_image.shape[0]
-    order = np.argsort(obs_image, kind="stable")
+    # a stable sort has one result; numpy sorts 16-bit keys by radix
+    # sort, ~5x faster than 32-bit ones at 12M observations
+    key = (obs_image.astype(np.int16) if num_images <= 1 << 15
+           else obs_image)
+    order = np.argsort(key, kind="stable")
     counts = np.bincount(obs_image, minlength=num_images)
     padded = ((counts + block - 1) // block) * block
     starts = np.concatenate([[0], np.cumsum(padded)])

@@ -26,7 +26,6 @@ import torch
 from .models.distortion import DistortionSpecBuilder
 from .models.problem import ParamState
 from .parallel.rcs import RCSProblem, build_image_block_layout
-from .testing import look_at_wpk
 
 #: image noise (sigma0 = sigma: unit weights)
 SIGMA = 5e-4
@@ -45,31 +44,43 @@ def scale_spec():
     return builder.build()
 
 
+#: observations per `predict` call of the forward model: its temporaries
+#: then stay a few MB each instead of ~100 MB at 12M observations
+PREDICT_CHUNK = 1 << 18
+
+
 def predict(points, io, dist, eo, obs_point, obs_image, spec,
             cam_of_image=None):
     """Exact image coordinates [N, 2] of every observation, float64 on the
     CPU through ops.fm; ``cam_of_image`` [M] (default: every image on
     camera 0) picks each observation's row of ``io`` [C, 3] and ``dist``
-    [C, K]."""
+    [C, K].  Evaluated `PREDICT_CHUNK` observations at a time: every
+    operation of the forward model is elementwise, so the chunks give the
+    values of one call over all observations."""
     from .ops import fm
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64))
-
-    img = torch.as_tensor(obs_image, dtype=torch.long)
-    pts = t(points)[torch.as_tensor(obs_point, dtype=torch.long)]
-    e = t(eo)[img]
-    cam = (torch.zeros_like(img) if cam_of_image is None
-           else torch.as_tensor(cam_of_image, dtype=torch.long)[img])
-    n = pts.shape[0]
-    io_r = [t(io)[cam, a] for a in range(3)]
-    coeffs = [t(dist)[cam, k] for k in range(spec.num_coefficients)]
-    r0 = torch.full((n,), R0, dtype=torch.float64)
-    _, _, px, py = fm.jacobian_rows(
-        pts[:, 0], pts[:, 1], pts[:, 2], io_r[0], io_r[1], io_r[2],
-        e[:, 0], e[:, 1], e[:, 2], e[:, 3], e[:, 4], e[:, 5],
-        coeffs, spec, r0)
-    return torch.stack([px, py], dim=1).numpy()
+    points, eo = np.asarray(points, np.float64), np.asarray(eo, np.float64)
+    io, dist = np.asarray(io, np.float64), np.asarray(dist, np.float64)
+    obs_point, obs_image = np.asarray(obs_point), np.asarray(obs_image)
+    out = np.empty((obs_image.shape[0], 2))
+    for c0 in range(0, obs_image.shape[0], PREDICT_CHUNK):
+        img = obs_image[c0:c0 + PREDICT_CHUNK]
+        n = img.shape[0]
+        cam = (np.zeros(n, np.int64) if cam_of_image is None
+               else np.asarray(cam_of_image)[img])
+        pts = torch.from_numpy(points[obs_point[c0:c0 + n]])
+        e = torch.from_numpy(eo[img])
+        io_r = [torch.from_numpy(io[cam, a]) for a in range(3)]
+        coeffs = [torch.from_numpy(dist[cam, k])
+                  for k in range(spec.num_coefficients)]
+        r0 = torch.full((n,), R0, dtype=torch.float64)
+        _, _, px, py = fm.jacobian_rows(
+            pts[:, 0], pts[:, 1], pts[:, 2], io_r[0], io_r[1], io_r[2],
+            e[:, 0], e[:, 1], e[:, 2], e[:, 3], e[:, 4], e[:, 5],
+            coeffs, spec, r0)
+        out[c0:c0 + n, 0] = px.numpy()
+        out[c0:c0 + n, 1] = py.numpy()
+    return out
 
 
 #: extent of the object field
@@ -93,17 +104,31 @@ def true_points(num_points, seed=0):
 
 def true_eo(num_images):
     """The true exterior orientations [M, 6] of `build_problem` (no random
-    draw): images on rings around the field, looking at its centre."""
-    eo = np.zeros((num_images, 6))
+    draw): images on rings around the field, looking at its centre.
+    `testing.look_at_wpk` for all images at once; the norms are taken by
+    ``matmul``, which sums as the ``np.dot`` of `np.linalg.norm` does, so
+    every value is that function's bit for bit."""
+    m = np.arange(num_images)
     R = FIELD * 2.0
-    for m in range(num_images):
-        ang = 2 * np.pi * m / num_images + 0.37 * (m % 5)
-        radius = R * (0.7 + 0.12 * (m % 4))
-        height = R * (0.5 + 0.2 * (m % 5))
-        pos = np.array([radius * np.cos(ang), radius * np.sin(ang), height])
-        w, p_, k = look_at_wpk(pos, np.zeros(3))
-        eo[m] = [*pos, w, p_, k + (m % 4) * np.pi / 2]
-    return eo
+    ang = 2 * np.pi * m / num_images + 0.37 * (m % 5)
+    radius = R * (0.7 + 0.12 * (m % 4))
+    height = R * (0.5 + 0.2 * (m % 5))
+    pos = np.stack([radius * np.cos(ang), radius * np.sin(ang), height],
+                   axis=1)
+
+    def unit(x):
+        return x / np.sqrt(x[:, None, :] @ x[:, :, None])[:, 0]
+
+    f = unit(0.0 - pos)                  # optical axes, towards the centre
+    up = np.where((np.abs(f[:, 2]) > 0.95)[:, None], [0.0, 1.0, 0.0],
+                  [0.0, 0.0, 1.0])
+    s = unit(np.cross(up, f))
+    u = np.cross(f, s)
+    omega = np.arctan2(-f[:, 1], f[:, 2])
+    phi = np.arcsin(np.clip(f[:, 0], -1, 1))
+    kappa = np.arctan2(-u[:, 0], s[:, 0]) + (m % 4) * np.pi / 2
+    return np.concatenate([pos, np.stack([omega, phi, kappa], axis=1)],
+                          axis=1)
 
 
 def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,

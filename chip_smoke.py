@@ -61,12 +61,13 @@ Phases (any failed check exits non-zero, before the result line):
      of cov_direct's helpers) within a Jacobi-scaled 1e-9; the
      Jacobi-scaled residual max|D^-1 S Q D - I| <= 1e-8 (D = sqrt(diag
      S)); the camera blocks equal Q's 6x6 diagonal blocks; 8 points (6
-     random free, one datum, one padded dummy) from the all-points dense
-     path and from the row-gather path agree within 1e-6 of each block's
+     random free, one datum, one padded dummy) from the all-points run
+     and selected (block gathers) agree within 1e-6 of each block's
      largest entry with an LU route (C_p from the same coupling columns,
-     X = solve(S, C_p), Qpp = Hpp^-1 + C_p^T X); the row-gather recovery
-     of all points, and cov_all's cold and warm calls, agree with the
-     staged run likewise; every free point's diagonal is finite and > 0.
+     X = solve(S, C_p), Qpp = Hpp^-1 + C_p^T X); the block-gather
+     recovery of all points agrees with the dense panels likewise, and
+     cov_all's cold and warm calls with the staged run; every free
+     point's diagonal is finite and > 0.
      The f32 run checks K3 on the point-major layout exactly against its
      plain gather, then goes through K3 (launches > 0) and is recorded:
      its Cholesky status, where f32 loses S (the Jacobi-scaled assembly
@@ -75,8 +76,9 @@ Phases (any failed check exits non-zero, before the result line):
      points' diagonal entries against f64.  Times: cov_all_points_s is the
      mean of 3 warm `cov_all` calls after a cold one, each between CUDA
      events; the stage split (linearise / assemble base / corrections /
-     inverse / recovery) comes from 3 stage-by-stage runs, and the
-     row-gather recovery of all points is timed beside the dense one.
+     inverse / recovery) comes from 3 stage-by-stage runs, and both
+     recoveries of all points (block gathers, cov_all's; dense panels,
+     the reference) are timed apart.
   8. the free network (parallel/freenet.py, solver.py, refine.py with
      extras) at the same size: phase 2's problem re-dressed by
      synthetic.free_network (every coordinate of the 100,000 true points
@@ -279,9 +281,45 @@ Phases (any failed check exits non-zero, before the result line):
      equal to the in-memory control bit for bit, and its f32 `solve`
      equal to the control's.  K3's launches of (b) and (e) join the
      kernels line.
+  16. BASELINE config 5 on the card, nothing cut (bench.py's
+     run_suite(1_000_000, 5_000, 12)): synthetic.build_problem(1,000,000,
+     5,000, 12, seed=0), 1,000,448 points with the dummy points, N =
+     12,005,376, G = 10, u = 30,010; the host seconds to build it and to
+     reach the card (problem_to_torch, fm_problem, to_view_major).  K3,
+     K2, K1 and K4 against their plain versions at these shapes with
+     phase 2's gates (K3 exact; K1, K2 and K2 through finish_reduction
+     within 2e-4 scaled; K4 within 1e-6 of the sum of |values|; 10 runs of
+     K1 and 2 of K2 equal bit for bit), each kernel's and each plain
+     version's ms per call between CUDA events (back to back).
+     The LM phase through the kernels (sigma0 within 1% of 5e-4, launches
+     > 0), the fixed-cg8 step through the kernels and the plain path in
+     turns, the undamped refinement through the kernels (max|dx| <= 1e-6,
+     the f64 Omega of its objective not above the LM phase's end) and
+     time_to_converged_s.  Then `cov_direct.cov_all` in f64 at the
+     refined state, a cold and a warm call, and the stage split of
+     `cov_staged` with `torch.cuda.max_memory_allocated` after each stage.
+     Gates: the Cholesky succeeds (`reduced_inverse` raises otherwise);
+     the Jacobi-scaled residual max|D^-1 (S S^-1 - I)[:, cols] D| <= 1e-8
+     on 512 sampled columns; 16 point blocks (the datum point 1, a free
+     point that sees an image twice, a dummy, 13 free) from cov_all and
+     selected within 1e-6 of each block's largest entry of the LU route;
+     64 pair blocks among them within 1e-6 of the LU route (relative to
+     the larger point block), and the 16 (p, p) pairs plus Hpp^-1 within
+     1e-10 of the point blocks (a consistency check: both sides share
+     `cov_direct`'s block gathers); the block-gather
+     recovery and cov_all's blocks
+     within 1e-10 of the dense panels on 4,096 sampled points (16 chunks
+     of the dense chunk), whose times are extrapolated to all points; 6
+     camera blocks equal Q's diagonal blocks; every free point's block
+     symmetric with positive eigenvalues; cov_all cold and warm within
+     1e-6 of the staged run.  The phase prints its seconds and fails
+     above its stated budget (150 s); its launches join the kernels line, and each kernel
+     entry gains a ``config5`` entry (events_ms and plain_events_ms: the
+     times per call between CUDA events; bound, share of the bound by the
+     events time, launches).
 Then one JSON line with the kernels (``launches`` summed over the runs of
-phases 3, 5, 6, 7, 8, 11, 13 (e) and 15, each between a reset and a read
-of the counters;
+phases 3, 5, 6, 7, 8, 11, 13 (e), 15 and 16, each between a reset and a
+read of the counters;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -453,6 +491,21 @@ K2_ROW_BYTES = 312         # K2 reads 78 f32 rows per observation
 # that resolves the weakly determined directions: at the default cg_tol
 # 1e-6 two starts end 5e-8 apart in Omega (the 2,000-point rehearsal)
 UNEVEN_F64 = dict(cg_tol=1e-10, cg_maxiter=500)
+# phase 16: BASELINE config 5 (bench.py's run_suite(1_000_000, 5_000, 12))
+# on one card, nothing cut: 1,000,448 points with the dummy points
+C5_SHAPE = (1_000_000, 5_000)
+C5_BUDGET_S = 150          # the phase's stated time budget (gated)
+C5_K1_REPEATS = 10         # repeat runs of K1 and K2 that must give the
+C5_K2_REPEATS = 2          # same bits at these shapes
+C5_FIXED_REPS = 3          # fixed-cg8 steps per timed turn
+C5_RESID_COLS = 512        # sampled columns of the residual S S^-1 - I
+C5_POOL = 16               # points of the LU route (datum, dummy, a point
+C5_PAIRS = 64              # that sees an image twice, the rest free); pairs
+C5_SELF_PAIRS = 16         # among them, of which (p, p)
+C5_CAMERAS = 6
+C5_SAMPLE = 4096           # points of the block gather against dense panels
+C5_GATHER_TOL = 1e-10      # of each block's largest entry
+C5_SELF_TOL = 1e-10        # (p, p) pair + Hpp^-1 against the point's block
 
 
 def fail(msg: str):
@@ -521,26 +574,34 @@ def cov_staged(fmp, state, spec, cam_gather=None):
     assembly as `assemble_reduced_base` and `assemble_reduced_corrections`,
     which `assemble_reduced_dense` runs in turn), a CUDA event after each.
     A diagnostic: the caller holds its blocks against `cov_all`'s.
-    Returns (blocks, FMBlocks, S, Q, {stage: ms})."""
+    Returns (blocks, FMBlocks, S, Q, {stage: ms}, {stage: GB}), the last
+    `torch.cuda.max_memory_allocated` after each stage (the caller resets
+    the peak where it wants it to start)."""
     import torch
 
     from bundle_adjustment_tpu_torch.parallel import cov_direct, engine
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    peak = []
+
+    def stage_end(i):
+        ev[i].record()
+        peak.append(torch.cuda.max_memory_allocated() / 1e9)
+
     ev[0].record()
     b = engine.linearize(fmp, state, spec, 0.0, cam_gather=cam_gather)
-    ev[1].record()
+    stage_end(1)
     S0 = cov_direct.assemble_reduced_base(fmp, b)
-    ev[2].record()
+    stage_end(2)
     S = cov_direct.assemble_reduced_corrections(fmp, b, S0)
-    ev[3].record()
+    stage_end(3)
     Q = cov_direct.reduced_inverse(S)
-    ev[4].record()
+    stage_end(4)
     blocks = cov_direct.point_covariance_dense(fmp, b, Q)
-    ev[5].record()
+    stage_end(5)
     torch.cuda.synchronize()
     ms = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(COV_STAGES)}
-    return blocks, b, S, Q, ms
+    return blocks, b, S, Q, ms, dict(zip(COV_STAGES, peak))
 
 
 def mean_stage_ms(runs):
@@ -628,17 +689,47 @@ def reduced_system_by_sums(fmp, R, chunk=4096):
     return S
 
 
-def point_blocks_by_solve(fmp, R, S, ids):
-    """Qpp of the points ``ids`` [c, 3, 3] by an LU route: C_p = Hxp
-    Hpp^-1 from `coupling_by_sums`, X = solve(S, C_p) (LU, not the
-    Cholesky factor), Qpp = Hpp^-1 + C_p^T X."""
+def solve_scaled(S, B):
+    """X = S^-1 B by LU (not the Cholesky factor) on the Jacobi-scaled
+    system D^-1 S D^-1 (D = sqrt(diag S)): partial pivoting on the raw S,
+    whose rows span many orders of magnitude, loses digits that the
+    scaled system keeps."""
     import torch
 
+    d = S.diagonal().sqrt()
+    return torch.linalg.solve(S / d[:, None] / d[None, :],
+                              B / d[:, None]) / d[:, None]
+
+
+def point_blocks_by_solve(fmp, R, S, ids):
+    """Qpp of the points ``ids`` [c, 3, 3] by an LU route: C_p = Hxp
+    Hpp^-1 from `coupling_by_sums`, X = S^-1 C_p (`solve_scaled`), Qpp =
+    Hpp^-1 + C_p^T X."""
     hinv, Hxp = coupling_by_sums(fmp, R, ids)
     c, u = Hxp.shape[:2]
     C = Hxp @ hinv                                            # [c, u, 3]
-    X = torch.linalg.solve(S, C.permute(1, 0, 2).reshape(u, 3 * c))
+    X = solve_scaled(S, C.permute(1, 0, 2).reshape(u, 3 * c))
     return hinv + C.mT @ X.reshape(u, c, 3).permute(1, 0, 2)
+
+
+def scaled_condition(S, Q, iters=100):
+    """The condition number of the Jacobi-scaled S as the product of the
+    largest eigenvalues of D^-1 S D^-1 and of its inverse D Q D, each by
+    ``iters`` power iterations (a lower bound)."""
+    import torch
+
+    d = S.diagonal().sqrt()
+
+    def top(mv):
+        v = torch.ones_like(d)
+        lam = 0.0
+        for _ in range(iters):
+            w = mv(v)
+            lam = float(w.norm() / v.norm())
+            v = w / w.norm()
+        return lam
+
+    return top(lambda v: S @ (v / d) / d) * top(lambda v: Q @ (v * d) * d)
 
 
 def covariance_phase(prob, st, spec, dev):
@@ -671,7 +762,7 @@ def covariance_phase(prob, st, spec, dev):
     ms_all64, warm = time_cov_all(fmp64, st64, spec)
     tot64 = ms_all64 / 1e3
     runs = [cov_staged(fmp64, st64, spec) for _ in range(COV_REPS)]
-    Qall, b, S, Q, _ = runs[-1]
+    Qall, b, S, Q = runs[-1][:4]
     ms64 = mean_stage_ms([r[4] for r in runs])
     # cov_all, cold and warm, against its stage-by-stage run (the
     # pair-block corrections add with atomics: not bit for bit)
@@ -705,18 +796,21 @@ def covariance_phase(prob, st, spec, dev):
     eig64 = torch.linalg.eigvalsh(S / d[:, None] / d[None, :])
     all_ids = torch.arange(P, device=dev)
     gather_err = block_err(cov_direct.point_covariance_dense(
-        fmp64, b, Q, point_ids=all_ids), Qall)
+        fmp64, b, Q, point_ids=all_ids), cov_direct.point_covariance_panels(
+            fmp64, b, Q))
     gather_ms = measure.time_ms(lambda: cov_direct.point_covariance_dense(
         fmp64, b, Q, point_ids=all_ids), reps=COV_REPS, warm=0)
+    dense_ms = measure.time_ms(lambda: cov_direct.point_covariance_panels(
+        fmp64, b, Q), reps=COV_REPS, warm=0)
     log(f"f64 S, Jacobi-scaled: eigenvalues {float(eig64[0]):.3e} .. "
-        f"{float(eig64[-1]):.3e}; recovery of all points by row gathers "
-        f"{gather_ms:.3f} ms (dense panels {ms64['recovery']:.3f} ms), "
-        f"block error {gather_err:.3e}")
+        f"{float(eig64[-1]):.3e}; recovery of all points by block gathers "
+        f"{gather_ms:.3f} ms, by dense panels {dense_ms:.3f} ms, block "
+        f"error {gather_err:.3e}")
     log(f"f64: Cholesky info {info}; Jacobi-scaled max|S - S_ref| (second "
         f"assembly route) {s_err:.3e}; Jacobi-scaled residual "
         f"max|D^-1 S Q D - I| {resid:.3e}; camera blocks equal Q's diagonal "
         f"blocks: {cams_same}; points {ids.tolist()}: block error vs the LU "
-        f"route, dense path {err_dense:.3e}, row-gather path {err_sel:.3e} "
+        f"route, all-points path {err_dense:.3e}, selected {err_sel:.3e} "
         f"(LU on S_ref, recorded: {err_indep:.3e}); free diagonals finite "
         f"and > 0: {diag_ok}; cov_all (cold, warm) vs the staged run, block "
         f"error {repeat_err:.3e}")
@@ -738,9 +832,10 @@ def covariance_phase(prob, st, spec, dev):
         problems.append("camera blocks differ from Q's diagonal blocks")
     if not (err_dense <= COV_BLOCK_TOL and err_sel <= COV_BLOCK_TOL):
         problems.append(f"point blocks disagree with the LU route "
-                        f"(dense {err_dense:.3e}, row gather {err_sel:.3e})")
+                        f"(all points {err_dense:.3e}, selected "
+                        f"{err_sel:.3e})")
     if not gather_err <= COV_BLOCK_TOL:
-        problems.append(f"the row-gather recovery of all points differs "
+        problems.append(f"the block-gather recovery of all points differs "
                         f"from the dense one ({gather_err:.3e})")
     if not repeat_err <= COV_BLOCK_TOL:
         problems.append(f"cov_all differs from its staged run "
@@ -806,7 +901,8 @@ def covariance_phase(prob, st, spec, dev):
         fail("the f32 covariance never launched K3")
     return dict(cov_all_points_s=tot64, cov_point_blocks_per_s=P / tot64,
                 cov_stage_ms=ms64, cov_cold_s=cold_s, cov_peak_gb=peak_gb,
-                cov_row_gather_recovery_ms=gather_ms,
+                cov_block_gather_recovery_ms=gather_ms,
+                cov_dense_recovery_ms=dense_ms,
                 cov_scaled_eig=[float(eig64[0]), float(eig64[-1])],
                 cov_scaled_s_err=s_err, cov_scaled_residual=resid,
                 cov_block_err=max(err_dense, err_sel),
@@ -2905,6 +3001,443 @@ def uneven_phase(dev, shape=(NUM_POINTS, NUM_IMAGES)):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: BASELINE config 5 (1M points / 5,000 images / 12 views)
+# ---------------------------------------------------------------------------
+
+def config5_kernels(fv, state0, spec, dev):
+    """K3, K2, K1 and K4 against their plain versions at the config-5
+    shapes, with phase 2's gates (K3 exact; K1, K2 and K2 through
+    finish_reduction within TOL_SCALED; K4 within TOL_FLOOR; repeat runs
+    of K1 and K2 equal bit for bit).  Returns {kernel: dict(max_abs_err,
+    events_ms, plain_events_ms)}, both times per call between CUDA events around
+    back-to-back calls (`measure.time_ms`).  Not the profiler's device
+    time: late in a full run of this script torch.profiler kept only some
+    of these long calls' launches (K4 read 0.09 ms against a 0.59 ms byte
+    bound), and at these shapes each call takes 0.18 ms or more, so the
+    launch gaps that events add are a small share."""
+    import torch
+
+    from bundle_adjustment_tpu_torch import measure
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    out = {}
+    b = engine.linearize(fv, state0, spec, 1e-2)
+    pp = kernels.pack_fm(b, fv, with_pw=True)
+    eo = state0.eo.contiguous()
+    g_k = kernels.cam_gather_rows(eo, pp.obs_img)
+    g_p = kernels.cam_gather_plain(eo, pp.obs_img)
+    if not torch.equal(g_k, g_p):
+        fail("phase 16: K3 differs from its plain version")
+    out["cam_gather"] = dict(
+        max_abs_err=0.0,
+        events_ms=measure.time_ms(lambda: kernels.cam_gather_rows(eo, pp.obs_img)),
+        plain_events_ms=measure.time_ms(lambda: kernels.cam_gather_plain(
+            eo, pp.obs_img)))
+    del g_k, g_p
+
+    out_k = kernels.prepare_reduction(pp)
+    out_p = kernels.prepare_reduction_plain(pp)
+    errs = {n: scaled_err(a, r) for n, a, r in zip(
+        ("red", "rg_corr", "T2", "T3"), out_k, out_p)}
+    fin_k = engine.finish_reduction(fv, b, state0, 1e-2, *out_k, True)
+    fin_p = engine.finish_reduction(fv, b, state0, 1e-2, *out_p, True)
+    errs.update({
+        "rc": scaled_err(fin_k[1], fin_p[1]),
+        "rg": scaled_err(fin_k[2], fin_p[2]),
+        "bc": scaled_err(fin_k[0].bc, fin_p[0].bc),
+        "Scg": scaled_err(fin_k[3].Scg, fin_p[3].Scg),
+        "Minv_c/cond": inverse_err(fin_k[3].Minv_c, fin_p[3].Minv_c),
+        "Sghat_inv/cond": inverse_err(fin_k[3].Sghat_inv,
+                                      fin_p[3].Sghat_inv)})
+    same = all(all(torch.equal(a, c) for a, c in zip(
+        out_k, kernels.prepare_reduction(pp))) for _ in range(C5_K2_REPEATS))
+    log("K2 scaled errors: " + ", ".join(f"{n} {e:.2e}"
+                                         for n, e in errs.items())
+        + f"; {C5_K2_REPEATS} repeat runs bit-identical: {same}")
+    if not all(e <= TOL_SCALED for e in errs.values()):
+        fail("phase 16: K2 disagrees with its plain version")
+    if not same:
+        fail("phase 16: K2 is not deterministic")
+    out["prepare_reduction"] = dict(
+        max_abs_err=max(float((a - r).abs().max())
+                        for a, r in zip(out_k, out_p)),
+        events_ms=measure.time_ms(lambda: kernels.prepare_reduction(pp), reps=10),
+        plain_events_ms=measure.time_ms(lambda: kernels.prepare_reduction_plain(pp),
+                                 reps=3, warm=1))
+    ec, eg = fin_p[0].extra_c.contiguous(), fin_p[0].extra_g.contiguous()
+    del out_k, out_p, fin_k, fin_p
+
+    gen = torch.Generator().manual_seed(1)
+    xc = torch.randn((fv.num_images, 6), generator=gen).to(dev)
+    xg = torch.randn((pp.g,), generator=gen).to(dev)
+    oc_k, og_k = kernels.schur_matvec_rows(pp, ec, eg, xc, xg)
+    oc_p, og_p = kernels.schur_matvec_plain(pp, ec, eg, xc, xg)
+    e_c, e_g = scaled_err(oc_k, oc_p), scaled_err(og_k, og_p)
+    same = all(all(torch.equal(a, c) for a, c in zip(
+        (oc_k, og_k), kernels.schur_matvec_rows(pp, ec, eg, xc, xg)))
+        for _ in range(C5_K1_REPEATS))
+    log(f"K1 scaled errors: c {e_c:.2e}, g {e_g:.2e}; {C5_K1_REPEATS} "
+        f"repeat runs bit-identical: {same}")
+    if not (e_c <= TOL_SCALED and e_g <= TOL_SCALED):
+        fail("phase 16: K1 disagrees with its plain version")
+    if not same:
+        fail("phase 16: K1 is not deterministic")
+    out["schur_matvec"] = dict(
+        max_abs_err=max(float((oc_k - oc_p).abs().max()),
+                        float((og_k - og_p).abs().max())),
+        events_ms=measure.time_ms(lambda: kernels.schur_matvec_rows(
+            pp, ec, eg, xc, xg)),
+        plain_events_ms=measure.time_ms(lambda: kernels.schur_matvec_plain(
+            pp, ec, eg, xc, xg), reps=5, warm=1))
+    del pp
+
+    pp4 = kernels.pack_fm(b, fv, lean_only=True)
+    del b
+    xin = torch.randn((8, 128), generator=gen).to(dev)
+    f_k = kernels.read_floor(pp4, xin)
+    f_p = kernels.read_floor_plain(pp4, xin)
+    f_scale = kernels.read_floor_plain(
+        pp4._replace(packed=pp4.packed.abs()), torch.zeros_like(xin))
+    e_floor = float(((f_k - f_p).abs() / f_scale.clamp_min(1e-30)).max())
+    log(f"K4: max |kernel - plain| / sum|values| {e_floor:.2e}")
+    if not e_floor <= TOL_FLOOR:
+        fail("phase 16: K4 disagrees with its plain version")
+    out["read_floor"] = dict(
+        max_abs_err=float((f_k - f_p).abs().max()),
+        events_ms=measure.time_ms(lambda: kernels.read_floor(pp4, xin)),
+        plain_events_ms=measure.time_ms(lambda: kernels.read_floor_plain(pp4, xin),
+                                 reps=3, warm=1))
+    return out
+
+
+def config5_covariance(prob, st64, spec, dev, dup_point):
+    """Phase 16's f64 covariance (see the module docstring): cov_all cold
+    and warm, the stage split with the peak memory after each stage, and
+    the gates.  Returns a summary dict."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch.parallel import cov_direct, engine, refine
+
+    fmp = engine.fm_problem(refine.upcast_problem(prob))
+    P, M = fmp.num_points, fmp.num_images
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cold = cov_direct.cov_all(fmp, st64, spec)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    cold_peak = torch.cuda.max_memory_allocated() / 1e9
+    warm_ms, warm = time_cov_all(fmp, st64, spec)
+    torch.cuda.reset_peak_memory_stats()
+    Qall, b, S, Q, ms, peak = cov_staged(fmp, st64, spec)
+    u = S.shape[0]
+    log(f"f64 cov_all (u={u}): cold {cold_s:.3f} s, "
+        f"peak {cold_peak:.2f} GB ({base_gb:.2f} GB held before); warm "
+        f"{warm_ms / 1e3:.3f} s ({P / (warm_ms / 1e3):.1f} point blocks/s); "
+        "stages " + ", ".join(f"{n} {v:.1f} ms (peak {peak[n]:.2f} GB)"
+                              for n, v in ms.items()))
+    repeat_err = max(block_err(cold, Qall), block_err(warm, Qall))
+    del cold, warm
+
+    rng = np.random.default_rng(16)
+    d = S.diagonal().sqrt()
+    nc = min(C5_RESID_COLS, u)
+    cols = torch.as_tensor(np.sort(rng.choice(u, nc, replace=False)),
+                           device=dev)
+    eye = torch.zeros((u, nc), dtype=S.dtype, device=dev)
+    eye[cols, torch.arange(nc, device=dev)] = 1.0
+    resid = float(((S @ Q[:, cols]) * d[cols][None, :] / d[:, None]
+                   - eye).abs().max())
+    del eye
+    cam_ids = torch.as_tensor(rng.choice(M, C5_CAMERAS, replace=False),
+                              device=dev)
+    idx = 6 * cam_ids[:, None] + torch.arange(6, device=dev)
+    cams_same = bool(torch.equal(
+        cov_direct.camera_covariance_dense(Q, cam_ids),
+        torch.stack([Q[i][:, i] for i in idx])))
+
+    # the LU route on a pool of points, and pairs among them
+    free = (fmp.free_point.sum(dim=0) > 0).cpu().numpy()
+    free_ids = np.flatnonzero(free)
+    pool = np.concatenate([[1, dup_point, P - 1], rng.choice(
+        np.setdiff1d(free_ids, [dup_point]), C5_POOL - 3, replace=False)])
+    pool_t = torch.as_tensor(pool, device=dev)
+    R = jacobian_rows(b)
+    hinv, Hxp = coupling_by_sums(fmp, R, pool_t)
+    del R
+    C = Hxp @ hinv                                            # [k, u, 3]
+    Cu = C.permute(1, 0, 2).reshape(u, -1)
+    X = solve_scaled(S, Cu).reshape(u, C5_POOL, 3).permute(1, 0, 2)
+    lu = hinv + C.mT @ X
+    err_lu = block_err(Qall[pool_t], lu)
+    # recorded: LU on the raw S, and the scaled condition number
+    X_raw = torch.linalg.solve(S, Cu).reshape(u, C5_POOL, 3).permute(1, 0, 2)
+    err_raw = block_err(Qall[pool_t], hinv + C.mT @ X_raw)
+    del X_raw, Cu
+    kappa = scaled_condition(S, Q)
+    sel_err = block_err(cov_direct.point_covariance_dense(
+        fmp, b, Q, point_ids=pool_t), lu)
+    ij = np.concatenate([
+        np.stack([np.arange(C5_SELF_PAIRS)] * 2, axis=1),
+        rng.integers(0, C5_POOL, (C5_PAIRS - C5_SELF_PAIRS, 2))])
+    pairs = pool[ij]
+    pq = cov_direct.point_pair_covariance_dense(fmp, b, Q, pairs)
+    ij_t = torch.as_tensor(ij, device=dev)
+    pq_lu = torch.einsum("kua,kub->kab", C[ij_t[:, 0]], X[ij_t[:, 1]])
+    scale = torch.maximum(
+        lu[ij_t[:, 0]].flatten(1).abs().max(dim=1).values,
+        lu[ij_t[:, 1]].flatten(1).abs().max(dim=1).values)
+    pair_err = float(((pq - pq_lu).flatten(1).abs().max(dim=1).values
+                      / scale).max())
+    s_ids = torch.as_tensor(pool[:C5_SELF_PAIRS], device=dev)
+    self_err = block_err(pq[:C5_SELF_PAIRS] + hinv[:C5_SELF_PAIRS],
+                         Qall[s_ids])
+    del C, X, Hxp, S
+
+    # the block gather against dense panels on sampled chunks
+    cd = cov_direct.dense_recovery_chunk(P, u)
+    n_chunks = max(1, min(C5_SAMPLE // cd, P // cd))
+    starts = (np.sort(rng.choice(P // cd, n_chunks, replace=False))
+              * cd).tolist()
+    ids = torch.as_tensor(np.concatenate([np.arange(c0, min(c0 + cd, P))
+                                          for c0 in starts]), device=dev)
+
+    def events(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        r = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return r, ev[0].elapsed_time(ev[1])
+
+    dense, dense_ms = events(lambda: cov_direct.point_covariance_panels(
+        fmp, b, Q, starts=starts))
+    gath, gath_ms = events(lambda: cov_direct.point_covariance_dense(
+        fmp, b, Q, point_ids=ids))
+    gather_err = block_err(gath, dense)
+    all_err = block_err(Qall[ids], dense)
+    k = ids.shape[0]
+    log(f"recovery on {k} sampled points ({n_chunks} chunks of {cd}): "
+        f"dense panels {dense_ms:.1f} ms, block gathers {gath_ms:.1f} ms "
+        f"(each with its per-call set-up over all points); dense panels "
+        f"extrapolated to {P} points {dense_ms * P / k / 1e3:.1f} s, "
+        f"cov_all's recovery stage {ms['recovery'] / 1e3:.3f} s; "
+        f"block gather vs dense {gather_err:.3e}, cov_all's blocks vs dense "
+        f"{all_err:.3e}")
+    del dense, gath, Q, b
+
+    Qf = Qall[torch.as_tensor(free, device=dev)]
+    sym = bool(torch.equal(Qf, Qf.mT))
+    finite = bool(torch.isfinite(Qf).all())
+    # on the host: cuSOLVER's batched eigensolver (syevBatched) refuses
+    # these batches on the card, 65,536 blocks as well as 1M
+    eig_min = float(torch.linalg.eigvalsh(Qf.cpu()).min())
+    log(f"residual max|D^-1 (S S^-1 - I)[:, cols] D| on {nc} "
+        f"columns {resid:.3e}; {C5_CAMERAS} camera blocks equal Q's "
+        f"diagonal blocks: {cams_same}; points {pool.tolist()} (datum 1, "
+        f"sees an image twice {dup_point}, dummy {P - 1}): cov_all vs the "
+        f"LU route {err_lu:.3e}, selected {sel_err:.3e} (LU on the unscaled "
+        f"S, recorded: {err_raw:.3e}; the Jacobi-scaled S's condition "
+        f"number >= {kappa:.3e}); {C5_PAIRS} pairs "
+        f"vs the LU route {pair_err:.3e} of the larger point block, (p, p) "
+        f"pairs + Hpp^-1 vs the point blocks "
+        f"{self_err:.3e}; "
+        f"{len(free_ids)} free blocks finite: {finite}, symmetric: {sym}, "
+        f"smallest eigenvalue {eig_min:.3e}; cov_all (cold, warm) vs the "
+        f"staged run "
+        f"{repeat_err:.3e}")
+    problems = []
+    if not resid <= COV_RESIDUAL_TOL:
+        problems.append(f"residual {resid:.3e} > {COV_RESIDUAL_TOL}")
+    if not cams_same:
+        problems.append("camera blocks differ from Q's diagonal blocks")
+    if not (err_lu <= COV_BLOCK_TOL and sel_err <= COV_BLOCK_TOL):
+        problems.append(f"point blocks disagree with the LU route (all "
+                        f"{err_lu:.3e}, selected {sel_err:.3e})")
+    if not pair_err <= COV_BLOCK_TOL:
+        problems.append(f"pair blocks disagree with the LU route "
+                        f"({pair_err:.3e})")
+    if not self_err <= C5_SELF_TOL:
+        problems.append(f"(p, p) pairs + Hpp^-1 differ from the point "
+                        f"blocks ({self_err:.3e})")
+    if not (gather_err <= C5_GATHER_TOL and all_err <= C5_GATHER_TOL):
+        problems.append(f"the recovery differs from dense panels (block "
+                        f"gather {gather_err:.3e}, cov_all {all_err:.3e})")
+    if not (finite and sym and eig_min > 0):
+        problems.append("a free point's block is not symmetric positive "
+                        "definite")
+    if not repeat_err <= COV_BLOCK_TOL:
+        problems.append(f"cov_all differs from its staged run "
+                        f"({repeat_err:.3e})")
+    if problems:
+        fail("phase 16 covariance: " + "; ".join(problems))
+    return dict(u=u, cold_s=cold_s, cold_peak_gb=cold_peak,
+                warm_s=warm_ms / 1e3, stage_ms=ms, stage_peak_gb=peak,
+                sample_points=k, sample_dense_ms=dense_ms,
+                sample_block_gather_ms=gath_ms,
+                dense_extrapolated_s=dense_ms * P / k / 1e3,
+                residual=resid, lu_err=max(err_lu, sel_err),
+                lu_unscaled_err=err_raw, scaled_condition=kappa,
+                pair_err=pair_err, self_pair_err=self_err,
+                gather_err=gather_err, eig_min=eig_min)
+
+
+def config5_phase(dev, shape=C5_SHAPE):
+    """Phase 16 (see the module docstring).  Returns (summary dict, the
+    launch counts of the LM phase and the refinement, {kernel: dict(ms,
+    plain_ms, max_abs_err)} at these shapes)."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (engine, hilo, kernels,
+                                                      lm, rcs, refine)
+
+    t_phase = time.time()
+    host = {}
+
+    def lap(name, t):
+        torch.cuda.synchronize()
+        host[name] = time.time() - t
+        return time.time()
+
+    t = time.time()
+    prob_h, state_h, spec = synthetic.build_problem(*shape, VIEWS, seed=0)
+    t = lap("build_problem", t)
+    prob = convert.problem_to_torch(prob_h, dev, torch.float32)
+    state0 = convert.state_to_torch(state_h, dev, torch.float32)
+    t = lap("problem_to_torch", t)
+    # the f64 objective of phase 3: the same problem from its f64 arrays
+    prob64 = convert.problem_to_torch(prob_h, dev, torch.float64)
+    t = time.time()
+    fmp = engine.fm_problem(prob)
+    t = lap("fm_problem", t)
+    G = 3 + spec.num_coefficients
+    pb = kernels.choose_pb(fmp.num_points, fmp.views, G)
+    fv = engine.to_view_major(fmp, pb)
+    t = lap("to_view_major", t)
+    del fmp
+    P, M = fv.num_points, fv.num_images
+    N = P * VIEWS
+    img = prob_h.obs_image.reshape(P, VIEWS)
+    srt = np.sort(img[:shape[0]], axis=1)
+    dup = np.flatnonzero((srt[:, 1:] == srt[:, :-1]).any(axis=1)
+                         & (prob_h.free_point[:shape[0], 0] > 0))
+    n_obs = 2 * int((prob.obs_weight[:, 0, 0] > 0).sum())
+    u_all = int(prob.free_point.sum() + prob.free_eo.sum()
+                + prob.free_global.sum())
+    dof = n_obs - u_all
+    log(f"problem: P={P} M={M} V={VIEWS} G={G} N={N} pb={pb}; "
+        f"{len(dup)} points see an image twice; host s " + ", ".join(
+            f"{n} {v:.2f}" for n, v in host.items()))
+    if not len(dup):
+        fail("phase 16: no free point sees an image twice")
+    del prob_h, state_h
+
+    results = config5_kernels(fv, state0, spec, dev)
+    log("kernels at these shapes, ms per call between CUDA events "
+        "(plain): " + ", ".join(
+        f"{n} {r['events_ms']:.4f} ({r['plain_events_ms']:.4f})"
+        for n, r in results.items()))
+
+    # the LM phase through the kernels
+    fv64 = engine.to_view_major(engine.fm_problem(prob64), pb)
+    del prob64
+
+    def omega(s):
+        return float(engine.linearize(fv64, type(s)(*(a.double() for a in s)),
+                                      spec, 0.0).omega0)
+
+    om0 = omega(state0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    st, ph = lm.run(fv, state0, spec, damping=1e-2, max_steps=60,
+                    use_kernels=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    om1 = omega(st)
+    s0 = (om1 / dof) ** 0.5
+    log(f"LM phase (kernels): {ph.steps} steps in {ph.seconds:.2f} s, "
+        f"max|dx| {ph.max_dx:.3e}, CG {ph.cg_iterations}; Omega {om0:.6e} -> "
+        f"{om1:.6e}; dof {dof}; sigma0 {s0:.6e}; launches {launches}")
+    if not (om1 < om0 and abs(s0 / SIGMA - 1.0) < 0.01):
+        fail("phase 16: the LM phase did not reach sigma0 within 1% of the "
+             "injected noise")
+    if min(launches[k] for k in SOLVE_KERNELS) <= 0:
+        fail(f"phase 16: a kernel of the LM phase was never launched: "
+             f"{launches}")
+    del fv64
+
+    def fixed(use_kernels):
+        s = st
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(C5_FIXED_REPS):
+            dxp, dxc, dxg, _, _ = engine.lm_step(
+                fv, s, spec, 1e-6, cg_tol=0.0, cg_maxiter=8, stall_limit=9,
+                use_kernels=use_kernels)
+            s = rcs.apply_step(s, dxp, dxc, dxg)[0]
+        torch.cuda.synchronize()
+        return (time.time() - t0) / C5_FIXED_REPS * 1e3
+
+    fixed(True)
+    fixed(False)
+    turns = [fixed(False), fixed(True), fixed(True), fixed(False)]
+    step_k, step_p = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    log(f"fixed-cg8 step: kernels {step_k:.2f} ms, plain {step_p:.2f} ms "
+        f"(turns plain/kernels/kernels/plain " + ", ".join(
+            f"{x:.2f}" for x in turns) + ")")
+
+    # the undamped refinement through the kernels
+    refiner = refine.Refiner(prob, spec, use_kernels=True)
+    om3 = float(refiner.gradient64(refiner.fmp64, type(st)(
+        *(a.double() for a in st)))[3])
+    kernels.reset_launch_counts()
+    s_ref, rec = refine.converge(refiner, (st, ph), tolerance=REFINE_TOL,
+                                 damping=0.0, max_steps=15)
+    launches_r = kernels.launch_counts()
+    st64 = hilo.to_f64(s_ref)
+    om5 = float(refiner.gradient64(refiner.fmp64, st64)[3])
+    ttc = ph.seconds + rec.refine_seconds
+    log(f"undamped refinement (kernels): {rec.refine_steps} steps in "
+        f"{rec.refine_seconds:.2f} s; max|dx| " + ", ".join(
+            f"{x:.3e}" for x in rec.max_dx) + f"; CG {rec.cg_iterations}; "
+        f"f64 Omega {om3:.10e} -> {om5:.10e}; launches {launches_r}")
+    log(f"time_to_converged_s {ttc:.3f} (LM phase {ph.seconds:.3f} s + "
+        f"refinement {rec.refine_seconds:.3f} s)")
+    if not rec.max_dx[-1] <= REFINE_TOL:
+        fail(f"phase 16: the refinement did not reach max|dx| <= "
+             f"{REFINE_TOL}")
+    if not om5 <= om3 * (1.0 + 1e-9):
+        fail("phase 16: the refinement raised the f64 Omega above the LM "
+             "phase's end")
+    if min(launches_r[k] for k in SOLVE_KERNELS) <= 0:
+        fail(f"phase 16: a kernel of the refinement was never launched: "
+             f"{launches_r}")
+    del refiner, fv, st, state0, s_ref
+    torch.cuda.empty_cache()
+
+    cov = config5_covariance(prob, st64, spec, dev, int(dup[0]))
+    seconds = time.time() - t_phase
+    log(f"phase 16: {seconds:.1f} s (budget {C5_BUDGET_S} s)")
+    if not seconds <= C5_BUDGET_S:
+        fail(f"phase 16 took {seconds:.1f} s, over its budget of "
+             f"{C5_BUDGET_S} s")
+    launches_all = {k: launches[k] + launches_r[k] for k in launches}
+    summary = dict(
+        shape=dict(N=N, P=P, M=M, G=G), host_s=host, lm_steps=ph.steps,
+        lm_s=ph.seconds, sigma0=s0, lm_cg=ph.cg_iterations,
+        fixed_cg8_step_ms=step_k,
+        fixed_cg8_step_plain_ms=step_p, refine_steps=rec.refine_steps,
+        refine_s=rec.refine_seconds, refine_cg=rec.cg_iterations,
+        converged_max_dx=rec.max_dx[-1], time_to_converged_s=ttc, cov=cov,
+        phase_s=seconds)
+    return {"config5": summary}, launches_all, results
+
+
 def main(profile_refinement=False):
     t_start = time.time()
     try:
@@ -3404,6 +3937,12 @@ def main(profile_refinement=False):
     total = {k: total[k] + launches15[k] for k in total}
     by_phase["uneven"] = launches15
 
+    # ---- 16. BASELINE config 5: 1M points / 5,000 images / 12 views -------
+    log(f"-- phase 16 at {time.time() - t_start:.1f} s")
+    config5, launches16, kernels5 = config5_phase(dev)
+    total = {k: total[k] + launches16[k] for k in total}
+    by_phase["config5"] = launches16
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -3422,7 +3961,7 @@ def main(profile_refinement=False):
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
         **rig, **files, **cli_res, "sharded": shard_res, **fleet_res,
-        **uneven}))
+        **uneven, **config5}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images
@@ -3431,6 +3970,14 @@ def main(profile_refinement=False):
             "schur_matvec": measure.k1_work(N, P_, M_, G, VIEWS),
             "read_floor": measure.k4_work(N, G),
             "matvec_stage": measure.stage_work(N, P_, M_, G, VIEWS)}
+    c5 = config5["config5"]["shape"]
+    work5 = {"cam_gather": measure.k3_work(c5["N"], c5["M"],
+                                           state0.eo.shape[1]),
+             "prepare_reduction": measure.k2_work(c5["N"], c5["P"], c5["M"],
+                                                  G, VIEWS),
+             "schur_matvec": measure.k1_work(c5["N"], c5["P"], c5["M"], G,
+                                             VIEWS),
+             "read_floor": measure.k4_work(c5["N"], G)}
     kernel_rows = []
     for n in SOURCES:
         b_ms, b_by = measure.bound_ms(work[n])
@@ -3446,6 +3993,13 @@ def main(profile_refinement=False):
                       "stages"):
             if extra in results[n]:
                 row[extra] = results[n][extra]
+        if n in kernels5:
+            b5, b5_by = measure.bound_ms(work5[n])
+            row["config5"] = dict(**kernels5[n], launches=launches16[n],
+                                  bound_ms=b5, bound_by=b5_by,
+                                  share_of_bound=b5
+                                  / kernels5[n]["events_ms"],
+                                  work_bytes=work5[n][0])
         kernel_rows.append(row)
     log(f"-- done at {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))

@@ -22,7 +22,9 @@ layout, at G = 10 and at G = 3 (the fewest a camera has: no distortion
 terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
 the same bits when run again.  The covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
-(through K3) within kappa x 2^-24 of each block's largest entry.  An f64
+(through K3) within kappa x 2^-24 of each block's largest entry; the
+block-gather recovery against the dense panels at u = 3,010 within 1e-10
+of each block's largest entry.  An f64
 `solve` on the card takes the plain path (no launch); `k2_tile_fits`, the
 model `choose_pb` consults, agrees with the kernel's own plan
 (`ba_prepare_fits`) on every block the kernels take; `choose_pb` with G
@@ -437,6 +439,33 @@ def test_cov_all_matches_cpu(case, cov_ref, dtype):
     err = ((o - r).flatten(1).abs().max(dim=1).values
            / r.flatten(1).abs().max(dim=1).values)
     assert float(err.max()) <= cov_ref["kappa"] * 2.0 ** -24
+
+
+def test_block_gather_recovery_matches_dense_panels_at_u3010():
+    """The block-gather recovery (`_pcd_chunk`) of every point against the
+    dense panels (`point_covariance_panels`) on the card, f64, at the 100k
+    shape's u = 3,010 (500 images, G = 10) on a 20,000-point network:
+    within 1e-10 of each block's largest entry (chip_smoke.py phase 16
+    holds the same on 4,096 points at 1M)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import cov_direct, engine
+
+    dev = torch.device("cuda", 0)
+    prob_h, state_h, spec = synthetic.build_problem(20_000, 500, 12, seed=3)
+    fmp = engine.fm_problem(convert.problem_to_torch(prob_h, dev,
+                                                     torch.float64))
+    st = convert.state_to_torch(state_h, dev, torch.float64)
+    b = engine.linearize(fmp, st, spec, 0.0)
+    Q = cov_direct.reduced_inverse(cov_direct.assemble_reduced_dense(fmp, b))
+    assert Q.shape[0] == 3010
+    ids = torch.arange(fmp.num_points, device=dev)
+    gath = cov_direct.point_covariance_dense(fmp, b, Q, point_ids=ids)
+    dense = cov_direct.point_covariance_panels(fmp, b, Q)
+    err = ((gath - dense).flatten(1).abs().max(dim=1).values
+           / dense.flatten(1).abs().max(dim=1).values)
+    assert float(err.max()) <= 1e-10
 
 
 def test_wrappers_refuse_f64_on_cuda(case):
