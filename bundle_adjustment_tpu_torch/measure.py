@@ -171,11 +171,41 @@ def time_ms(fn, reps=20, warm=3, flush_l2=False):
     return t0.elapsed_time(t1) / reps
 
 
-#: profiles `device_ms` takes before it gives up on an empty one
+#: profiles `device_ms` takes before it gives up on a short one
 PROFILE_TRIES = 3
+#: host seconds a profile window idles before the profiled work and after
+#: it: torch.profiler now and then drops the first device records of a
+#: window (profile_probe.py measures how often, with and without it)
+PROFILE_LEAD_S = 0.02
 
 
-def device_ms(fn, reps=20, warm=3, flush_l2=False):
+def kernel_launches(wrapper_launches) -> dict:
+    """{CUDA kernel name: launches} that the port's wrappers ran for
+    ``wrapper_launches`` = {wrapper: launches} (`kernels.launch_counts`
+    names; `kernels.DEVICE_KERNELS` lists each wrapper's kernels)."""
+    out = {}
+    for w, n in wrapper_launches.items():
+        for k in kernels.DEVICE_KERNELS[w]:
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def missing_launches(activities, expected) -> dict:
+    """The launches a profile did not record.  ``activities``: [(name,
+    launches, ms)] of its device activities; ``expected``: {kernel name:
+    launches}, each counted over the activities whose name holds it, or
+    {None: launches} for all activities together.  Returns {name:
+    (recorded, expected)} for every count that differs (empty: the
+    profile holds every launch)."""
+    out = {}
+    for k, n in expected.items():
+        got = sum(c for name, c, _ in activities if k is None or k in name)
+        if got != n:
+            out[k] = (got, n)
+    return out
+
+
+def device_ms(fn, reps=20, warm=3, flush_l2=False, launches=None):
     """Device time of one fn() call: the kernels and copies of ``reps``
     calls under torch.profiler, summed, over ``reps``.  No launch gap and
     no host time enters, so this is the time to use for a kernel shorter
@@ -184,15 +214,20 @@ def device_ms(fn, reps=20, warm=3, flush_l2=False):
     `L2_FLUSH_BYTES` buffer before every call and leaves the fill's own
     time out.  Returns (ms, {activity name: ms per call}).
 
-    A profile that records no device activity for fn (torch.profiler
-    now and then drops a whole window) is taken again, up to
-    ``PROFILE_TRIES`` times; then this raises rather than return 0."""
+    torch.profiler now and then keeps only part of a window's device
+    activities, so each profile is held against the launches it must
+    hold: where fn launches kernels of the port, the CUDA kernels of the
+    wrappers' launches during the profile (`kernels.launch_counts`,
+    `kernel_launches`); else ``launches``, the device activities of one
+    fn() call, which the caller gives.  A short profile is taken again,
+    up to ``PROFILE_TRIES`` times; then this raises rather than return a
+    short time."""
     for _ in range(warm):
         fn()
     skip = set()
     if flush_l2:
         buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-        skip = {n for n, _, _ in device_profile(buf.zero_, top=None)["top"]}
+        skip = {n for n, _, _ in _device_activities(buf.zero_)[1]}
 
     def calls():
         for _ in range(reps):
@@ -201,45 +236,68 @@ def device_ms(fn, reps=20, warm=3, flush_l2=False):
             fn()
 
     for _ in range(PROFILE_TRIES):
-        by_name = {}
-        for name, _, ms in device_profile(calls, top=None)["top"]:
-            if name not in skip:
-                by_name[name] = by_name.get(name, 0.0) + ms / reps
-        if by_name:
+        before = kernels.launch_counts()
+        acts = [a for a in _device_activities(calls)[1] if a[0] not in skip]
+        ran = {w: n - before[w] for w, n in kernels.launch_counts().items()
+               if n != before[w]}
+        if launches is not None:
+            expected = {None: launches * reps}
+        elif ran:
+            expected = kernel_launches(ran)
+        else:
+            raise ValueError("fn launched no kernel of the port: give "
+                             "launches=, the device activities of one call")
+        short = missing_launches(acts, expected)
+        if not short:
+            by_name = {}
+            for name, _, ms in acts:
+                by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms / reps
             return sum(by_name.values()), by_name
-    raise RuntimeError(f"torch.profiler recorded no device activity of the "
-                       f"timed call in {PROFILE_TRIES} tries")
+    raise RuntimeError(
+        f"torch.profiler kept only part of the launches in each of "
+        f"{PROFILE_TRIES} profiles of {reps} calls ((recorded, expected) "
+        f"by kernel: {short})")
 
 
-def device_profile(fn, top=8):
-    """Run fn() once under torch.profiler and account for the device:
-    ``busy_ms`` (sum of kernel and copy times), ``wall_ms`` (host clock
-    around fn and a synchronise; only device activity is traced, which
-    keeps the profiler's own cost on the host small),
-    ``idle_share`` = 1 - busy / wall, ``launches``, and the ``top`` device
-    activities (all of them for None) by total time as (name, launches,
-    total ms)."""
+def _device_activities(fn, lead_s=PROFILE_LEAD_S):
+    """Run fn() once under torch.profiler, tracing device activity only
+    (which keeps the profiler's own cost on the host small), the window
+    idle for ``lead_s`` before fn and after its synchronise.  Returns
+    (wall ms of fn and a synchronise, [(name, launches, total ms)] of
+    every device activity, by total time)."""
     import time
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
-        raise RuntimeError("device_profile needs a CUDA device")
+        raise RuntimeError("a device profile needs a CUDA device")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as p:
+        time.sleep(lead_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(lead_s)
     dev = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in dev) / 1e3
     dev.sort(key=lambda e: -e.device_time_total)
+    return wall_ms, [(e.key, e.count, e.device_time_total / 1e3)
+                     for e in dev]
+
+
+def device_profile(fn, top=8):
+    """Run fn() once under torch.profiler and account for the device:
+    ``busy_ms`` (sum of kernel and copy times), ``wall_ms`` (host clock
+    around fn and a synchronise), ``idle_share`` = 1 - busy / wall,
+    ``launches``, and the ``top`` device activities (all of them for
+    None) by total time as (name, launches, total ms)."""
+    wall_ms, acts = _device_activities(fn)
+    busy_ms = sum(ms for _, _, ms in acts)
     return dict(busy_ms=busy_ms, wall_ms=wall_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
-                launches=sum(e.count for e in dev),
-                top=[(e.key[:60], e.count, e.device_time_total / 1e3)
-                     for e in dev[:top]])
+                launches=sum(c for _, c, _ in acts),
+                top=[(n[:60], c, ms) for n, c, ms in acts[:top]])
 
 
 def roofline(pp: kernels.PackedFM, extra_c, extra_g, xc, xg, reps=20):

@@ -119,10 +119,11 @@ class BundleProblem:
 
     @property
     def reduced_size(self) -> int:
-        """Leading block retained by the EO Schur reduction:
-        d + 3 * #object points + free IO + free distortion."""
-        return (self.num_io_free + self.num_dist_free
-                + 3 * self.num_points + self.defect)
+        """Size of the system the EO Schur reduction retains: every column
+        that is not an EO column (`ops.schur.retained_columns`).  The JAX
+        package counts d + 3 * #object points + free IO + free distortion,
+        which is more than this where point coordinates are held fixed."""
+        return self.total_size - int(np.count_nonzero(self.col_eo >= 0))
 
     @property
     def dof(self) -> int:

@@ -109,6 +109,16 @@ def _load_library():
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the native loader builds (or is built) and loads here; a
+    failed build is False, not an error."""
+    try:
+        _load_library()
+    except LoaderBuildError:
+        return False
+    return True
+
+
 @dataclass
 class ParsedTable:
     """Columnar parse result.

@@ -33,9 +33,14 @@ class RotationRows(NamedTuple):
 def rotation_rows(omega, phi, kappa) -> RotationRows:
     """R(omega, phi, kappa) entries as separate [N] rows
     (ExteriorOrientation.java:52-85)."""
-    co, so = torch.cos(omega), torch.sin(omega)
-    cp, sp = torch.cos(phi), torch.sin(phi)
-    ck, sk = torch.cos(kappa), torch.sin(kappa)
+    return rotation_from_trig(torch.cos(omega), torch.sin(omega),
+                              torch.cos(phi), torch.sin(phi),
+                              torch.cos(kappa), torch.sin(kappa))
+
+
+def rotation_from_trig(co, so, cp, sp, ck, sk) -> RotationRows:
+    """`rotation_rows` from the cosines and sines of the three angles
+    (tensors or numpy arrays)."""
     return RotationRows(
         r11=cp * ck, r12=-cp * sk, r13=sp,
         r21=co * sk + so * sp * ck, r22=co * ck - so * sp * sk, r23=-so * cp,
@@ -56,14 +61,16 @@ class ProjectionRows(NamedTuple):
 
 
 def project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa,
-                 lo=None) -> ProjectionRows:
+                 lo=None, R=None) -> ProjectionRows:
     """xs = -c kx / N etc. (PartialDerivativeFactory.java:141-149).
 
     ``lo``: optional low-order rows (Xlo, Ylo, Zlo, X0lo, Y0lo, Z0lo) of a
     two-float (hi+lo) state: dX = (Xhi - X0hi) + (Xlo - X0lo), each f32
     subtraction exactly rounded, so dX keeps ~2 eps relative error
-    regardless of |X|."""
-    R = rotation_rows(omega, phi, kappa)
+    regardless of |X|.  ``R``: the `RotationRows` of the angles where the
+    caller has them (`synthetic.predict`: per image, gathered)."""
+    if R is None:
+        R = rotation_rows(omega, phi, kappa)
     dX, dY, dZ = X - X0, Y - Y0, Z - Z0
     if lo is not None:
         Xlo, Ylo, Zlo, X0lo, Y0lo, Z0lo = lo
@@ -80,13 +87,14 @@ def project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa,
 
 
 def jacobian_rows(X, Y, Z, x0, y0, c, X0, Y0, Z0, omega, phi, kappa,
-                  coeffs, spec: DistortionSpec, r0, lo=None):
+                  coeffs, spec: DistortionSpec, r0, lo=None, R=None):
     """Full analytic A-rows and predictions, feature-major.
 
     ``coeffs``: list of K [N] rows.  Returns (rows_x, rows_y, pred_x,
     pred_y): rows_* are lists of 12+K [N] rows ordered
-    [X Y Z x0 y0 c X0 Y0 Z0 omega phi kappa, coeffs...]."""
-    p = project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa, lo=lo)
+    [X Y Z x0 y0 c X0 Y0 Z0 omega phi kappa, coeffs...].  ``R``: see
+    `project_rows`."""
+    p = project_rows(X, Y, Z, c, X0, Y0, Z0, omega, phi, kappa, lo=lo, R=R)
     xs, ys, Ndn, R = p.xs, p.ys, p.N, p.R
     ck, sk = torch.cos(kappa), torch.sin(kappa)
     zero = torch.zeros_like(Ndn)

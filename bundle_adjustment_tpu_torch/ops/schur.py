@@ -15,7 +15,12 @@ block-diagonal N22, computed here batched:
 
 The elimination keeps the points (+ IO + distortion + datum rows) and
 removes the cameras, because the fully populated *point* covariance is the
-product of interest.
+product of interest.  The retained system is every column that is not an
+EO column, wherever it lies: the JAX package retains a leading block of
+d + 3P + IO + distortion columns, which on a network with held-fixed point
+coordinates (fewer point columns than 3P) or points seen only by scale
+bars (their columns follow the EO block) takes EO columns into the block
+it also eliminates.
 """
 
 from __future__ import annotations
@@ -33,16 +38,27 @@ class SchurFactors(NamedTuple):
     N12: torch.Tensor  # [nR, M, 6] coupling blocks (masked)
     ec: torch.Tensor  # [M, 6] EO column indices (clamped)
     mask: torch.Tensor  # [M, 6] valid-EO mask
+    retained: torch.Tensor  # [nR] the retained columns of the system
     info: torch.Tensor = None  # [M] LAPACK info of the 6x6 inverses (0 = ok)
 
 
-def reduce_eo(N, n, col_eo, n_reduced: int) -> SchurFactors:
+def retained_columns(col_eo, total_size: int):
+    """The columns [nR] of a bordered system of ``total_size`` that are not
+    EO columns (``col_eo`` [M, 6], -1 where fixed), ascending: the system
+    `reduce_eo` retains."""
+    col_eo = torch.as_tensor(col_eo)
+    keep = torch.ones(total_size, dtype=torch.bool, device=col_eo.device)
+    keep[col_eo[col_eo >= 0].long()] = False
+    return torch.nonzero(keep).flatten()
+
+
+def reduce_eo(N, n, col_eo, retained) -> SchurFactors:
     """Schur-reduce all EO columns out of the bordered system.
 
     N, n     : preconditioned bordered system ([T, T], [T])
     col_eo   : [M, 6] global EO columns (int tensor), -1 where fixed
-    n_reduced: size of the retained leading block
-               (d + 3P + free IO + free distortion)
+    retained : [nR] the columns kept (`retained_columns`: every column
+               that is not an EO column)
     """
     mask = col_eo >= 0  # [M, 6]
     ec = torch.where(mask, col_eo, 0).long()
@@ -58,16 +74,18 @@ def reduce_eo(N, n, col_eo, n_reduced: int) -> SchurFactors:
 
     n2 = torch.where(mask, n[ec], 0.0)  # [M, 6]
 
-    N12 = N[:n_reduced][:, ec.reshape(-1)].reshape(n_reduced, -1, 6)
+    R = torch.as_tensor(retained, device=N.device).long()
+    nR = R.shape[0]
+    N12 = N[R[:, None], ec.reshape(1, -1)].reshape(nR, -1, 6)
     N12 = torch.where(mask[None, :, :], N12, 0.0)  # [nR, M, 6]
 
     W = torch.einsum("rmi,mij->rmj", N12, inv22)  # [nR, M, 6]
     M_ = N12.shape[1]
-    S = N[:n_reduced, :n_reduced] - W.reshape(n_reduced, M_ * 6) \
-        @ N12.reshape(n_reduced, M_ * 6).T
-    nr = n[:n_reduced] - W.reshape(n_reduced, -1) @ n2.reshape(-1)
+    S = N[R[:, None], R[None, :]] - W.reshape(nR, M_ * 6) \
+        @ N12.reshape(nR, M_ * 6).T
+    nr = n[R] - W.reshape(nR, -1) @ n2.reshape(-1)
     return SchurFactors(S=S, nr=nr, inv22=inv22, n2=n2, N12=N12, ec=ec,
-                        mask=mask, info=info)
+                        mask=mask, retained=R, info=info)
 
 
 def back_substitute(f: SchurFactors, dx1) -> torch.Tensor:
@@ -81,7 +99,7 @@ def back_substitute(f: SchurFactors, dx1) -> torch.Tensor:
 def assemble_full_dx(f: SchurFactors, dx1, total_size: int) -> torch.Tensor:
     """Scatter (dx1, dx2) into the full bordered solution vector [T]."""
     dx = torch.zeros(total_size, dtype=dx1.dtype, device=dx1.device)
-    dx[: dx1.shape[0]] = dx1
+    dx[f.retained] = dx1
     dx2 = back_substitute(f, dx1)
     # accumulating index_put_: fixed order of the sums (index_add_ would
     # add with atomics on CUDA)

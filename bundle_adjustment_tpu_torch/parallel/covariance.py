@@ -85,10 +85,7 @@ def prepare(p, state, spec):
     else:
         b, _rc, _rg, Minv = engine.prepare(p, state, spec, 0.0,
                                            couple_global=True)
-    Sh = Minv.Sghat_inv
-    if torch.linalg.cholesky_ex((Sh + Sh.T) / 2).info != 0:
-        Minv = rcs.Precond(Minv_c=Minv.Minv_c, Minv_g=Minv.Minv_g)
-    return b, Minv
+    return b, rcs.definite_coupling(Minv)
 
 
 def _global_rows_at(p: engine.FMProblem, b: engine.FMBlocks, lanes):

@@ -1051,7 +1051,7 @@ def omega_at_full(p: FMProblem, rp: rcs.RCSProblem, b: FMBlocks, ext,
 def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
                  damping, cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
                  couple_global=True, state_lo: ParamState | None = None,
-                 stall_limit=None):
+                 stall_limit=None, choose_precond=None):
     """`lm_step` extended with scale bars, the inner-constraint datum and
     populated direct groups: the exact low-rank corrections of
     `freenet` folded around the same assembly, matvec and
@@ -1065,7 +1065,8 @@ def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
         return (*lm_step(p, state, spec, damping, cg_tol=cg_tol,
                          cg_maxiter=cg_maxiter, use_kernels=use_kernels,
                          couple_global=couple_global, state_lo=state_lo,
-                         stall_limit=stall_limit), None)
+                         stall_limit=stall_limit,
+                         choose_precond=choose_precond), None)
     cgf = None
     if use_kernels:
         from . import kernels
@@ -1083,6 +1084,8 @@ def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
 
         def base(c, g):
             return schur_matvec(p, b, c, g)
+    if choose_precond is not None:
+        Minv = choose_precond(Minv)
     ops = point_ops(p, b, cam_gather=cgf)
     ext = freenet.prepare_extras(rp, state, torch.stack(b.bp, dim=1), rc, rg,
                                  ops, b.omega0)
@@ -1098,7 +1101,7 @@ def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
 def lm_step(p: FMProblem, state: ParamState, spec, damping,
             cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
             couple_global=True, state_lo: ParamState | None = None,
-            stall_limit=None):
+            stall_limit=None, choose_precond=None):
     """One LM inner solve; returns (dxp, dxc, dxg, blocks, cg_iterations).
 
     ``use_kernels``: run the assembly through K2 (`kernels.prepare_kernels`,
@@ -1110,7 +1113,11 @@ def lm_step(p: FMProblem, state: ParamState, spec, damping,
     tensors.  The kernels take one camera: with C > 1 (the compact rows)
     ``use_kernels=True`` raises ValueError, and the step runs the plain
     path.  ``couple_global``: precondition with the exact camera-global
-    blocks, assembled inside the fused reduction."""
+    blocks, assembled inside the fused reduction.  ``choose_precond``: a
+    function of the assembled `rcs.Precond` that returns the one PCG
+    takes (`solver.solve` passes `rcs.definite_coupling`, which drops the
+    coupling where it is indefinite); None takes the assembled one, as
+    the JAX engine does."""
     cgf = None
     if use_kernels:
         from . import kernels
@@ -1128,6 +1135,8 @@ def lm_step(p: FMProblem, state: ParamState, spec, damping,
 
         def matvec(c, g):
             return schur_matvec(p, b, c, g)
+    if choose_precond is not None:
+        Minv = choose_precond(Minv)
     xc, xg, it = rcs.pcg(rc, rg, Minv, matvec, tol=cg_tol,
                          maxiter=cg_maxiter, stall_limit=stall_limit)
     dxp = back_substitute_points(p, b, xc, xg, cam_gather=cgf)

@@ -649,6 +649,20 @@ _WRAPPERS = {"cam_gather": cam_gather_rows,
              "matvec_stage": matvec_stage}
 
 
+#: the CUDA kernels (names in csrc/) that one launch of each wrapper
+#: runs: `measure.device_ms` holds a profile's device activities against
+#: the wrappers' launch counts
+DEVICE_KERNELS = {
+    "cam_gather": ("cam_gather_kernel",),
+    "schur_matvec": ("matvec_kernel", "block_sum_kernel", "finish_kernel"),
+    "prepare_reduction": ("prepare_kernel", "block_sum_kernel",
+                          "finish_kernel", "column_sum_kernel",
+                          "column_sum_kernel"),
+    "read_floor": ("read_floor_kernel", "column_sum_kernel"),
+    "matvec_stage": ("matvec_kernel", "finish_kernel"),
+}
+
+
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last reset."""
     return {name: w.launches for name, w in _WRAPPERS.items()}

@@ -440,6 +440,21 @@ def finish_coupling(Minv: Precond, Scg, Sgg, comm_cam=None) -> Precond:
                          Sghat_inv=torch.linalg.inv_ex(Sgg - corr)[0])
 
 
+def definite_coupling(Minv: Precond) -> Precond:
+    """``Minv`` where its global Schur complement Sghat is positive definite
+    (a Cholesky of the symmetrised Sghat^{-1} succeeds), else the
+    block-Jacobi `Precond` of the same camera and global blocks.  The
+    coupled preconditioner keeps the camera-global blocks and drops the
+    camera-camera ones, so its Sghat can be indefinite (on camera rigs,
+    and for one camera on small networks), and PCG has no convergence
+    guarantee with an indefinite preconditioner.  One G x G Cholesky and
+    one host read."""
+    Sh = Minv.Sghat_inv
+    if int(torch.linalg.cholesky_ex((Sh + Sh.T) / 2).info) != 0:
+        return Precond(Minv_c=Minv.Minv_c, Minv_g=Minv.Minv_g)
+    return Minv
+
+
 def make_apply_M(Minv: Precond, comm_cam=None):
     """Preconditioner apply (zc, zg) = M^{-1} (rc, rg) of a `Precond`:
     the exact coupled form when it carries Scg, else block-diagonal.  An

@@ -15,6 +15,12 @@ back-substitution.  The problem's layout picks the engine:
   block-layout engine, `rcs.lm_step_full` / `rcs.omega_at_full`, as the
   JAX `solve` steps, with K3 for the EO gathers.
 
+The point-major route assembles the coupled preconditioner (camera and
+camera-global blocks) and tests it once per step: where its global Schur
+complement is indefinite (camera rigs, some small networks) the step
+takes block Jacobi, the preconditioner of the JAX `solve` on every layout
+(`rcs.definite_coupling`).  ``RCSResult.history`` records each step's.
+
 The convergence criterion at scale: the dense solver's sqrt(eps_f64)
 threshold is unreachable in f32, so the default tolerance is scaled to the
 working dtype (the square root of its machine epsilon).  An f32 run ends
@@ -142,6 +148,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     with (tolerance, max_dx), INTERRUPT, SINGULAR_MATRIX, NO_CONVERGENCE.
     ``interrupted``: zero-argument callable polled once per iteration;
     True stops the loop with status INTERRUPT.
+    ``RCSResult.history``: one dict per iteration (max_dx, damping, CG
+    iterations, omega0, accepted, and ``precond``: "coupled" or
+    "block_jacobi", the preconditioner the step's PCG took).
     """
     dtype = state.points.dtype
     if tolerance is None:
@@ -169,6 +178,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
             return rcs.lm_step_full(problem, st, spec, lam, cg_tol=cg_tol,
                                     cg_maxiter=maxiter, cam_gather=cgf)
 
+        def precond_taken():
+            return "block_jacobi"
+
         def omega_at(b, ext, dxp, dxc, dxg, st):
             return rcs.omega_at_full(problem, b, ext, dxp, dxc, dxg)
     else:
@@ -183,10 +195,22 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
                 fmp, kernels.choose_pb(fmp.num_points, fmp.views,
                                        fmp.free_global.shape[0]))
 
+        taken = []
+
+        def definite(Minv):
+            Minv = rcs.definite_coupling(Minv)
+            taken.append("coupled" if Minv.Scg is not None
+                         else "block_jacobi")
+            return Minv
+
         def step(st, lam, maxiter):
             return engine.lm_step_full(fmp, problem, st, spec, lam,
                                        cg_tol=cg_tol, cg_maxiter=maxiter,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels,
+                                       choose_precond=definite)
+
+        def precond_taken():
+            return taken[-1]
 
         def omega_at(b, ext, dxp, dxc, dxg, st):
             return engine.omega_at_full(fmp, problem, b, ext, dxp, dxc, dxg,
@@ -245,7 +269,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
 
         history.append({"iter": it_done, "max_dx": max_dx,
                         "damping": adapted, "cg_it": int(cg_it),
-                        "omega0": omega0, "accepted": not rejected})
+                        "omega0": omega0, "accepted": not rejected,
+                        "precond": precond_taken()})
         if verbose:
             print(f"it={it_done} max|dx|={max_dx:.3e} lam={adapted:.2e} "
                   f"cg={int(cg_it)} omega0={omega0:.4e}")
@@ -293,8 +318,10 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
 
     * intermediate iterations run one LM step on the problem's
       `rcs.rcs_from_problem` (layout by `rcs.choose_layout`:
-      `engine.lm_step_full` on the point-major layout, `rcs.lm_step_full`
-      on a network of uneven visibility in file order; point-eliminated
+      `engine.lm_step_full` on the point-major layout with the coupled
+      preconditioner where it is definite (`rcs.definite_coupling`, as
+      `solve`), `rcs.lm_step_full` on a network of uneven visibility in
+      file order; point-eliminated
       implicit-Schur PCG, the scale bars, inner constraints and direct
       groups of `freenet`) in float64 on the solver's device, through the
       plain path (the CUDA kernels take f32 only), and scatter the step
@@ -326,9 +353,10 @@ class ScaleBundleAdjustment(_DenseBundleAdjustment):
             fmp = engine.fm_problem(rp)
 
             def lm_step(state, damping):
-                return engine.lm_step_full(fmp, rp, state, spec, damping,
-                                           cg_tol=self.cg_tol,
-                                           cg_maxiter=self.cg_maxiter)
+                return engine.lm_step_full(
+                    fmp, rp, state, spec, damping, cg_tol=self.cg_tol,
+                    cg_maxiter=self.cg_maxiter,
+                    choose_precond=rcs.definite_coupling)
         spec = bp.spec
         simulation = self.estimation_type == EstimationType.SIMULATION
         T = bp.total_size

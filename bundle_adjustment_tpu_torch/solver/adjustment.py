@@ -41,7 +41,7 @@ from ..models.problem import BundleProblem, CompiledScene, ParamState, compile_p
 from ..models.scene import Camera, DirectlyObservedParameterGroup, ScaleBar
 from ..ops import linalg
 from ..ops.assembly import make_assembler, make_image_block_fn, make_omega_fn
-from ..ops.schur import assemble_full_dx, reduce_eo
+from ..ops.schur import assemble_full_dx, reduce_eo, retained_columns
 
 
 class MatrixInversion(enum.Enum):
@@ -256,9 +256,9 @@ class BundleAdjustment:
     def _build_kernels(self) -> _Kernels:
         p = self.problem
         T = p.total_size
-        nR = p.reduced_size
         dev, dt = self.device, self.dtype
         col_eo = torch.as_tensor(np.asarray(p.col_eo, np.int64), device=dev)
+        R = retained_columns(col_eo, T)
         assemble = make_assembler(p, dev, dt)
         omega = make_omega_fn(p, dev, dt)
         simulation = self.estimation_type == EstimationType.SIMULATION
@@ -276,7 +276,7 @@ class BundleAdjustment:
         def solve_intermediate(state: ParamState, damping):
             Np, npre, V = system(state, damping)
             if mode == MatrixInversion.PRE_ELIMINATION:
-                f = reduce_eo(Np, npre, col_eo, nR)
+                f = reduce_eo(Np, npre, col_eo, R)
                 dx1 = linalg.solve_symmetric(f.S, f.nr)
                 linalg.check_factorisation(f.info)
                 dx = assemble_full_dx(f, dx1, T)
@@ -287,12 +287,12 @@ class BundleAdjustment:
         def solve_final(state: ParamState, damping):
             Np, npre, V = system(state, damping)
             if mode in (MatrixInversion.REDUCED, MatrixInversion.PRE_ELIMINATION):
-                f = reduce_eo(Np, npre, col_eo, nR)
+                f = reduce_eo(Np, npre, col_eo, R)
                 Q1 = linalg.inv_symmetric(f.S)
                 linalg.check_factorisation(f.info)
                 dx = assemble_full_dx(f, Q1 @ f.nr, T)
                 Q = torch.zeros((T, T), dtype=dt, device=dev)
-                Q[:nR, :nR] = Q1
+                Q[R[:, None], R[None, :]] = Q1
             elif mode == MatrixInversion.FULL:
                 Q = linalg.inv_symmetric(Np)
                 dx = Q @ npre

@@ -20,6 +20,8 @@ optionally, direct observations.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -56,16 +58,27 @@ def predict(points, io, dist, eo, obs_point, obs_image, spec,
     camera 0) picks each observation's row of ``io`` [C, 3] and ``dist``
     [C, K].  Evaluated `PREDICT_CHUNK` observations at a time: every
     operation of the forward model is elementwise, so the chunks give the
-    values of one call over all observations."""
+    values of one call over all observations.
+
+    The rotation entries are computed once per image, their sines and
+    cosines by numpy, and gathered to the observations: torch's CPU
+    `cos` of a strided per-observation column goes through MKL in pieces,
+    and its first call in a process now and then returned one piece
+    ~1e-8 off, so the problem's bits moved between processes."""
     from .ops import fm
 
     points, eo = np.asarray(points, np.float64), np.asarray(eo, np.float64)
     io, dist = np.asarray(io, np.float64), np.asarray(dist, np.float64)
     obs_point, obs_image = np.asarray(obs_point), np.asarray(obs_image)
+    ang = np.ascontiguousarray(eo[:, 3:6].T)
+    rot = fm.rotation_from_trig(*(torch.from_numpy(f(a)) for a in ang
+                                  for f in (np.cos, np.sin)))
     out = np.empty((obs_image.shape[0], 2))
     for c0 in range(0, obs_image.shape[0], PREDICT_CHUNK):
         img = obs_image[c0:c0 + PREDICT_CHUNK]
         n = img.shape[0]
+        img_t = torch.from_numpy(img.astype(np.int64))
+        R = fm.RotationRows(*(r[img_t] for r in rot))
         cam = (np.zeros(n, np.int64) if cam_of_image is None
                else np.asarray(cam_of_image)[img])
         pts = torch.from_numpy(points[obs_point[c0:c0 + n]])
@@ -77,7 +90,7 @@ def predict(points, io, dist, eo, obs_point, obs_image, spec,
         _, _, px, py = fm.jacobian_rows(
             pts[:, 0], pts[:, 1], pts[:, 2], io_r[0], io_r[1], io_r[2],
             e[:, 0], e[:, 1], e[:, 2], e[:, 3], e[:, 4], e[:, 5],
-            coeffs, spec, r0)
+            coeffs, spec, r0, R=R)
         out[c0:c0 + n, 0] = px.numpy()
         out[c0:c0 + n, 1] = py.numpy()
     return out
@@ -199,6 +212,22 @@ def build_problem(num_points, num_images, views_per_point, seed=0, spec=None,
         cam_of_image=cam_of_image)
     state = ParamState(points=pts0, io=io, dist=dist, eo=eo0)
     return problem, state, spec
+
+
+def digest(problem, state) -> str:
+    """SHA-256 (hex) over every field of a problem of host arrays and its
+    state, in field order (name, dtype, shape and bytes of each array;
+    other fields by their repr): two builds give one digest exactly when
+    they have the same bits."""
+    h = hashlib.sha256()
+    for name, v in (*problem._asdict().items(), *state._asdict().items()):
+        h.update(name.encode())
+        if isinstance(v, np.ndarray):
+            h.update(f"{v.dtype}{v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
 
 
 def scenario_batch(S, num_points, num_images, views_per_point, seed=0):

@@ -15,10 +15,14 @@ Phases (any failed check exits non-zero, before the result line):
      barrier of the shared-memory ring in place); each kernel's time is
      the device time of its launches under torch.profiler
      (measure.device_ms: no launch gap, no host; K1 and K2 also kernel by
-     kernel), K1 and K3 also with the L2 flushed before each launch, beside
-     the time per call between CUDA events around back-to-back calls (for
-     K3 that reads the host: the kernel is shorter than its wrapper); for
-     K3 the device time of the one PyTorch call for the same gather;
+     kernel; each profile held to the launches it must hold, the
+     wrappers' launch counts or a stated count per call, and raising after
+     3 short ones), K1 and K3 also with the L2 flushed before each launch,
+     beside the time per call between CUDA events around back-to-back
+     calls (for K3 that reads the host: the kernel is shorter than its
+     wrapper); for K3 the device time of the one PyTorch call for the same
+     gather; the SHA-256 digest of the synthetic problem
+     (`synthetic.digest`), so that two runs can be compared;
   3. the LM phase (parallel/lm.py) from synthetic.build_problem(seed=0),
      entirely through the kernels: launch counters reset before and read
      after, each must be > 0; Omega must drop and sigma0 = sqrt(Omega/dof)
@@ -99,7 +103,10 @@ Phases (any failed check exits non-zero, before the result line):
      f32 floor 1e-3, since the dtype-scaled default 3.45e-4 lies under the
      floor of an f32 step here) and `refine.converge` with extras, undamped
      (the gate: max|dx| <= 1e-6) and with the Refiner's default damping
-     1e-8 (recorded).  Gates: K1, K2 and K3 launched; sigma0 =
+     1e-8 (recorded); the solve's preconditioner per step (the coupled one
+     where its global Schur complement is definite, else block Jacobi) is
+     printed, here and in phases 10, 11 and 15.  Gates: K1, K2 and K3
+     launched; sigma0 =
      sqrt(Omega / dof) within 1% of 5e-4 with dof = 2 N_true - (3 P_true +
      6 M + G) + d + bars; the f64 Omega at the refined state not above the
      f32 phase's end; every bar's refined length within 5 sigma (2.5e-6)
@@ -311,12 +318,22 @@ Phases (any failed check exits non-zero, before the result line):
      within 1e-10 of the dense panels on 4,096 sampled points (16 chunks
      of the dense chunk), whose times are extrapolated to all points; 6
      camera blocks equal Q's diagonal blocks; every free point's block
-     symmetric with positive eigenvalues; cov_all cold and warm within
-     1e-6 of the staged run.  The phase prints its seconds and fails
+     symmetric and positive definite (a Cholesky of each on the card; the
+     smallest eigenvalue in closed form, printed); cov_all cold and warm
+     within 1e-6 of the staged run.  The problem's digest is printed, and
+     each kernel's device time under the profiler beside its CUDA-event
+     time (or the message where `measure.device_ms` raised on profiles
+     short of launches).  The phase prints its seconds and fails
      above its stated budget (150 s); its launches join the kernels line, and each kernel
      entry gains a ``config5`` entry (events_ms and plain_events_ms: the
-     times per call between CUDA events; bound, share of the bound by the
-     events time, launches).
+     times per call between CUDA events; device_ms; bound, share of the
+     bound by the events time, launches).
+  17. the port's example as a user runs it: `python
+     examples/example_scale_torch.py 20000 100 8` as a process on the card
+     (f32 `solve`, `refine.converge`, f64 `cov_all`; then the file-order
+     network of `synthetic.thin_views` through the f32 and f64 `solve`
+     and blocks on demand): exit 0, both parts at max|dx| <= 1e-6 with
+     sigma0 within 1% of 5e-4.
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7, 8, 11, 13 (e), 15 and 16, each between a reset and a
 read of the counters;
@@ -506,6 +523,10 @@ C5_CAMERAS = 6
 C5_SAMPLE = 4096           # points of the block gather against dense panels
 C5_GATHER_TOL = 1e-10      # of each block's largest entry
 C5_SELF_TOL = 1e-10        # (p, p) pair + Hpp^-1 against the point's block
+# phase 17: the port's example as a user runs it
+EXAMPLE = ROOT / "examples" / "example_scale_torch.py"
+EXAMPLE_SHAPE = (20_000, 100, 8)
+EXAMPLE_TIMEOUT = 600      # s
 
 
 def fail(msg: str):
@@ -526,6 +547,19 @@ def by_kernel(ms_by_name) -> str:
 
     return ", ".join(f"{short(n)} {t * 1e3:.1f} us"
                      for n, t in ms_by_name.items())
+
+
+def preconds(history) -> str:
+    """The preconditioner of each `solve` step, run-length coded
+    ("coupled x2, block_jacobi x5"): the point-major route keeps the
+    coupled one where it is definite (`rcs.definite_coupling`)."""
+    runs = []
+    for h in history:
+        if runs and runs[-1][0] == h["precond"]:
+            runs[-1][1] += 1
+        else:
+            runs.append([h["precond"], 1])
+    return ", ".join(f"{p} x{n}" for p, n in runs)
 
 
 def scaled_err(a, b) -> float:
@@ -606,6 +640,26 @@ def cov_staged(fmp, state, spec, cam_gather=None):
 
 def mean_stage_ms(runs):
     return {n: sum(r[n] for r in runs) / len(runs) for n in COV_STAGES}
+
+
+def sym3_eigmin(A):
+    """The smallest eigenvalue of each symmetric 3x3 block of A [k, 3, 3],
+    in closed form (the trigonometric roots of the characteristic
+    cubic)."""
+    import torch
+
+    dg = A.diagonal(dim1=1, dim2=2)
+    q = dg.sum(dim=1) / 3
+    off = A[:, 0, 1] ** 2 + A[:, 0, 2] ** 2 + A[:, 1, 2] ** 2
+    p = torch.sqrt((((dg - q[:, None]) ** 2).sum(dim=1) + 2 * off) / 6)
+    ps = torch.where(p > 0, p, torch.ones_like(p))
+    B = (A - q[:, None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+         ) / ps[:, None, None]
+    det = (B[:, 0, 0] * (B[:, 1, 1] * B[:, 2, 2] - B[:, 1, 2] ** 2)
+           - B[:, 0, 1] * (B[:, 0, 1] * B[:, 2, 2] - B[:, 1, 2] * B[:, 0, 2])
+           + B[:, 0, 2] * (B[:, 0, 1] * B[:, 1, 2] - B[:, 1, 1] * B[:, 0, 2]))
+    phi = torch.acos((det / 2).clamp(-1.0, 1.0)) / 3
+    return torch.where(p > 0, q + 2 * p * torch.cos(phi + 2 * math.pi / 3), q)
 
 
 def block_err(x, ref):
@@ -1004,7 +1058,7 @@ def free_network_phase(prob_h, state_h, spec, dev):
         f"{len(hist) - accepted} rejected); max|dx| " + ", ".join(
             f"{h['max_dx']:.3e}" for h in hist) + "; CG iterations "
         f"{[h['cg_it'] for h in hist]}; damping "
-        f"{[h['damping'] for h in hist]}")
+        f"{[h['damping'] for h in hist]}; preconditioner {preconds(hist)}")
     log(f"  launches during solve: {launches_solve}")
     st = res.state
 
@@ -1114,6 +1168,7 @@ def free_network_phase(prob_h, state_h, spec, dev):
         free_dof=dof, free_solve_steps=res.iterations,
         free_solve_accepted=accepted, free_solve_s=t_f32,
         free_solve_cg_iterations=phase.cg_iterations,
+        free_solve_precond=preconds(hist),
         free_solve_max_dx=[h["max_dx"] for h in hist],
         free_refine=runs, free_omega_f32_end=om_f32,
         free_time_to_converged_s=t_f32 + gate["seconds"],
@@ -1137,7 +1192,8 @@ def reference_api_phase(dev):
     import bundle_adjustment_tpu_torch as T
     from bundle_adjustment_tpu_torch.models.problem import compile_problem
     from bundle_adjustment_tpu_torch.ops.assembly import make_assembler
-    from bundle_adjustment_tpu_torch.ops.schur import reduce_eo
+    from bundle_adjustment_tpu_torch.ops.schur import (reduce_eo,
+                                                       retained_columns)
     from bundle_adjustment_tpu_torch.parallel import kernels
     from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
 
@@ -1222,14 +1278,16 @@ def reference_api_phase(dev):
 
     # the three modes agree (coordinates, the points' cofactor blocks)
     full = runs["FULL"]["adj"]
-    nR = bp.reduced_size
+    col_eo = torch.as_tensor(bp.col_eo.astype(np.int64), device=dev)
+    R = retained_columns(col_eo, bp.total_size)
+    kept = R[R >= d]    # the retained unknowns: points, IO, distortion
     for m in ("REDUCED", "PRE_ELIMINATION"):
         a = runs[m]["adj"]
         if not torch.allclose(a.state.points, full.state.points,
                               **API_MODE_XYZ):
             fail(f"{m} coordinates differ from FULL's by "
                  f"{float((a.state.points - full.state.points).abs().max())}")
-        qa, qf = a.Qxx[d:nR, d:nR], full.Qxx[d:nR, d:nR]
+        qa, qf = a.Qxx[kept][:, kept], full.Qxx[kept][:, kept]
         q_max = float(qf.abs().max())
         q_err = float((qa - qf).abs().max())
         log(f"{m} against FULL: max|dxyz| "
@@ -1261,7 +1319,6 @@ def reference_api_phase(dev):
     # of API_TIMED after one untimed call each)
     st = ra.state
     assemble = make_assembler(bp, dev)
-    col_eo = torch.as_tensor(bp.col_eo.astype(np.int64), device=dev)
 
     def timed(fn):
         out = fn()
@@ -1271,7 +1328,7 @@ def reference_api_phase(dev):
     (N, nv, V), asm_ms = timed(lambda: assemble(st, 0.0))
     Np, npre = V[:, None] * N * V[None, :], V * nv
     _, solve_ms = timed(lambda: torch.linalg.solve_ex(Np, npre))
-    f, reduce_ms = timed(lambda: reduce_eo(Np, npre, col_eo, nR))
+    f, reduce_ms = timed(lambda: reduce_eo(Np, npre, col_eo, R))
     _, inv_red_ms = timed(lambda: torch.linalg.inv_ex(f.S))
     _, inv_full_ms = timed(lambda: torch.linalg.inv_ex(Np))
     split = dict(assembly_ms=asm_ms, lu_solve_ms=solve_ms,
@@ -1467,7 +1524,8 @@ def multi_camera_phase(dev):
     log(f"(b) solve (f32, plain): {res.status.name} after {res.iterations} "
         f"steps in {t_f32:.3f} s; max|dx| "
         + ", ".join(f"{h['max_dx']:.3e}" for h in hist)
-        + f"; CG iterations {[h['cg_it'] for h in hist]}")
+        + f"; CG iterations {[h['cg_it'] for h in hist]}; preconditioner "
+        f"{preconds(hist)}")
     # the coupled preconditioner at the f32 end: the definiteness of its
     # global Schur complement (it drops the camera-camera blocks)
     _, _, _, Mc = engine.prepare(fmp64, st_f32, spec, 0.0,
@@ -1534,7 +1592,8 @@ def multi_camera_phase(dev):
         f"{res64.status.name} after {res64.iterations} steps in {t_f64:.3f} "
         f"s; max|dx| " + ", ".join(f"{h['max_dx']:.3e}"
                                    for h in res64.history)
-        + f"; CG iterations {[h['cg_it'] for h in res64.history]}")
+        + f"; CG iterations {[h['cg_it'] for h in res64.history]}; "
+        f"preconditioner {preconds(res64.history)}")
     log(f"(b) time_to_converged_s {ttc:.3f} (f32 {t_f32:.3f} + f64 "
         f"{t_f64:.3f}); f64 Omega {om_f32:.10e} -> {om_end:.10e}; sigma0 "
         f"{sigma0:.6e} (dof {dof}); principal distances {io_est.tolist()} "
@@ -1670,8 +1729,11 @@ def multi_camera_phase(dev):
     return dict(
         rig_step_err=errs, rig_step_cg=cg_a,
         rig_solve_f32_steps=res.iterations, rig_solve_f32_s=t_f32,
+        rig_solve_f32_cg=[h["cg_it"] for h in hist],
+        rig_solve_f32_precond=preconds(hist),
         rig_solve_f64_steps=res64.iterations, rig_solve_f64_s=t_f64,
         rig_solve_f64_cg=[h["cg_it"] for h in res64.history],
+        rig_solve_f64_precond=preconds(res64.history),
         rig_time_to_converged_s=ttc, rig_sigma0=sigma0,
         rig_sghat_negative=n_neg, rig_refine_recorded=refined,
         rig_f64_step_idle_share=prof["idle_share"],
@@ -1783,7 +1845,8 @@ def file_route_phase(prob_h, state_h, spec, dev):
                      for f in rf.state._fields))
     log(f"solve (f32, kernels) on the file route: {rf.status.name} after "
         f"{rf.iterations} steps in {solve_s:.3f} s, max|dx| "
-        f"{rf.max_abs_dx:.3e}, CG {[h['cg_it'] for h in rf.history]}; "
+        f"{rf.max_abs_dx:.3e}, CG {[h['cg_it'] for h in rf.history]}, "
+        f"preconditioner {preconds(rf.history)}; "
         f"launches {launches_solve}; the control {rc.iterations} steps; "
         f"equal bits and steps: {equal}")
     if not equal:
@@ -1864,6 +1927,8 @@ def file_route_phase(prob_h, state_h, spec, dev):
         file_parse_native_s=parse_native_s, file_parse_py_s=parse_py_s,
         file_loader_build_s=loader_build_s, file_build_s=build_s,
         file_solve_steps=rf.iterations, file_solve_s=solve_s,
+        file_solve_cg=[h["cg_it"] for h in rf.history],
+        file_solve_precond=preconds(rf.history),
         file_refine_steps=rec.refine_steps,
         file_refine_s=rec.refine_seconds, file_refine_max_dx=rec.max_dx,
         file_omega_f32=om_f32, file_omega=om, file_sigma0=sigma0,
@@ -2809,11 +2874,13 @@ def uneven_phase(dev, shape=(NUM_POINTS, NUM_IMAGES)):
             rows=int(prob.obs_point.shape[0]), steps=res.iterations,
             converged=res.converged, seconds=secs,
             s_per_step=secs / max(res.iterations, 1),
-            cg_per_step=cg, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            cg_per_step=cg, precond=preconds(res.history),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             omega=om, sigma0=s0, max_dx=res.max_abs_dx, state=res.state)
         log(f"(a) f64 solve, {name} layout: {runs[name]['rows']:,} rows, "
             f"{res.status.name} after {res.iterations} steps in {secs:.3f} s "
             f"({runs[name]['s_per_step']:.3f} s per step), CG per step {cg}, "
+            f"preconditioner {preconds(res.history)}, "
             f"max|dx| {res.max_abs_dx:.3e}, peak memory "
             f"{runs[name]['peak_gb']:.2f} GB; Omega {om:.10e}, sigma0 "
             f"{s0:.6e}")
@@ -3005,21 +3072,65 @@ def uneven_phase(dev, shape=(NUM_POINTS, NUM_IMAGES)):
 # phase 16: BASELINE config 5 (1M points / 5,000 images / 12 views)
 # ---------------------------------------------------------------------------
 
+def example_phase():
+    """Phase 17 (see the module docstring).  Returns a summary dict."""
+    t = time.time()
+    r = subprocess.run([sys.executable, str(EXAMPLE),
+                        *map(str, EXAMPLE_SHAPE)], cwd=ROOT,
+                       capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT)
+    seconds = time.time() - t
+    if r.returncode != 0:
+        fail(f"phase 17: the example exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  | {line}")
+    out = json.loads(lines[-1])
+    problems = []
+    if out["device"] != "cuda":
+        problems.append(f"it ran on {out['device']}")
+    for part in ("point_major", "file"):
+        res = out[part]
+        if not (res["converged"] and res["max_dx"] <= REFINE_TOL):
+            problems.append(f"the {part} part did not reach max|dx| <= "
+                            f"{REFINE_TOL} ({res['max_dx']:.3e})")
+        if not abs(res["sigma0"] / SIGMA - 1.0) < 0.01:
+            problems.append(f"the {part} part's sigma0 {res['sigma0']:.6e}")
+    log(f"example at {EXAMPLE_SHAPE}: {seconds:.1f} s as a process "
+        f"({out['seconds']:.1f} s in its main); sigma0 point-major "
+        f"{out['point_major']['sigma0']:.6e}, file order "
+        f"{out['file']['sigma0']:.6e}")
+    if problems:
+        fail("phase 17: " + "; ".join(problems))
+    return dict(example=dict(out, process_s=seconds))
+
+
 def config5_kernels(fv, state0, spec, dev):
     """K3, K2, K1 and K4 against their plain versions at the config-5
     shapes, with phase 2's gates (K3 exact; K1, K2 and K2 through
     finish_reduction within TOL_SCALED; K4 within TOL_FLOOR; repeat runs
     of K1 and K2 equal bit for bit).  Returns {kernel: dict(max_abs_err,
-    events_ms, plain_events_ms)}, both times per call between CUDA events around
-    back-to-back calls (`measure.time_ms`).  Not the profiler's device
-    time: late in a full run of this script torch.profiler kept only some
-    of these long calls' launches (K4 read 0.09 ms against a 0.59 ms byte
-    bound), and at these shapes each call takes 0.18 ms or more, so the
-    launch gaps that events add are a small share."""
+    events_ms, plain_events_ms, device_ms, device_ms_raised)}: the times
+    per call between CUDA events around back-to-back calls
+    (`measure.time_ms`) are the phase's times; beside them the profiler's
+    device time (`measure.device_ms`), or None and the message where it
+    raised: late in a full run of this script torch.profiler once kept
+    only some of these long calls' launches (K4 read 0.09 ms against a
+    0.59 ms byte bound), which `device_ms` now refuses.  At these shapes
+    each call takes 0.18 ms or more, so the launch gaps that events add
+    are a small share."""
     import torch
 
     from bundle_adjustment_tpu_torch import measure
     from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    def device(row, fn):
+        try:
+            row["device_ms"], row["device_ms_raised"] = \
+                measure.device_ms(fn, reps=10)[0], None
+        except RuntimeError as exc:
+            row["device_ms"], row["device_ms_raised"] = None, str(exc)
 
     out = {}
     b = engine.linearize(fv, state0, spec, 1e-2)
@@ -3034,6 +3145,7 @@ def config5_kernels(fv, state0, spec, dev):
         events_ms=measure.time_ms(lambda: kernels.cam_gather_rows(eo, pp.obs_img)),
         plain_events_ms=measure.time_ms(lambda: kernels.cam_gather_plain(
             eo, pp.obs_img)))
+    device(out["cam_gather"], lambda: kernels.cam_gather_rows(eo, pp.obs_img))
     del g_k, g_p
 
     out_k = kernels.prepare_reduction(pp)
@@ -3065,6 +3177,7 @@ def config5_kernels(fv, state0, spec, dev):
         events_ms=measure.time_ms(lambda: kernels.prepare_reduction(pp), reps=10),
         plain_events_ms=measure.time_ms(lambda: kernels.prepare_reduction_plain(pp),
                                  reps=3, warm=1))
+    device(out["prepare_reduction"], lambda: kernels.prepare_reduction(pp))
     ec, eg = fin_p[0].extra_c.contiguous(), fin_p[0].extra_g.contiguous()
     del out_k, out_p, fin_k, fin_p
 
@@ -3090,6 +3203,8 @@ def config5_kernels(fv, state0, spec, dev):
             pp, ec, eg, xc, xg)),
         plain_events_ms=measure.time_ms(lambda: kernels.schur_matvec_plain(
             pp, ec, eg, xc, xg), reps=5, warm=1))
+    device(out["schur_matvec"], lambda: kernels.schur_matvec_rows(
+        pp, ec, eg, xc, xg))
     del pp
 
     pp4 = kernels.pack_fm(b, fv, lean_only=True)
@@ -3108,6 +3223,7 @@ def config5_kernels(fv, state0, spec, dev):
         events_ms=measure.time_ms(lambda: kernels.read_floor(pp4, xin)),
         plain_events_ms=measure.time_ms(lambda: kernels.read_floor_plain(pp4, xin),
                                  reps=3, warm=1))
+    device(out["read_floor"], lambda: kernels.read_floor(pp4, xin))
     return out
 
 
@@ -3232,9 +3348,11 @@ def config5_covariance(prob, st64, spec, dev, dup_point):
     Qf = Qall[torch.as_tensor(free, device=dev)]
     sym = bool(torch.equal(Qf, Qf.mT))
     finite = bool(torch.isfinite(Qf).all())
-    # on the host: cuSOLVER's batched eigensolver (syevBatched) refuses
-    # these batches on the card, 65,536 blocks as well as 1M
-    eig_min = float(torch.linalg.eigvalsh(Qf.cpu()).min())
+    # on the card: a Cholesky of every block (the gate), and the smallest
+    # eigenvalue in closed form (cuSOLVER's batched eigensolver,
+    # syevBatched, refuses batches of 32,768 3x3 blocks and more)
+    spd = int((torch.linalg.cholesky_ex(Qf).info != 0).sum()) == 0
+    eig_min = float(sym3_eigmin(Qf).min())
     log(f"residual max|D^-1 (S S^-1 - I)[:, cols] D| on {nc} "
         f"columns {resid:.3e}; {C5_CAMERAS} camera blocks equal Q's "
         f"diagonal blocks: {cams_same}; points {pool.tolist()} (datum 1, "
@@ -3246,6 +3364,7 @@ def config5_covariance(prob, st64, spec, dev, dup_point):
         f"pairs + Hpp^-1 vs the point blocks "
         f"{self_err:.3e}; "
         f"{len(free_ids)} free blocks finite: {finite}, symmetric: {sym}, "
+        f"Cholesky of each on the card: {spd}, "
         f"smallest eigenvalue {eig_min:.3e}; cov_all (cold, warm) vs the "
         f"staged run "
         f"{repeat_err:.3e}")
@@ -3266,7 +3385,7 @@ def config5_covariance(prob, st64, spec, dev, dup_point):
     if not (gather_err <= C5_GATHER_TOL and all_err <= C5_GATHER_TOL):
         problems.append(f"the recovery differs from dense panels (block "
                         f"gather {gather_err:.3e}, cov_all {all_err:.3e})")
-    if not (finite and sym and eig_min > 0):
+    if not (finite and sym and spd and eig_min > 0):
         problems.append("a free point's block is not symmetric positive "
                         "definite")
     if not repeat_err <= COV_BLOCK_TOL:
@@ -3335,12 +3454,17 @@ def config5_phase(dev, shape=C5_SHAPE):
             f"{n} {v:.2f}" for n, v in host.items()))
     if not len(dup):
         fail("phase 16: no free point sees an image twice")
+    t = time.time()
+    digest = synthetic.digest(prob_h, state_h)
+    log(f"digest {digest} ({time.time() - t:.1f} s)")
     del prob_h, state_h
 
     results = config5_kernels(fv, state0, spec, dev)
     log("kernels at these shapes, ms per call between CUDA events "
-        "(plain): " + ", ".join(
-        f"{n} {r['events_ms']:.4f} ({r['plain_events_ms']:.4f})"
+        "(plain); device time under the profiler: " + ", ".join(
+        f"{n} {r['events_ms']:.4f} ({r['plain_events_ms']:.4f}); "
+        + (f"{r['device_ms']:.4f}" if r["device_ms"] is not None
+           else f"device_ms raised: {r['device_ms_raised']}")
         for n, r in results.items()))
 
     # the LM phase through the kernels
@@ -3428,7 +3552,8 @@ def config5_phase(dev, shape=C5_SHAPE):
              f"{C5_BUDGET_S} s")
     launches_all = {k: launches[k] + launches_r[k] for k in launches}
     summary = dict(
-        shape=dict(N=N, P=P, M=M, G=G), host_s=host, lm_steps=ph.steps,
+        shape=dict(N=N, P=P, M=M, G=G), digest=digest, host_s=host,
+        lm_steps=ph.steps,
         lm_s=ph.seconds, sigma0=s0, lm_cg=ph.cg_iterations,
         fixed_cg8_step_ms=step_k,
         fixed_cg8_step_plain_ms=step_p, refine_steps=rec.refine_steps,
@@ -3497,7 +3622,8 @@ def main(profile_refinement=False):
     fv = engine.to_view_major(fmp, pb)
     N = fv.num_points * fv.views
     log(f"problem: P={fv.num_points} M={fv.num_images} V={fv.views} G={G} "
-        f"N={N} pb={pb}; built in {time.time() - t0:.1f} s")
+        f"N={N} pb={pb}; built in {time.time() - t0:.1f} s; digest "
+        f"{synthetic.digest(prob_h, state_h)}")
 
     results = {}
     b = engine.linearize(fv, state0, spec, 1e-2)
@@ -3518,18 +3644,22 @@ def main(profile_refinement=False):
 
     # K3 is shorter than its wrapper's host cost, so CUDA events around
     # back-to-back calls read the host: its plain version and the library
-    # call are held against device times too
+    # call are held against device times too.  Device activities per call
+    # (the profile is held to them): the plain version's index cast, gather,
+    # zero rows and concatenation, 4; the library call's 2
     results["cam_gather"] = dict(
         max_abs_err=float((g_k - g_p).abs().max()),
         ms=measure.device_ms(k3, reps=50, warm=20)[0],
         ms_l2_flushed=measure.device_ms(k3, flush_l2=True)[0],
         events_ms=measure.time_ms(k3, reps=50),
         plain_ms=measure.device_ms(
-            lambda: kernels.cam_gather_plain(eo, pp.obs_img))[0],
+            lambda: kernels.cam_gather_plain(eo, pp.obs_img),
+            launches=4)[0],
         # the one PyTorch call for the same gather (timed here, used nowhere
         # in the port): index_select, then the transpose copy
         library_ms=measure.device_ms(
-            lambda: torch.index_select(eo, 0, idx64).t().contiguous())[0])
+            lambda: torch.index_select(eo, 0, idx64).t().contiguous(),
+            launches=2)[0])
     del idx64
     log("K3 cam_gather: exact; device time {ms:.4f} ms, {ms_l2_flushed:.4f} "
         "ms with the L2 flushed before each launch ({events_ms:.4f} ms per "
@@ -3838,7 +3968,8 @@ def main(profile_refinement=False):
                    / f_scale.clamp_min(1e-30)).max())
     if not e_lib <= 10 * TOL_FLOOR:
         fail(f"the one-call fold is not K4's function (error {e_lib:.2e})")
-    floor_library_ms = measure.device_ms(fold_one_call)[0]
+    # its device activities per call: the reduction and a memset
+    floor_library_ms = measure.device_ms(fold_one_call, launches=2)[0]
 
     kernels.reset_launch_counts()
     roof = measure.roofline(pp6, ec6, eg6, xc6, xg6, reps=20)
@@ -3943,6 +4074,10 @@ def main(profile_refinement=False):
     total = {k: total[k] + launches16[k] for k in total}
     by_phase["config5"] = launches16
 
+    # ---- 17. the port's example as a user runs it ------------------------
+    log(f"-- phase 17 at {time.time() - t_start:.1f} s")
+    example_res = example_phase()
+
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -3961,7 +4096,7 @@ def main(profile_refinement=False):
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
         **rig, **files, **cli_res, "sharded": shard_res, **fleet_res,
-        **uneven, **config5}))
+        **uneven, **config5, **example_res}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_scene import (direct_group_scene, port_coords, port_scene,
-                              two_camera_scene, zernike_scene)
+from test_torch_scene import (bar_only_scene, direct_group_scene,
+                              port_coords, port_scene, two_camera_scene,
+                              zernike_scene)
 from bundle_adjustment_tpu import BundleAdjustment as JBA
 from bundle_adjustment_tpu import MatrixInversion as JMI
 from bundle_adjustment_tpu.testing import make_synthetic_scene as j_scene
@@ -183,9 +184,11 @@ def _synthetic(seed=3):
 
 
 CASES = {f"synthetic-{m}": (_synthetic, m) for m in MODES}
-# the reference's reduced_size counts three columns for every point, so
-# REDUCED / PRE_ELIMINATION mislay the border on held-fixed coordinates:
-# the direct-group scene (three held-fixed components) runs FULL
+# the JAX package retains a leading block of d + 3P + IO + distortion
+# columns in REDUCED / PRE_ELIMINATION, which mislays the border on
+# held-fixed coordinates: its Q is the faulty side there, so against JAX
+# the direct-group scene (three held-fixed components) runs FULL; the
+# port's own REDUCED is held to its FULL below
 CASES.update({"direct_groups-FULL": (direct_group_scene, "FULL"),
               "zernike-FULL": (zernike_scene, "FULL"),
               "two_cameras-REDUCED": (two_camera_scene, "REDUCED")})
@@ -244,6 +247,60 @@ def test_cofactor_matrix_matches_jax(pair):
     err = np.abs(D[:, None] * t["Q"] * D[None, :] - ref).max()
     tol = 1e-8 if mode == "FULL" else 1e-7
     assert err <= tol * np.abs(ref).max()
+
+
+# ---- REDUCED / PRE_ELIMINATION where the EO block is not a tail ------------
+# On held-fixed point coordinates (the direct-group scene, no centroiding:
+# it contradicts a datum of held-fixed points) and on a point seen only by
+# scale bars (its columns follow the EO block) the EO reduction retains
+# every non-EO column.  Held to the port's own FULL: the same state and
+# Omega, the non-EO block of Q within the Jacobi-scaled 1e-7 of the JAX
+# comparison above, no entry at an EO column, a positive diagonal.
+
+BORDER_SCENES = {"direct_groups": (direct_group_scene, False),
+                 "bar_only": (bar_only_scene, True)}
+
+
+def _dense(make, centroid, mode):
+    ts = port_scene(make())
+    adj = BundleAdjustment(device=CPU)
+    adj.add(*ts.cameras, *ts.scale_bars, *ts.direct_groups)
+    adj.use_centroided_coordinates = centroid
+    adj.set_invert_normal_equation(mode)
+    return adj, adj.estimate_model()
+
+
+@pytest.fixture(scope="module", params=sorted(BORDER_SCENES))
+def border_full(request):
+    make, centroid = BORDER_SCENES[request.param]
+    adj, status = _dense(make, centroid, MatrixInversion.FULL)
+    assert status == EstimationState.ERROR_FREE_ESTIMATION
+    return request.param, adj
+
+
+@pytest.mark.parametrize("mode", ("REDUCED", "PRE_ELIMINATION"))
+def test_eo_reduction_on_any_column_order_matches_full(border_full, mode):
+    name, full = border_full
+    make, centroid = BORDER_SCENES[name]
+    adj, status = _dense(make, centroid, getattr(MatrixInversion, mode))
+    assert status == EstimationState.ERROR_FREE_ESTIMATION
+    p = adj.problem
+    eo = p.col_eo[p.col_eo >= 0]
+    keep = np.setdiff1d(np.arange(p.total_size), eo)
+    assert p.reduced_size == keep.size
+    x, x_full = (np.concatenate([a.numpy().ravel() for a in s])
+                 for s in (adj.state, full.state))
+    assert np.abs(x - x_full).max() <= 1e-9 * np.abs(x_full).max()
+    np.testing.assert_allclose(adj.omega, full.omega, rtol=1e-9)
+    _, _, V = make_assembler(p, CPU)(full.state, 0.0)
+    D = 1.0 / V.numpy()
+    Q = adj.Qxx.numpy()
+    Qs, ref = (D[:, None] * a * D[None, :] for a in (Q, full.Qxx.numpy()))
+    blk = np.ix_(keep, keep)
+    assert np.abs(Qs[blk] - ref[blk]).max() <= 1e-7 * np.abs(ref[blk]).max()
+    assert not Q[:, eo].any() and not Q[eo, :].any()
+    unknowns = keep[keep >= p.defect]
+    assert np.diag(Q)[unknowns].min() > 0
 
 
 # ---- singular networks, OOM, device ----------------------------------------

@@ -116,8 +116,11 @@ def reduced():
     p = cj.problem
     fj = JS.reduce_eo(jnp.asarray(Np), jnp.asarray(npre),
                       jnp.asarray(p.col_eo), p.reduced_size)
+    # the JAX leading block of p.reduced_size columns on both sides: the
+    # port's own retained set (every non-EO column) is held to FULL in
+    # tests/test_torch_adjustment.py
     ft = TS.reduce_eo(torch.as_tensor(Np), torch.as_tensor(npre),
-                      torch.as_tensor(p.col_eo), p.reduced_size)
+                      torch.as_tensor(p.col_eo), torch.arange(p.reduced_size))
     return dict(p=p, Np=Np, npre=npre, fj=fj, ft=ft)
 
 

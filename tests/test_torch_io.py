@@ -64,6 +64,21 @@ def test_loader_raises_without_compiler(monkeypatch, tmp_path):
     assert native._lib is None and not any(tmp_path.rglob("*.so"))
 
 
+def test_native_available_follows_the_build(monkeypatch, tmp_path):
+    """`native_available` (the JAX package's function) is True where the
+    g++ build succeeds and False where it fails, without raising."""
+    try:
+        native.build()
+        builds = True
+    except native.LoaderBuildError:
+        builds = False
+    assert native.native_available() == builds
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.native_available() is False
+
+
 def _semantics_file(tmp_path):
     p = tmp_path / "t.txt"
     p.write_text(

@@ -11,6 +11,10 @@ the K1 stage probes) on the CPU.
 * Each cut stage's output changes when any input it claims to read is
   perturbed, and does not change when an input it does not read is.
 * The timing path refuses CPU tensors: a CPU run gives no device time.
+* `device_ms` holds each profile against the launches it must hold (the
+  port wrappers' launch counts, or the caller's count): on constructed
+  profiles, a short one is taken again and, short every time, raises
+  rather than give a time.
 """
 
 import functools
@@ -225,3 +229,82 @@ def test_read_floor_is_one_sum_over_the_padded_prefix(P):
     one_call = pp.packed[:48].view(6, 8, N // 128, 128).sum(dim=(0, 2))
     ref = TK.read_floor_plain(pp, torch.zeros((8, 128)))
     torch.testing.assert_close(one_call, ref, rtol=0, atol=1e-5)
+
+
+# ---- device_ms's launch count, on constructed profiles ---------------------
+
+K4_KERNELS = ("void read_floor_kernel<8>(ba::RingPlan, int)",
+              "void ba::column_sum_kernel(float const*, int, int, float*)")
+
+
+def _profiles(monkeypatch, kept):
+    """Replace the profiler by constructed profiles: profile i keeps
+    kept[i] of every K4 kernel's launches (None: all of them), each launch
+    0.5 ms; ``fn`` stands in for one K4 wrapper launch."""
+    monkeypatch.setattr(TK.read_floor, "launches", 0)
+    taken = []
+
+    def fake(calls):
+        n0 = TK.read_floor.launches
+        calls()
+        n = TK.read_floor.launches - n0
+        k = kept[len(taken)]
+        taken.append(k)
+        c = n if k is None else k
+        return 0.0, [(name, c, 0.5 * c) for name in K4_KERNELS]
+
+    def fn():
+        TK.read_floor.launches += 1
+
+    monkeypatch.setattr(measure, "_device_activities", fake)
+    return fn, taken
+
+
+def test_missing_launches_counts_by_kernel_name():
+    acts = [("void ba::block_sum_kernel(float4 const*)", 18, 1.0),
+            ("void (anonymous namespace)::matvec_kernel<3>(x)", 20, 2.0),
+            ("void ba::finish_kernel(float const*)", 20, 0.1),
+            ("Memset (Device)", 5, 0.0)]
+    want = measure.kernel_launches({"schur_matvec": 20})
+    assert want == {"matvec_kernel": 20, "block_sum_kernel": 20,
+                    "finish_kernel": 20}
+    assert measure.missing_launches(acts, want) == {
+        "block_sum_kernel": (18, 20)}
+    assert measure.missing_launches(acts, {None: 63}) == {}
+    assert measure.kernel_launches({"prepare_reduction": 2, "read_floor": 1}
+                                   )["column_sum_kernel"] == 5
+
+
+def test_device_ms_retries_a_short_profile(monkeypatch):
+    fn, taken = _profiles(monkeypatch, [7, None])
+    ms, by_name = measure.device_ms(fn, reps=10, warm=2)
+    assert taken == [7, None]
+    assert ms == pytest.approx(1.0) and len(by_name) == 2
+
+
+def test_device_ms_raises_rather_than_return_a_short_time(monkeypatch):
+    fn, taken = _profiles(monkeypatch, [3] * measure.PROFILE_TRIES)
+    with pytest.raises(RuntimeError, match="part of the launches"):
+        measure.device_ms(fn, reps=10)
+    assert len(taken) == measure.PROFILE_TRIES
+
+
+def test_device_ms_takes_the_callers_count(monkeypatch):
+    """A callable of no port kernel gives its activities per call; none
+    given is an error, not a guess."""
+    fn, _ = _profiles(monkeypatch, [None] * 4)
+
+    def library():
+        fn()
+        TK.read_floor.launches -= 1     # not a port launch
+
+    with pytest.raises(ValueError, match="launches="):
+        measure.device_ms(library, reps=4)
+    def one_kernel(calls):
+        calls()
+        return 0.0, [(K4_KERNELS[0], 4, 2.0)]
+
+    monkeypatch.setattr(measure, "_device_activities", one_kernel)
+    assert measure.device_ms(library, reps=4, launches=1)[0] == 0.5
+    with pytest.raises(RuntimeError, match="part of the launches"):
+        measure.device_ms(library, reps=4, launches=2)

@@ -21,6 +21,11 @@ every JAX output is computed once, in the module fixture.  Tolerances:
   on the same rig, three `solve` iterations against the JAX package (the
   2-camera case's tolerances) and `cov_direct.cov_all` (rtol 1e-8, see
   the test);
+* `solve` on a 4-camera rig (2,000 points, 40 images, 12 views): the
+  coupled preconditioner is definite at the first step and indefinite at
+  the second, where `solve` takes block Jacobi (its history says so, and
+  the step's CG count is the JAX step's within 3); two iterations against
+  the JAX `solve` at the 2-camera case's tolerances;
 * `omega_at` (4 cameras) rtol 1e-10;
 * `cov_direct.cov_all` (2 and 3 cameras) against the JAX `cov_direct` chain:
   rtol 1e-9, atol 1e-9 x max (tests/test_torch_cov_direct.py's);
@@ -65,6 +70,12 @@ SOLVE_KW = dict(damping=1e-2, max_iterations=40, cg_tol=1e-13,
 # the 16-camera solve: its first three LM iterations (113, 252 and 535
 # CG iterations; undamped, the rig's f64 CG needs ~3,000 per step)
 RIG16_SOLVE_KW = dict(SOLVE_KW, max_iterations=3)
+# the 4-camera rig at 2,000 / 40 / 12: the coupled preconditioner is
+# definite at the start and indefinite at the second step
+RIG4_SOLVE_KW = dict(SOLVE_KW, max_iterations=2)
+# CG iterations a block-Jacobi step may differ by from the JAX step's (the
+# two engines sum in other orders; a count near the f64 floor follows it)
+CG_SLACK = 3
 REFINE_KW = dict(tolerance=1e-6, damping=0.0, cg_tol=1e-12, cg_maxiter=300,
                  stall_limit=100)
 
@@ -153,6 +164,12 @@ def jax_side():
     out["rig4"] = dict(problem=problem, state=state, spec=spec, dx=dx,
                        omega=float(E.omega_at(f4, b4, *map(jnp.asarray,
                                                             dx))))
+
+    # 4-camera rig at 2,000 / 40 / 12: solve (f64), two iterations
+    problem, state, spec = rig(4, 2000, 40, 12, seed=4)
+    out["rig4_solve"] = dict(problem=problem, state=state, spec=spec,
+                             solve=JS.solve(problem, state, spec,
+                                            **RIG4_SOLVE_KW))
 
     # 2-camera rig: solve (f64)
     problem, state, spec = rig(2, 256, 12, 6, seed=4)
@@ -336,6 +353,21 @@ def test_solve_on_a_rig_matches_jax(jax_side):
     # each camera's principal distance lies at its own true value
     io_true = np.array([-30.0, -29.7])
     assert np.all(np.abs(np_(res.state.io)[:, 2] - io_true) < 1e-2)
+
+
+def test_solve_takes_block_jacobi_where_the_coupling_is_indefinite(
+        jax_side):
+    r = jax_side["rig4_solve"]
+    pt, st = to_port(r["problem"], r["state"])
+    res = solver.solve(pt, st, r["spec"], **RIG4_SOLVE_KW)
+    ref = r["solve"]
+    assert [h["precond"] for h in res.history] == ["coupled", "block_jacobi"]
+    assert res.iterations == ref.iterations == 2
+    # the block-Jacobi step is the JAX step's
+    assert abs(res.history[1]["cg_it"] - ref.history[1]["cg_it"]) <= CG_SLACK
+    np.testing.assert_allclose(res.omega, ref.omega, rtol=1e-8)
+    close(res.state.points, ref.state.points, 0.0, 1e-7, "points")
+    close(res.state.io, ref.state.io, 1e-7, name="io")
 
 
 def _f64_optimum(p32, st32, spec, steps=8):

@@ -5,8 +5,8 @@
   `compile_problem` on five scenes brought across by `convert.scene_from`:
   the synthetic network, the two-camera network of
   tests/test_multi_camera.py, a free network with held-fixed points, a
-  populated point group and a diagonal EO / IO group, and a Zernike
-  camera.
+  populated point group and a diagonal EO / IO group, a Zernike camera,
+  and a network with a point seen only by scale bars.
 * `testing.make_synthetic_scene` gives the JAX scene for the same seed:
   the same structure, observations within 1e-12 (one batched projection
   against one call per pair), the same perturbed start.
@@ -127,6 +127,24 @@ def direct_group_scene(seed=5):
     return cams, bars, [full, JS.DirectlyObservedParameterGroup(diag)], truth
 
 
+def bar_only_scene(seed=3):
+    """The network of `synthetic_scene` at 60 points / 10 images with one
+    more point that no image sees: five scale bars (the variance of the
+    scene's own bar) tie it to points around the field, so its columns
+    follow the EO block."""
+    cams, bars, _, truth = synthetic_scene(
+        seed=seed, num_points=60, num_images=10, noise=5e-4, sigma=5e-4)
+    pts, coords = truth["points"], truth["coords"]
+    q = np.array([10.0, -5.0, 60.0])
+    extra = JS.ObjectCoordinate("bar_only", *(q + 0.01))
+    ang = np.arctan2(pts[:, 1], pts[:, 0])
+    for a in np.linspace(-np.pi, np.pi, 5, endpoint=False):
+        i = int(np.argmin(np.abs(np.angle(np.exp(1j * (ang - a))))))
+        bars.append(JS.ScaleBar(coords[i], extra,
+                                np.linalg.norm(pts[i] - q), 1e-4))
+    return cams, bars, [], truth
+
+
 def zernike_scene(seed=9, num_points=40, num_images=8, noise=1e-4, cut=40.0):
     """One camera with Zernike-gradient fringes 12 and 24 and a Zernike-X
     fringe 5 beside radial A1; c held fixed (the m = 0 gradients span the
@@ -176,7 +194,8 @@ def zernike_scene(seed=9, num_points=40, num_images=8, noise=1e-4, cut=40.0):
 
 
 SCENES = {"synthetic": synthetic_scene, "two_cameras": two_camera_scene,
-          "direct_groups": direct_group_scene, "zernike": zernike_scene}
+          "direct_groups": direct_group_scene, "zernike": zernike_scene,
+          "bar_only": bar_only_scene}
 
 
 def port_scene(jax_scene):
@@ -209,7 +228,7 @@ ARRAYS = ("obs_point", "obs_image", "obs_xy", "obs_var", "obs_rho",
 SCALARS = ("num_points", "num_cameras", "num_images", "num_image_obs",
            "num_scale_bars", "defect_flags", "defect", "num_unknowns",
            "num_observation_rows", "num_io_free", "num_dist_free",
-           "sigma2_apriori", "total_size", "reduced_size", "dof")
+           "sigma2_apriori", "total_size", "dof")
 
 
 def test_compile_problem_equals_jax(compiled):
@@ -221,6 +240,13 @@ def test_compile_problem_equals_jax(compiled):
         np.testing.assert_array_equal(b, a, err_msg=f"{name}: {f}")
     for f in SCALARS:
         assert getattr(pt, f) == getattr(pj, f), (name, f)
+    # the port retains every non-EO column in the EO reduction; the JAX
+    # count d + 3P + IO + distortion is larger by the held-fixed point
+    # components (the direct-group scene has three)
+    assert pt.reduced_size == pj.total_size - np.count_nonzero(
+        pj.col_eo >= 0)
+    held = 3 * pj.num_points - np.count_nonzero(pj.col_points >= 0)
+    assert pt.reduced_size == pj.reduced_size - held, name
     assert [(int(x.kind), x.key, x.order) for x in pt.spec.slots] == \
         [(int(x.kind), x.key, x.order) for x in pj.spec.slots]
     assert [z and z.order for z in pt.spec.zernike] == \
@@ -250,6 +276,9 @@ def test_scenes_cover_the_cases(compiled):
         assert p.col_io[0, 2] == -1
     if name == "synthetic":
         assert p.defect == 6 and p.num_scale_bars == 1
+    if name == "bar_only":
+        # the bar-only point's columns follow the EO block
+        assert p.col_points[-1].min() > p.col_eo.max()
 
 
 def test_write_back_from_tensors():

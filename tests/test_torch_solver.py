@@ -13,18 +13,26 @@ the bar lengths and seeded inter-point distances at rtol 1e-8 (datum
 invariants; the coordinates themselves too, since both hold B dx = 0 from
 the same start, at 1e-7 of the field).  The gain schedule is held against
 the JAX `lm_gain_update` on a seeded sequence, value for value.
+
+`solve` tests the coupled preconditioner of the point-major route once
+per step (`rcs.definite_coupling`): on this network it is definite at the
+start and indefinite from the second step on, where the step takes block
+Jacobi, the JAX route's preconditioner.  Where it is definite the step's
+bits are those of the untested step (a digest test).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import hashlib
+
 from test_torch_freenet import network
 from test_torch_parity import np_
 from bundle_adjustment_tpu.parallel import solver as JS
 from bundle_adjustment_tpu.solver import adjustment as JA
 from bundle_adjustment_tpu_torch.parallel import engine as TE
-from bundle_adjustment_tpu_torch.parallel import solver
+from bundle_adjustment_tpu_torch.parallel import rcs, solver
 
 KW = dict(damping=1e-2, max_iterations=40, cg_tol=1e-13, cg_maxiter=3000)
 
@@ -168,3 +176,48 @@ def test_solve_defaults_to_the_tensors_device(solved, monkeypatch):
     monkeypatch.setattr(TE, "lm_step_full", spy)
     solver.solve(pt, st, spec, max_iterations=1, cg_maxiter=5)
     assert seen == [False]
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np_(t).tobytes())
+    return h.hexdigest()
+
+
+def test_a_definite_coupling_keeps_the_step_bit_for_bit(solved):
+    pt, st, spec, _, res_t, _, _ = solved
+    # definite at the start, indefinite later (block Jacobi, JAX's)
+    precs = [h["precond"] for h in res_t.history]
+    assert precs[0] == "coupled" and "block_jacobi" in precs
+    fmp = TE.fm_problem(pt)
+    kw = dict(cg_tol=KW["cg_tol"], cg_maxiter=KW["cg_maxiter"])
+    chosen = []
+
+    def definite(Minv):
+        out = rcs.definite_coupling(Minv)
+        chosen.append(out is Minv)
+        return out
+
+    plain = TE.lm_step_full(fmp, pt, st, spec, KW["damping"], **kw)
+    checked = TE.lm_step_full(fmp, pt, st, spec, KW["damping"],
+                              choose_precond=definite, **kw)
+    assert chosen == [True]
+    assert checked[4] == plain[4]
+    assert _digest(checked[:3]) == _digest(plain[:3])
+
+
+def test_definite_coupling_drops_an_indefinite_coupling():
+    rng = np.random.default_rng(3)
+    Minv_c = torch.as_tensor(rng.normal(size=(4, 6, 6)))
+    Minv_g = torch.eye(3, dtype=torch.float64)
+    Scg = torch.as_tensor(rng.normal(size=(4, 6, 3)))
+    for diag, coupled in (((1.0, 2.0, 3.0), True), ((1.0, -2.0, 3.0), False)):
+        Sh = torch.diag(torch.tensor(diag, dtype=torch.float64))
+        M = rcs.Precond(Minv_c=Minv_c, Minv_g=Minv_g, Scg=Scg, W=Scg,
+                        Sghat_inv=Sh)
+        out = rcs.definite_coupling(M)
+        assert (out is M) == coupled
+        if not coupled:
+            assert out.Scg is None and out.Sghat_inv is None
+            assert out.Minv_c is Minv_c and out.Minv_g is Minv_g

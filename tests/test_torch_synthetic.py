@@ -3,13 +3,20 @@ seed.  Tolerances: index arrays, the padding and the perturbed start are
 drawn from the same rng stream, so they must be identical; the
 observations come from two implementations of the same float64 forward
 model (ops.fm rows vs the JAX scalar model), so they agree to rounding
-(1e-9 absolute on image coordinates of a few mm)."""
+(1e-9 absolute on image coordinates of a few mm).  The build gives the
+same bits in every process: three fresh processes, one digest."""
+
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from bundle_adjustment_tpu_torch import synthetic
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("P,M,V,seed", [(128, 6, 4, 0), (700, 9, 5, 4)])
@@ -121,3 +128,22 @@ def test_free_network_direct_observations():
     assert np.all(fn.dg_w[:3] == 0.25) and np.all(fn.dg_w[3:] == 0)
     with pytest.raises(ValueError, match="unknown"):
         synthetic.free_network(pt, st, direct=dict(points=3))
+
+
+def test_build_keeps_its_bits_across_processes():
+    """`build_problem(20_000, 100, 12)` in three fresh processes started
+    together: one SHA-256 digest of every array (`synthetic.digest`).
+    Two torch threads each: threaded, without oversubscribing the cores
+    that the suite's workers share."""
+    code = ("import torch; torch.set_num_threads(2); "
+            "from bundle_adjustment_tpu_torch import synthetic; "
+            "p, s, _ = synthetic.build_problem(20_000, 100, 12); "
+            "print(synthetic.digest(p, s))")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(3)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    digests = {out.strip() for out, _ in outs}
+    assert len(digests) == 1 and len(digests.pop()) == 64
