@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..solver import tracing
 from . import engine
 
 
@@ -118,6 +119,7 @@ def _hinv3(b: engine.FMBlocks):
 # the reduced system
 # ---------------------------------------------------------------------------
 
+@tracing.traced("cov.assemble_base")
 def assemble_reduced_base(p: engine.FMProblem, b: engine.FMBlocks,
                           damping=0.0, extra_c=None):
     """S0 [u, u]: the per-image Hcc (+ extra_c on the diagonal) and Hcg
@@ -209,6 +211,7 @@ def _fill_panel(rows2, im, o0, M):
     return D
 
 
+@tracing.traced("cov.corrections")
 def assemble_reduced_corrections(p: engine.FMProblem, b: engine.FMBlocks,
                                  S0=None, chunk: int | None = None,
                                  deterministic: bool = False):
@@ -293,6 +296,7 @@ def assemble_reduced_dense(p: engine.FMProblem, b: engine.FMBlocks,
                                         deterministic=deterministic)
 
 
+@tracing.traced("cov.inverse")
 def reduced_inverse(S):
     """S^{-1} by Cholesky (the reduced system of a datum-fixed network is
     SPD), inverted in one call (`torch.cholesky_inverse`).  Raises
@@ -436,6 +440,7 @@ def _pcd_chunk(img, hpc2, hinv_rows, hpg_rows, Qred, G2, ids):
     return _sym_rows(side[0] + _cross_blocks(Qred, G2, side, side))
 
 
+@tracing.traced("cov.recovery")
 def point_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks, Qred,
                            point_ids=None, chunk: int | None = None):
     """3x3 posterior cofactor blocks Qpp[p] = Hpp^{-1} + C_p^T S^{-1} C_p
@@ -488,6 +493,7 @@ def point_pair_covariance_dense(p: engine.FMProblem, b: engine.FMBlocks,
         for i in range(0, k, chunk)])
 
 
+@tracing.traced("cov_all")
 def cov_all(fmp: engine.FMProblem, state, spec, cam_gather=None):
     """Every point's 3x3 posterior cofactor block [P, 3, 3] in the dtype of
     ``fmp``: linearise at damping 0 (``cam_gather``: the K3 wrapper,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.problem import ParamState
+from ..solver import tracing
 from . import rcs
 
 
@@ -427,6 +428,7 @@ def _gather_rows(p: FMProblem, tbl, ncols, cam_gather=None):
     return [tbl[..., a][..., idx] for a in range(ncols)]
 
 
+@tracing.traced("linearize")
 def linearize(p: FMProblem, state: ParamState, spec, damping,
               state_lo: ParamState | None = None,
               cam_gather=None, comm=None) -> FMBlocks:
@@ -679,6 +681,7 @@ def schur_matvec(p: FMProblem, b: FMBlocks, xc, xg, comm=None,
     return oc + b.extra_c * xc, og + b.extra_g * xg
 
 
+@tracing.traced("prepare")
 def prepare(p: FMProblem, state: ParamState, spec, damping,
             couple_global: bool = False,
             state_lo: ParamState | None = None, comm=None,
@@ -953,6 +956,7 @@ def materialize_global_rows(p: FMProblem, b: FMBlocks) -> FMBlocks:
     return b._replace(Jg=tuple(Jg), PJg=tuple(PJg))
 
 
+@tracing.traced("back_substitute")
 def back_substitute_points(p: FMProblem, b: FMBlocks, xc, xg,
                            cam_gather=None):
     """dx_p = Hpp^{-1} (bp - Hpx x): returns [P, 3]."""
@@ -1048,6 +1052,7 @@ def omega_at_full(p: FMProblem, rp: rcs.RCSProblem, b: FMBlocks, ext,
     return om
 
 
+@tracing.traced("lm_step")
 def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
                  damping, cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
                  couple_global=True, state_lo: ParamState | None = None,
@@ -1098,6 +1103,7 @@ def lm_step_full(p: FMProblem, rp: rcs.RCSProblem, state: ParamState, spec,
     return dxp, xc, xg, b, it, ext
 
 
+@tracing.traced("lm_step")
 def lm_step(p: FMProblem, state: ParamState, spec, damping,
             cg_tol=1e-10, cg_maxiter=200, use_kernels=False,
             couple_global=True, state_lo: ParamState | None = None,

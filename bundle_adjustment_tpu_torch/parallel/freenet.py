@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..solver import tracing
 from .engine import PointOps
 
 
@@ -390,6 +391,7 @@ def _hinv_rows(ext: Extras, ops: PointOps, y):
     return z
 
 
+@tracing.traced("back_substitute")
 def back_substitute(problem, ext: Extras, ops: PointOps, xc, xg):
     """Recover (dx_p [P, 3], lambda [d] or None) after the reduced solve.
 

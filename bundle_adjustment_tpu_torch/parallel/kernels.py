@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..solver import tracing
 from . import engine
 
 #: view-major block threads the CUDA kernels take (one CTA per block of
@@ -211,7 +212,12 @@ def _launch(fn_name, *args, shape=""):
     from .. import kernel_build
 
     fn = getattr(kernel_build.library(), fn_name)
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if tracing.ACTIVE:
+        with tracing.span("kernel." + fn_name):
+            rc = fn(*args, stream)
+    else:
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}"
                            + (f" ({shape})" if shape else ""))
@@ -518,6 +524,7 @@ def prepare_reduction(pp: PackedFM):
 prepare_reduction.launches = 0
 
 
+@tracing.traced("prepare")
 def prepare_kernels(p, state, spec, damping, couple_global: bool = True,
                     state_lo=None, cam_gather=None):
     """engine.prepare on the kernel path: linearise (PyTorch, gathers

@@ -43,6 +43,7 @@ import torch
 
 from ..models.problem import ParamState
 from ..ops.residuals import image_weight_2x2
+from ..solver import tracing
 
 
 class RCSProblem(NamedTuple):
@@ -508,7 +509,18 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
     ``comm_cam``: a `sharding.Comm` when rc / xc hold only this rank's
     image rows (tensor-parallel mode): the sums over images (the dots, the
     coupled preconditioner's Scg^T u) are psum-ed, so the scalars the loop
-    reads on the host are the same bits on every rank."""
+    reads on the host are the same bits on every rank.
+
+    A span ``pcg`` (`solver.tracing`) holds the call and counts its
+    ``iterations`` once, at the end."""
+    with tracing.span("pcg"):
+        xc, xg, it = _pcg(rc, rg, Minv, matvec, tol, maxiter, stall_limit,
+                          comm_cam)
+        tracing.count("iterations", it)
+    return xc, xg, it
+
+
+def _pcg(rc, rg, Minv, matvec, tol, maxiter, stall_limit, comm_cam):
     apply_M = make_apply_M(Minv, comm_cam=comm_cam)
 
     def dot(ac, ag, bc_, bg_):

@@ -35,6 +35,7 @@ import torch
 
 from .. import convert
 from ..models.problem import ParamState
+from ..solver import tracing
 from . import engine, freenet, hilo, rcs
 
 
@@ -89,6 +90,7 @@ class Refiner:
     ROADMAP Queue 3), whose route to the optimum is `solver.solve` in
     f64."""
 
+    @tracing.traced("refine.build")
     def __init__(self, problem32: rcs.RCSProblem, spec,
                  use_kernels: bool = False, couple_global: bool = True):
         convert.refuse_unsupported(problem32)
@@ -110,6 +112,7 @@ class Refiner:
         self.problem64 = upcast_problem(problem32)
         self.fmp64 = engine.fm_problem(self.problem64)
 
+    @tracing.traced("refine.gradient64")
     def gradient64(self, fmp64, state64: ParamState):
         """(bp [P, 3], bc [M, 6], bg [G], omega0, wsb [R], wdpg [n]) in
         f64, the only f64 pass: the full-space gradient blocks J^T P w at
@@ -197,6 +200,7 @@ class Refiner:
             max_dx = torch.full_like(max_dx, float("inf"))
         return new_s, max_dx, it
 
+    @tracing.traced("refine.step")
     def step(self, s: hilo.HiLoState, damping=1e-8,
              cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
         """One refinement step from ``s``: returns (HiLoState, max|dx| 0-d

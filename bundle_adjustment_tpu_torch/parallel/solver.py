@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.problem import ParamState
+from ..solver import tracing
 from ..solver.checkpoint import LMCheckpoint
 from ..solver.adjustment import BundleAdjustment as _DenseBundleAdjustment
 from ..solver.adjustment import (SQRT_EPS, EstimationState, EstimationType,
@@ -102,6 +103,7 @@ def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
         layout == "file" or state.io.shape[0] == 1))
 
 
+@tracing.traced("solve")
 def solve(problem: rcs.RCSProblem, state: ParamState, spec,
           damping: float = 0.0,
           max_iterations: int = 100,
@@ -184,16 +186,17 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         def omega_at(b, ext, dxp, dxc, dxg, st):
             return rcs.omega_at_full(problem, b, ext, dxp, dxc, dxg)
     else:
-        if use_kernels:
-            from . import kernels
+        with tracing.span("solve.layout"):
+            if use_kernels:
+                from . import kernels
 
-            engine.refuse_kernels(problem)
-            problem, state, _ = engine.pad_problem(problem, state, 128)
-        fmp = engine.fm_problem(problem)
-        if use_kernels:
-            fmp = engine.to_view_major(
-                fmp, kernels.choose_pb(fmp.num_points, fmp.views,
-                                       fmp.free_global.shape[0]))
+                engine.refuse_kernels(problem)
+                problem, state, _ = engine.pad_problem(problem, state, 128)
+            fmp = engine.fm_problem(problem)
+            if use_kernels:
+                fmp = engine.to_view_major(
+                    fmp, kernels.choose_pb(fmp.num_points, fmp.views,
+                                           fmp.free_global.shape[0]))
 
         taken = []
 
@@ -248,8 +251,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
         alpha = 1.0
         if adapted > 0:
             alpha = min(0.25 * adapted ** -0.05, 0.75)
-            cur = float(omega_at(b, ext, alpha * dxp, alpha * dxc,
-                                 alpha * dxg, state))
+            with tracing.span("omega"):
+                cur = float(omega_at(b, ext, alpha * dxp, alpha * dxc,
+                                     alpha * dxg, state))
             lam_old = adapted
             adapted, omega_prev, accepted = lm_gain_update(
                 adapted, omega_prev, cur)
