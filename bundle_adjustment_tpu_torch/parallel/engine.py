@@ -1141,9 +1141,12 @@ def lm_step(p: FMProblem, state: ParamState, spec, damping,
 
         def matvec(c, g):
             return schur_matvec(p, b, c, g)
+
+        matvec.capturable = True
     if choose_precond is not None:
         Minv = choose_precond(Minv)
     xc, xg, it = rcs.pcg(rc, rg, Minv, matvec, tol=cg_tol,
                          maxiter=cg_maxiter, stall_limit=stall_limit)
+    del matvec  # K1's workspace goes before the back-substitution
     dxp = back_substitute_points(p, b, xc, xg, cam_gather=cgf)
     return dxp, xc, xg, b, it

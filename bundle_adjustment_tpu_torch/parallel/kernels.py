@@ -378,9 +378,25 @@ def schur_matvec_plain(pp: PackedFM, extra_c, extra_g, xc, xg):
     return oc + extra_c * xc, og + extra_g * xg
 
 
-def schur_matvec_rows(pp: PackedFM, extra_c, extra_g, xc, xg):
+def matvec_workspace(pp: PackedFM):
+    """K1's scratch and outputs on the card: (the image-sorted scratch, 8
+    floats per entry, then the sums of its 512-entry blocks; the global
+    partials [P / pb, G]; out_c [M, 6]; out_g [G])."""
+    dev, f32 = pp.packed.device, torch.float32
+    nb = pp.img_block_valid.shape[0]
+    return (torch.empty((nb * engine.rcs.IMG_BLOCK + nb, 8), dtype=f32,
+                        device=dev),
+            torch.empty((pp.num_points // pp.pb, pp.g), dtype=f32,
+                        device=dev),
+            torch.empty((pp.num_images, 6), dtype=f32, device=dev),
+            torch.empty((pp.g,), dtype=f32, device=dev))
+
+
+def schur_matvec_rows(pp: PackedFM, extra_c, extra_g, xc, xg, work=None):
     """K1 wrapper: `schur_matvec_plain` for CPU tensors, the CUDA kernel
-    for CUDA tensors."""
+    for CUDA tensors.  ``work``: a `matvec_workspace` of ``pp`` to write
+    into (the outputs returned are its last two tensors, so the next call
+    overwrites them); None allocates a fresh one."""
     if _is_cpu(pp.packed):
         return schur_matvec_plain(pp, extra_c, extra_g, xc, xg)
     G, M = pp.g, pp.num_images
@@ -393,13 +409,8 @@ def schur_matvec_rows(pp: PackedFM, extra_c, extra_g, xc, xg):
     _check("extra_c", extra_c, f32, (M, 6), dev)
     _check("extra_g", extra_g, f32, (G,), dev)
     nb = pp.img_block_valid.shape[0]
-    # the image-sorted scratch (8 floats per entry; pad entries are never
-    # written or read), then the sums of its 512-entry blocks
-    scratch = torch.empty((nb * engine.rcs.IMG_BLOCK + nb, 8), dtype=f32,
-                          device=dev)
-    partial_g = torch.empty((P // pp.pb, G), dtype=f32, device=dev)
-    out_c = torch.empty((M, 6), dtype=f32, device=dev)
-    out_g = torch.empty((G,), dtype=f32, device=dev)
+    scratch, partial_g, out_c, out_g = (matvec_workspace(pp) if work is None
+                                        else work)
     _launch("ba_schur_matvec", _ptr(pp.packed), N, P, V, pp.pb, G,
             _ptr(pp.obs_img), _ptr(pp.hppinv), _ptr(xc), _ptr(xg),
             _ptr(extra_c), _ptr(extra_g), M, _ptr(pp.img_pos),
@@ -414,14 +425,24 @@ schur_matvec_rows.launches = 0
 
 
 def make_matvec(pp: PackedFM, extra_c, extra_g):
-    """fn(xc [M, 6], xg [G]) -> ((S@x)_c [M, 6], (S@x)_g [G]) through K1."""
+    """fn(xc [M, 6], xg [G]) -> ((S@x)_c [M, 6], (S@x)_g [G]) through K1.
+    On the card the kernel's scratch and outputs are one workspace
+    (`matvec_workspace`), made at the first call and reused by every
+    call: a call's outputs hold until the next call.  The function is
+    marked ``capturable``: nothing it does reads the device on the host
+    or allocates per call, so `rcs.pcg` may replay it in a CUDA graph."""
     extra_c = extra_c.contiguous()
     extra_g = extra_g.contiguous()
+    work = []
 
     def matvec(xc, xg):
+        if not work and not _is_cpu(pp.packed):
+            work.append(matvec_workspace(pp))
         return schur_matvec_rows(pp, extra_c, extra_g, xc.contiguous(),
-                                 xg.contiguous())
+                                 xg.contiguous(),
+                                 work=work[0] if work else None)
 
+    matvec.capturable = True
     return matvec
 
 
@@ -678,3 +699,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
+
+
+def count_replays(before: dict, runs: int) -> None:
+    """The launches made since ``before`` (a `launch_counts`) were captured
+    into a CUDA graph that then ran ``runs`` times: count each of them
+    ``runs`` times, so that the counts stay the kernels' runs."""
+    for name, w in _WRAPPERS.items():
+        w.launches += (w.launches - before[name]) * (runs - 1)

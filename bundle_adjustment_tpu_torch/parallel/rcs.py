@@ -490,6 +490,188 @@ def make_apply_M(Minv: Precond, comm_cam=None):
     return apply_M
 
 
+#: replays of the captured CG iteration per host read of the stop (`pcg`
+#: on the card); 4 and 16 timed no better in the adjustment benchmarks
+CG_CHUNK = 8
+
+
+class _CG(NamedTuple):
+    """The CG loop's state, every field a tensor on the solve's device:
+    the iterate, the best-residual iterate, residual, direction, r^T z,
+    |r|_2, the best |r|_2, the stall count, the iterations (int32) and
+    ``done``, the loop's stop (the negation of the reference's ``cond``)."""
+
+    xc: torch.Tensor
+    xg: torch.Tensor
+    bxc: torch.Tensor
+    bxg: torch.Tensor
+    rc: torch.Tensor
+    rg: torch.Tensor
+    pc: torch.Tensor
+    pg: torch.Tensor
+    rz: torch.Tensor
+    rnorm: torch.Tensor
+    best: torch.Tensor
+    stall: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor | None
+
+
+class _Loop(NamedTuple):
+    """What the CG iterations share: the products, and the stopping test's
+    bounds (``limit`` = tol (1 + |r0|_2), a tensor in the residual's
+    dtype)."""
+
+    matvec: object
+    apply_M: object
+    dot: object
+    limit: torch.Tensor
+    maxiter: int
+    stall_limit: int
+
+
+def _cond(c: _CG, k: _Loop):
+    """The reference's ``cond``, compared in the residual's dtype."""
+    return ((c.it < k.maxiter) & (c.stall < k.stall_limit)
+            & (c.rnorm > k.limit))
+
+
+def _cg_start(rc, rg, Minv, matvec, tol, maxiter, stall_limit, comm_cam):
+    """(carry, loop) at the zero iterate; every field of the carry is a
+    tensor of its own (the masked iteration writes them in place)."""
+    apply_M = make_apply_M(Minv, comm_cam=comm_cam)
+
+    def dot(ac, ag, bc_, bg_):
+        return _psum(comm_cam, torch.sum(ac * bc_)) + torch.sum(ag * bg_)
+
+    if stall_limit is None:
+        stall_limit = 8 if rc.dtype == torch.float32 else maxiter + 1
+    zc, zg = apply_M(rc, rg)
+    r0norm = torch.sqrt(dot(rc, rg, rc, rg))
+    zero = torch.zeros((), dtype=torch.int32, device=rc.device)
+    c = _CG(xc=torch.zeros_like(rc), xg=torch.zeros_like(rg),
+            bxc=torch.zeros_like(rc), bxg=torch.zeros_like(rg),
+            rc=rc.clone(), rg=rg.clone(), pc=zc, pg=zg,
+            rz=dot(rc, rg, zc, zg), rnorm=r0norm, best=r0norm.clone(),
+            stall=zero, it=zero.clone(), done=None)
+    k = _Loop(matvec=matvec, apply_M=apply_M, dot=dot,
+              limit=tol * (1.0 + r0norm), maxiter=maxiter,
+              stall_limit=stall_limit)
+    return c._replace(done=~_cond(c, k)), k
+
+
+def _cg_iteration(c: _CG, k: _Loop, masked: bool) -> _CG:
+    """One iteration of the reference's ``while_loop`` body
+    (`bundle_adjustment_tpu/parallel/rcs.py` pcg) from the carry ``c``.
+
+    Unmasked (``c`` not done): returns the next carry.  Masked: writes
+    the next carry into ``c`` in place where ``c`` was not done and keeps
+    ``c`` where it was, by selection (``torch.where``), so a stopped
+    loop stays stopped with the bits it had, even where the body divides
+    0 by 0; returns ``c``.  Nothing is read on the host."""
+    qc, qg = k.matvec(c.pc, c.pg)
+    alpha = c.rz / k.dot(c.pc, c.pg, qc, qg)
+    xc = c.xc + alpha * c.pc
+    xg = c.xg + alpha * c.pg
+    rc = c.rc - alpha * qc
+    rg = c.rg - alpha * qg
+    zc, zg = k.apply_M(rc, rg)
+    rz = k.dot(rc, rg, zc, zg)
+    beta = rz / c.rz
+    pc = zc + beta * c.pc
+    pg = zg + beta * c.pg
+    rnorm = torch.sqrt(k.dot(rc, rg, rc, rg))
+    # the best-residual iterate: long f32 runs can wander (or blow up to
+    # NaN) past the rounding floor
+    is_best = rnorm < c.best
+    improved = rnorm < 0.9 * c.best
+    n = _CG(xc=xc, xg=xg, bxc=torch.where(is_best, xc, c.bxc),
+            bxg=torch.where(is_best, xg, c.bxg), rc=rc, rg=rg, pc=pc,
+            pg=pg, rz=rz, rnorm=rnorm,
+            best=torch.where(is_best, rnorm, c.best),
+            stall=torch.where(improved, 0, c.stall + 1), it=c.it + 1,
+            done=None)
+    if not masked:
+        return n._replace(done=~_cond(n, k))
+    for new, old in zip(n[:-1], c[:-1]):
+        torch.where(c.done, old, new, out=old)
+    torch.logical_not(_cond(c, k), out=c.done)
+    return c
+
+
+def _cg_chunks(c: _CG, run_chunk) -> int:
+    """Run ``run_chunk`` (which advances ``c`` in place by `CG_CHUNK`
+    masked iterations) until ``c`` is done; one host read of ``done``
+    per chunk.  Returns the chunks run."""
+    chunks = 0
+    while not bool(c.done):
+        run_chunk()
+        chunks += 1
+    return chunks
+
+
+#: per device: the side stream the loop body is captured on, and the last
+#: graph captured there, kept so that the next capture draws on its memory
+#: pool instead of allocating a new one
+_CAPTURE = {}
+
+
+def _cg_graph(c: _CG, k: _Loop):
+    """The card's route from the start carry ``c`` (not done): one
+    iteration runs eagerly on the capture stream (the warm-up a capture
+    needs: library workspaces, the kernels' shared-memory limits), then
+    one masked iteration is captured into a CUDA graph, and the graph is
+    replayed `CG_CHUNK` times on the current stream per read of ``done``
+    until a read says stop.  Returns (carry, chunks)."""
+    from . import kernels
+
+    dev = c.rc.device
+    side, last = _CAPTURE.get(dev) or (torch.cuda.Stream(dev), None)
+    main = torch.cuda.current_stream()
+    # cuBLAS keeps a workspace per stream it has run on: freed on both
+    # sides of the call, the capture stream's takes the place of the
+    # current stream's instead of adding a second
+    torch._C._cuda_clearCublasWorkspaces()
+    side.wait_stream(main)
+    try:
+        with torch.cuda.stream(side):
+            c = _cg_iteration(c, k, masked=False)
+            if bool(c.done):
+                main.wait_stream(side)
+                return c, 0
+            before = kernels.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=None if last is None else last.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                _cg_iteration(c, k, masked=True)
+            finally:
+                graph.capture_end()
+        _CAPTURE[dev] = (side, graph)
+        main.wait_stream(side)
+
+        def chunk():
+            for _ in range(CG_CHUNK):
+                graph.replay()
+
+        chunks = 0
+        try:
+            chunks = _cg_chunks(c, chunk)
+        finally:
+            kernels.count_replays(before, CG_CHUNK * chunks)
+        return c, chunks
+    finally:
+        torch._C._cuda_clearCublasWorkspaces()
+
+
+def _graph_route(rc, Minv, matvec, comm_cam) -> bool:
+    """Whether `pcg` replays its loop body as a CUDA graph: CUDA tensors,
+    no collectives, a `Precond`, and a matvec that its builder marked
+    ``capturable``."""
+    return (rc.is_cuda and comm_cam is None and isinstance(Minv, Precond)
+            and getattr(matvec, "capturable", False))
+
+
 def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
         comm_cam=None):
     """Preconditioned CG on the implicit reduced system.
@@ -503,60 +685,44 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
     lowers |r|_2 below the first residual, the best iterate is the zero
     start.
 
-    The loop runs on the host and reads the residual norm once per
-    iteration (one device synchronisation each).
+    The loop is the JAX reference's ``while_loop``: its state and its
+    stopping test live on the device (`_CG`), compared in the residual's
+    dtype.  On the card, where ``rc`` is a CUDA tensor, ``comm_cam`` is
+    None, ``Minv`` a `Precond` and ``matvec`` marked ``capturable`` (an
+    attribute that `kernels.make_matvec` and `engine.lm_step` set on the
+    single-device products), one masked iteration is captured as a CUDA
+    graph, replayed `CG_CHUNK` times per host read of the stop
+    (`_cg_graph`); up to `CG_CHUNK` - 1 replays may run past the stop,
+    masked, which change nothing.  Every other call runs the same body
+    one iteration at a time and reads the stop after each.
 
     ``comm_cam``: a `sharding.Comm` when rc / xc hold only this rank's
     image rows (tensor-parallel mode): the sums over images (the dots, the
-    coupled preconditioner's Scg^T u) are psum-ed, so the scalars the loop
-    reads on the host are the same bits on every rank.
+    coupled preconditioner's Scg^T u) are psum-ed, so every rank takes the
+    same steps and stops together.
 
-    A span ``pcg`` (`solver.tracing`) holds the call and counts its
-    ``iterations`` once, at the end."""
+    A span ``pcg`` (`solver.tracing`) holds the call and counts, once at
+    the end, its ``iterations``, the graph ``replays``, the iterations
+    that counted among them (``graph_iterations``) and the ``masked``
+    rest (0, 0 and 0 off the graph route)."""
     with tracing.span("pcg"):
-        xc, xg, it = _pcg(rc, rg, Minv, matvec, tol, maxiter, stall_limit,
-                          comm_cam)
+        c, k = _cg_start(rc, rg, Minv, matvec, tol, maxiter, stall_limit,
+                         comm_cam)
+        chunks = 0
+        if _graph_route(rc, Minv, matvec, comm_cam) and not bool(c.done):
+            c, chunks = _cg_graph(c, k)
+            it = int(c.it)
+        else:
+            it = 0
+            while not bool(c.done):
+                c = _cg_iteration(c, k, masked=False)
+                it += 1
+        graph_it = it - 1 if chunks else 0
         tracing.count("iterations", it)
-    return xc, xg, it
-
-
-def _pcg(rc, rg, Minv, matvec, tol, maxiter, stall_limit, comm_cam):
-    apply_M = make_apply_M(Minv, comm_cam=comm_cam)
-
-    def dot(ac, ag, bc_, bg_):
-        return _psum(comm_cam, torch.sum(ac * bc_)) + torch.sum(ag * bg_)
-
-    if stall_limit is None:
-        stall_limit = 8 if rc.dtype == torch.float32 else maxiter + 1
-    xc = torch.zeros_like(rc)
-    xg = torch.zeros_like(rg)
-    bxc, bxg = xc, xg
-    zc, zg = apply_M(rc, rg)
-    pc, pg = zc, zg
-    rz = dot(rc, rg, zc, zg)
-    r0norm = float(torch.sqrt(dot(rc, rg, rc, rg)))
-    rnorm = best = r0norm
-    stall = it = 0
-    while it < maxiter and stall < stall_limit and rnorm > tol * (1.0 + r0norm):
-        qc, qg = matvec(pc, pg)
-        alpha = rz / dot(pc, pg, qc, qg)
-        xc = xc + alpha * pc
-        xg = xg + alpha * pg
-        rc = rc - alpha * qc
-        rg = rg - alpha * qg
-        zc, zg = apply_M(rc, rg)
-        rz_new = dot(rc, rg, zc, zg)
-        beta = rz_new / rz
-        pc = zc + beta * pc
-        pg = zg + beta * pg
-        rz = rz_new
-        rnorm = float(torch.sqrt(dot(rc, rg, rc, rg)))
-        if rnorm < best:
-            bxc, bxg = xc, xg
-        stall = 0 if rnorm < 0.9 * best else stall + 1
-        best = min(best, rnorm)
-        it += 1
-    return bxc, bxg, it
+        tracing.count("replays", CG_CHUNK * chunks)
+        tracing.count("graph_iterations", graph_it)
+        tracing.count("masked", CG_CHUNK * chunks - graph_it)
+    return c.bxc, c.bxg, it
 
 
 # ---------------------------------------------------------------------------

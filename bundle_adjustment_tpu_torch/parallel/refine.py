@@ -187,6 +187,7 @@ class Refiner:
             Minv = freenet.wrap_precond(rcs.make_apply_M(Minv), ext)
         xc, xg, it = rcs.pcg(rc, rg, Minv, matvec, tol=cg_tol,
                              maxiter=cg_maxiter, stall_limit=stall_limit)
+        del matvec  # K1's workspace goes before the back-substitution
         failed = not (bool(xc.any()) or bool(xg.any())) \
             and (bool(rc.any()) or bool(rg.any()))
         if ext is not None:

@@ -75,7 +75,7 @@ def _pcg_frozen(rc, rg, apply_M, matvec, tol, maxiter):
     """`rcs.pcg` for S systems at once ([S, M, 6] / [S, G] vectors):
     per-scenario alpha, beta, best iterate, stall count and stop; a
     scenario that stops is frozen.  The stop rule is `rcs.pcg`'s, its
-    quantities compared in float64 as `rcs.pcg` compares Python floats.
+    quantities compared in the residual's dtype as `rcs.pcg` compares them.
     Returns (xc, xg, iterations [S] int64)."""
     def dot_one(a, b, c, d):  # `rcs.pcg`'s, each sum per scenario
         return rcs._per_item(torch.sum, a * c) \
@@ -91,7 +91,7 @@ def _pcg_frozen(rc, rg, apply_M, matvec, tol, maxiter):
     zc, zg = apply_M(rc, rg)
     pc, pg = zc, zg
     rz = dot(rc, rg, zc, zg)
-    r0 = torch.sqrt(dot(rc, rg, rc, rg)).double()
+    r0 = torch.sqrt(dot(rc, rg, rc, rg))
     rnorm = best = r0
     stall = torch.zeros(S, dtype=torch.int64, device=rc.device)
     it = torch.zeros_like(stall)
@@ -113,7 +113,7 @@ def _pcg_frozen(rc, rg, apply_M, matvec, tol, maxiter):
         beta = rz_n / rz
         pc_n = zc + beta[:, None, None] * pc
         pg_n = zg + beta[:, None] * pg
-        rn = torch.sqrt(dot(rc_n, rg_n, rc_n, rg_n)).double()
+        rn = torch.sqrt(dot(rc_n, rg_n, rc_n, rg_n))
         a2, a3 = act[:, None], act[:, None, None]
         better = act & (rn < best)
         bxc = torch.where(better[:, None, None], xc_n, bxc)

@@ -20,7 +20,11 @@ and the ``full`` stage equal to K1 bit for bit.  The free-network step
 against the plain path on the GPU, on the view-major and on the point-major
 layout, at G = 10 and at G = 3 (the fewest a camera has: no distortion
 terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
-the same bits when run again.  The covariance (`cov_all`)
+the same bits when run again.  `rcs.pcg`'s CUDA-graph route (through K1
+and through the plain product) against its eager route: the same bits
+and count, one capture per call, K1's launches its runs, and no more
+device memory than one K1 workspace over the eager route's.  The
+covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
 (through K3) within kappa x 2^-24 of each block's largest entry; the
 block-gather recovery against the dense panels at u = 3,010 within 1e-10
@@ -250,6 +254,80 @@ def test_lm_step_through_kernels_contracts(case):
     om_ref = float(engine.omega_at(fv, d_ref[3], *d_ref[:3]))
     assert om < 0.9 * float(b.omega0)
     assert om < 1.05 * om_ref
+
+
+@pytest.mark.parametrize("route", ["k1", "plain"])
+def test_pcg_graph_route_matches_the_eager_route(case, route, monkeypatch):
+    """`rcs.pcg` on the card: the CUDA-graph route (K1 through
+    `kernels.make_matvec`, or the plain product marked ``capturable``)
+    against the eager route of the same product (an unmarked wrapper), at
+    maxiter 13 and 29 (tol 0, no stall stop) and to tol 1e-6 under the
+    f32 stall window: the same iterate bits and count; one capture per
+    call; `rcs.CG_CHUNK` replays per read of the stop, the warm-up
+    outside them, the rest masked; K1's launches = iterations + masked (the eager warm-up is
+    one of the iterations); the call's device memory peak no higher than
+    the eager route's by more than one K1 workspace."""
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
+    from bundle_adjustment_tpu_torch.solver import tracing
+
+    fv, pp = case["fv"], case["pp"]
+    b, rc, rg, Minv = engine.finish_reduction(
+        fv, case["b"], case["state"], 1e-3, *kernels.prepare_reduction(pp),
+        True)
+    work = sum(t.numel() * t.element_size()
+               for t in kernels.matvec_workspace(pp))
+
+    def product():
+        if route == "k1":
+            return kernels.make_matvec(pp, b.extra_c, b.extra_g)
+
+        def matvec(c, g):
+            return engine.schur_matvec(fv, b, c, g)
+
+        matvec.capturable = True
+        return matvec
+
+    captures = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *args, **kwargs):
+        captures.append(1)
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", counted)
+
+    def run(mv, kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        with tracing.recording() as spans:
+            out = rcs.pcg(rc, rg, Minv, mv, **kw)
+        torch.cuda.synchronize()
+        pcg = [s.counts for s in spans if s.name == "pcg"]
+        return (out, torch.cuda.max_memory_allocated() - base, pcg[0],
+                kernels.launch_counts()["schur_matvec"])
+
+    for kw in (dict(tol=0.0, maxiter=13, stall_limit=14),
+               dict(tol=0.0, maxiter=29, stall_limit=30),
+               dict(tol=1e-6, maxiter=300)):
+        eager = product()
+        (ex, eg, eit), epeak, ecounts, _ = run(
+            lambda c, g, mv=eager: mv(c, g), kw)
+        assert ecounts["replays"] == 0 and ecounts["masked"] == 0
+        del captures[:]
+        (gx, gg, git), gpeak, gcounts, k1 = run(product(), kw)
+        assert git == eit > 1, kw
+        assert torch.equal(gx, ex) and torch.equal(gg, eg), kw
+        chunks = -(-(git - 1) // rcs.CG_CHUNK)
+        assert len(captures) == 1
+        assert gcounts["replays"] == rcs.CG_CHUNK * chunks
+        assert gcounts["graph_iterations"] == git - 1
+        masked = rcs.CG_CHUNK * chunks - (git - 1)
+        assert gcounts["masked"] == masked
+        if route == "k1":
+            assert k1 == git + masked
+        assert gpeak <= epeak + work, (gpeak, epeak, work)
 
 
 def _probe_inputs(case):
