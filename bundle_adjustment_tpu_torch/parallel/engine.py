@@ -136,6 +136,11 @@ def _camera_onehot(p: FMProblem, dtype):
     return (p.cam_of_image.long()[None, :] == cams[:, None]).to(dtype)
 
 
+#: the span (`solver.tracing`) around the compact rows' global work in
+#: each caller of `_camera_sum`: linearise, the reduction and the product
+CAMERA_SUM_SPAN = "compact.camera_sum"
+
+
 def _camera_sum(p: FMProblem, per_image):
     """[M, F] per-image sums -> [C, F] per-camera sums, as one fixed-order
     product with the image -> camera one-hot (deterministic, unlike an
@@ -552,16 +557,17 @@ def linearize(p: FMProblem, state: ParamState, spec, damping,
     else:
         # per-image sums of the Gp diagonal / rhs rows, summed per camera;
         # free applied once (0/1 mask)
-        rows_d = [Jg_loc[g] * PJg_loc[g] + Jg_loc[Gp + g] * PJg_loc[Gp + g]
-                  for g in range(Gp)]
-        rows_b = [Jg_loc[g] * Pw[0] + Jg_loc[Gp + g] * Pw[1]
-                  for g in range(Gp)]
-        red_g = _image_sum_stack(p, rows_d + rows_b)
-        if comm is not None:
-            red_g = comm.psum(red_g)
-        camsum = _camera_sum(p, red_g)
-        Hgg_diag = camsum[:, :Gp].reshape(-1) * fg
-        bg = camsum[:, Gp:].reshape(-1) * fg
+        with tracing.span(CAMERA_SUM_SPAN):
+            rows_d = [Jg_loc[g] * PJg_loc[g]
+                      + Jg_loc[Gp + g] * PJg_loc[Gp + g] for g in range(Gp)]
+            rows_b = [Jg_loc[g] * Pw[0] + Jg_loc[Gp + g] * Pw[1]
+                      for g in range(Gp)]
+            red_g = _image_sum_stack(p, rows_d + rows_b)
+            if comm is not None:
+                red_g = comm.psum(red_g)
+            camsum = _camera_sum(p, red_g)
+            Hgg_diag = camsum[:, :Gp].reshape(-1) * fg
+            bg = camsum[:, Gp:].reshape(-1) * fg
     extra_g = damping * Hgg_diag + (1.0 - fg)
     if p.dg_w is not None:
         w_dg = p.dg_val - _global_vector(state)
@@ -638,13 +644,14 @@ def _global_out(p: FMProblem, b: FMBlocks, u, qc, comm=None,
         return comm.psum_scatter(oc, dim=-2) if cam_scatter else ps(oc)
 
     if b.Jg is None:
-        Gp = len(b.Jg_loc) // 2
-        qg = [b.Jg_loc[g] * u[0] + b.Jg_loc[Gp + g] * u[1]
-              for g in range(Gp)]
-        stack = _image_sum_stack(p, qc + qg)
-        og = _camera_sum(p, ps(stack[..., 6:]))
-        return image_part(stack[..., :6]), \
-            og.reshape(*og.shape[:-2], -1) * p.free_global
+        with tracing.span(CAMERA_SUM_SPAN):
+            Gp = len(b.Jg_loc) // 2
+            qg = [b.Jg_loc[g] * u[0] + b.Jg_loc[Gp + g] * u[1]
+                  for g in range(Gp)]
+            stack = _image_sum_stack(p, qc + qg)
+            og = _camera_sum(p, ps(stack[..., 6:]))
+            return image_part(stack[..., :6]), \
+                og.reshape(*og.shape[:-2], -1) * p.free_global
     G2 = len(b.Jg) // 2
     og = torch.stack([torch.sum(b.Jg[g] * u[0] + b.Jg[G2 + g] * u[1], dim=-1)
                       for g in range(G2)], dim=-1)
@@ -725,15 +732,17 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
         # the [C, N] masked products transient; free applied once
         Gp = len(b.Jg_loc) // 2
         C = G2 // Gp
-        sel = torch.stack([(b.cam_obs == c).to(b.Jp[0].dtype)
-                           for c in range(C)])                    # [C, N]
-        hpg = [[None] * G2 for _ in range(3)]
-        for a in range(3):
-            for g in range(Gp):
-                q = b.Jp[a] * b.PJg_loc[g] + b.Jp[3 + a] * b.PJg_loc[Gp + g]
-                per_cam = _point_sum(p, q * sel)                  # [C, P]
-                for c in range(C):
-                    hpg[a][c * Gp + g] = per_cam[c] * fg[c * Gp + g]
+        with tracing.span(CAMERA_SUM_SPAN):
+            sel = torch.stack([(b.cam_obs == c).to(b.Jp[0].dtype)
+                               for c in range(C)])                # [C, N]
+            hpg = [[None] * G2 for _ in range(3)]
+            for a in range(3):
+                for g in range(Gp):
+                    q = b.Jp[a] * b.PJg_loc[g] \
+                        + b.Jp[3 + a] * b.PJg_loc[Gp + g]
+                    per_cam = _point_sum(p, q * sel)              # [C, P]
+                    for c in range(C):
+                        hpg[a][c * Gp + g] = per_cam[c] * fg[c * Gp + g]
     else:
         hpg = [[_point_sum(p, b.Jp[a] * b.PJg[g]
                            + b.Jp[3 + a] * b.PJg[G2 + g])
@@ -791,13 +800,15 @@ def reduce_blocks(p: FMProblem, b: FMBlocks, state: ParamState, damping,
     if compact:
         # rg correction: image sums of the Gp local rows, per camera; T2
         # block-diagonal per camera [C, 2Gp, 2Gp]
-        rgm = _ps(_image_sum_stack(p, [b.Jg_loc[g] * u0[0]
-                                       + b.Jg_loc[Gp + g] * u0[1]
-                                       for g in range(Gp)]))
-        rg_corr = _camera_sum(p, rgm).reshape(-1) * fg
-        JglM = torch.stack(b.Jg_loc)
-        PJglM = torch.stack(b.PJg_loc).T
-        T2 = _ps(torch.stack([(JglM * sel[c]) @ PJglM for c in range(C)]))
+        with tracing.span(CAMERA_SUM_SPAN):
+            rgm = _ps(_image_sum_stack(p, [b.Jg_loc[g] * u0[0]
+                                           + b.Jg_loc[Gp + g] * u0[1]
+                                           for g in range(Gp)]))
+            rg_corr = _camera_sum(p, rgm).reshape(-1) * fg
+            JglM = torch.stack(b.Jg_loc)
+            PJglM = torch.stack(b.PJg_loc).T
+            T2 = _ps(torch.stack([(JglM * sel[c]) @ PJglM
+                                  for c in range(C)]))
     else:
         rg_corr = _ps(torch.stack([
             torch.sum(b.Jg[g] * u0[0] + b.Jg[G2 + g] * u0[1])

@@ -49,6 +49,15 @@ def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
     return rcs.RCSProblem(*(up(x) for x in problem))
 
 
+def kernels_by_default(problem32: rcs.RCSProblem) -> bool:
+    """`solver.solve`'s rule for ``use_kernels=None`` on the point-major
+    layout: the kernels for an f32 problem on a card with one camera (they
+    do not read the compact rows of a rig)."""
+    x = problem32.obs_xy
+    return bool(x.is_cuda and x.dtype == torch.float32
+                and engine.num_cameras(problem32) == 1)
+
+
 class Refiner:
     """Engine-path (feature-major) mixed-precision refiner.
 
@@ -76,28 +85,40 @@ class Refiner:
     (`kernels.prepare_kernels` + `kernels.make_matvec`); for CPU tensors
     the wrappers take their plain versions.  The kernels take one camera:
     a multi-camera problem (the compact rows) refines on the plain path,
-    and ``use_kernels=True`` raises ValueError for it.
+    and ``use_kernels=True`` raises ValueError for it.  None (the
+    default) takes `solver.solve`'s rule: the kernels for a single-camera
+    f32 problem on a card, else the plain path (a rig's compact rows).
 
     ``couple_global`` (the JAX Refiner's option): precondition the f32 CG
     with the exact camera-global blocks (default), or with the camera and
     global blocks alone (block Jacobi).
 
-    A step whose f32 CG returns its zero start on a nonzero right-hand
-    side (no iterate lowered |r|_2) solved nothing: the cameras and
-    globals stay, only the points take their back-substituted step, and
-    its max|dx| reads inf, never 0, so `refine` and `converge` stop and
-    report no convergence.  That is the case on camera rigs (`PERF.md`,
-    ROADMAP Queue 3), whose route to the optimum is `solver.solve` in
-    f64."""
+    The inner solve in f64 (``inner64``): the step's `engine.prepare`,
+    preconditioner, plain product and CG on the f64 problem the gradient
+    pass holds, in a span ``refine.step64``.  A camera rig takes it from
+    the first step of each refinement (`begin`): its f32 operator does not
+    hold the rig's weakest mode, each camera's calibration against its
+    images' EO, and on the 4-camera 100k rig the f32 steps moved the
+    state by 1e-3 .. 1e-1 where the correction was 0.3 .. 1.1, for one to
+    five steps, until a CG returned its zero start (PERF.md).  On one
+    camera a step whose f32 CG returns its zero start on a nonzero
+    right-hand side (no iterate lowered |r|_2) solved nothing: it is
+    redone in f64, and the rest of the refinement solves in f64.  A step
+    whose f64 CG fails too moves the points only and reads max|dx| inf,
+    never 0, so `refine` and `converge` stop and report no
+    convergence."""
 
     @tracing.traced("refine.build")
     def __init__(self, problem32: rcs.RCSProblem, spec,
-                 use_kernels: bool = False, couple_global: bool = True):
+                 use_kernels: bool | None = None, couple_global: bool = True):
         convert.refuse_unsupported(problem32)
+        if use_kernels is None:
+            use_kernels = kernels_by_default(problem32)
         self.problem32 = problem32
         self.spec = spec
         self.use_kernels = use_kernels
         self.couple_global = couple_global
+        self.begin()
         self.fmp32 = engine.fm_problem(problem32)
         if use_kernels:
             from . import kernels
@@ -111,6 +132,11 @@ class Refiner:
         # misclosures (tiny)
         self.problem64 = upcast_problem(problem32)
         self.fmp64 = engine.fm_problem(self.problem64)
+
+    def begin(self):
+        """Start a refinement (`refine`, `converge`): its inner solve in
+        f32, on a camera rig in f64 (``inner64``, `Refiner`)."""
+        self.inner64 = engine.num_cameras(self.problem32) > 1
 
     @tracing.traced("refine.gradient64")
     def gradient64(self, fmp64, state64: ParamState):
@@ -144,44 +170,51 @@ class Refiner:
         del b  # the f64 rows (~80 per observation) go before the f32 step
         return out
 
-    def _step_impl(self, s: hilo.HiLoState, damping, bp32, bc32, bg32,
-                   wsb32, wdpg32, cg_tol=1e-7, cg_maxiter=400,
-                   stall_limit=200):
-        p32 = self.fmp32
+    def _step_impl(self, s: hilo.HiLoState, damping, bp, bc, bg, wsb, wdpg,
+                   f64=False, cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
+        """One step from ``s`` on the gradient blocks handed in, its inner
+        solve in f32 on the f32 problem (``bp`` .. ``wdpg`` in f32) or, with
+        ``f64``, in f64 on the f64 problem.  Returns (HiLoState, max|dx|,
+        CG iterations, whether the CG failed)."""
+        if f64:
+            p, problem, kern = self.fmp64, self.problem64, False
+            state, state_lo = hilo.to_f64(s), None
+        else:
+            p, problem, kern = self.fmp32, self.problem32, self.use_kernels
+            state, state_lo = s.hi, s.lo
         cam_gather = None
-        if self.use_kernels:
+        if kern:
             from . import kernels
 
-            cam_gather = kernels.make_cam_gather(p32)
+            cam_gather = kernels.make_cam_gather(p)
             b, _rc, _rg, Minv, pp = kernels.prepare_kernels(
-                p32, s.hi, self.spec, damping,
-                couple_global=self.couple_global, state_lo=s.lo,
+                p, state, self.spec, damping,
+                couple_global=self.couple_global, state_lo=state_lo,
                 cam_gather=cam_gather)
         else:
             b, _rc, _rg, Minv = engine.prepare(
-                p32, s.hi, self.spec, damping,
-                couple_global=self.couple_global, state_lo=s.lo)
-        ops = engine.point_ops(p32, b, cam_gather=cam_gather)
-        z0 = ops.hinv(bp32)
+                p, state, self.spec, damping,
+                couple_global=self.couple_global, state_lo=state_lo)
+        ops = engine.point_ops(p, b, cam_gather=cam_gather)
+        z0 = ops.hinv(bp)
         dc, dg = ops.hxp(z0)
-        rc = bc32 - dc
-        rg = bg32 - dg
-        b = b._replace(bp=tuple(bp32[:, a] for a in range(3)),
-                       bc=bc32, bg=bg32)
-        if self.use_kernels:
+        rc = bc - dc
+        rg = bg - dg
+        b = b._replace(bp=tuple(bp[:, a] for a in range(3)), bc=bc, bg=bg)
+        if kern:
             # the rows packed once by prepare_kernels above
             matvec = kernels.make_matvec(pp, b.extra_c, b.extra_g)
         else:
             def matvec(c, g):
-                return engine.schur_matvec(p32, b, c, g)
+                return engine.schur_matvec(p, b, c, g)
         ext = None
-        if self.problem32.has_extras:
+        if problem.has_extras:
             # the exact low-rank corrections around the f64 gradient: the
-            # coefficients (U, B, Cap, Bb) in f32 from the current hi
-            # state, the cancelling misclosures from the f64 pass
+            # coefficients (U, B, Cap, Bb) from the current state, the
+            # cancelling misclosures from the f64 pass
             ext = freenet.prepare_extras(
-                self.problem32, s.hi, bp32, rc, rg, ops, 0.0,
-                sb_misclosure=wsb32, dpg_misclosure=wdpg32)
+                problem, state, bp, rc, rg, ops, 0.0,
+                sb_misclosure=wsb, dpg_misclosure=wdpg)
             rc, rg = ext.rc, ext.rg
             matvec = freenet.wrap_matvec(matvec, ext)
             Minv = freenet.wrap_precond(rcs.make_apply_M(Minv), ext)
@@ -191,29 +224,46 @@ class Refiner:
         failed = not (bool(xc.any()) or bool(xg.any())) \
             and (bool(rc.any()) or bool(rg.any()))
         if ext is not None:
-            dxp, _lam = freenet.back_substitute(self.problem32, ext, ops,
-                                                xc, xg)
+            dxp, _lam = freenet.back_substitute(problem, ext, ops, xc, xg)
         else:
-            dxp = engine.back_substitute_points(p32, b, xc, xg,
+            dxp = engine.back_substitute_points(p, b, xc, xg,
                                                 cam_gather=cam_gather)
-        new_s, max_dx = hilo.apply_step(s, dxp, xc, xg)
+        if f64:
+            # the f64 step on the f64 state, split back into hi + lo
+            new64, max_dx = rcs.apply_step(state, dxp, xc, xg)
+            new_s = hilo.from_f64(new64)
+        else:
+            new_s, max_dx = hilo.apply_step(s, dxp, xc, xg)
         if failed:
             max_dx = torch.full_like(max_dx, float("inf"))
-        return new_s, max_dx, it
+        return new_s, max_dx, it, failed
 
     @tracing.traced("refine.step")
     def step(self, s: hilo.HiLoState, damping=1e-8,
              cg_tol=1e-7, cg_maxiter=400, stall_limit=200):
         """One refinement step from ``s``: returns (HiLoState, max|dx| 0-d
         tensor, inf where the CG failed, f64 Omega at ``s``, CG
-        iterations)."""
+        iterations).  The inner solve runs in f64 once ``inner64`` is set,
+        and a failed f32 CG redoes the step so (`Refiner`); the iterations
+        are then the two solves' together."""
         bp64, bc64, bg64, omega0, wsb, wdpg = self.gradient64(
             self.fmp64, hilo.to_f64(s))
-        f32 = torch.float32
-        new_s, max_dx, it = self._step_impl(
-            s, damping, bp64.to(f32), bc64.to(f32), bg64.to(f32),
-            wsb.to(f32), wdpg.to(f32), cg_tol=cg_tol, cg_maxiter=cg_maxiter, stall_limit=stall_limit)
-        return new_s, max_dx, omega0, it
+        kw = dict(cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+                  stall_limit=stall_limit)
+        it32 = 0
+        if not self.inner64:
+            f32 = torch.float32
+            new_s, max_dx, it32, failed = self._step_impl(
+                s, damping, bp64.to(f32), bc64.to(f32), bg64.to(f32),
+                wsb.to(f32), wdpg.to(f32), **kw)
+            if not failed:
+                return new_s, max_dx, omega0, it32
+            self.inner64 = True
+        with tracing.span("refine.step64"):
+            new_s, max_dx, it, _ = self._step_impl(
+                s, damping, bp64, bc64, bg64, wsb, wdpg, f64=True, **kw)
+            tracing.count("iterations", it)
+        return new_s, max_dx, omega0, it32 + it
 
     def refine(self, state32: ParamState, tolerance: float = 1e-6,
                max_iterations: int = 12, **kw):
@@ -221,6 +271,7 @@ class Refiner:
         fails (max|dx| inf, `Refiner`).
         Returns (HiLoState, history list of max|dx|)."""
         s = hilo.from_f32(state32)
+        self.begin()
         history = []
         for _ in range(max_iterations):
             s, max_dx, omega0, it = self.step(s, **kw)
@@ -240,6 +291,7 @@ class Convergence(NamedTuple):
     max_dx: list          # max|dx| after each refinement step
     cg_iterations: list   # CG iterations of each refinement step
     converged: bool       # the last max|dx| <= tolerance (a failed CG: no)
+    f64_steps: int = 0    # steps whose inner solve ran in f64 (`Refiner`)
 
     @property
     def time_to_converged_s(self) -> float:
@@ -251,7 +303,8 @@ def converge(refiner: Refiner, lm_result, tolerance=1e-6, max_steps=15,
     """The time-to-converged loop of `bench.py` after its f32 LM phase:
     from ``lm_result`` = `lm.run`'s (state, LMPhase), refine a hi/lo state
     until max|dx| <= ``tolerance``, ``max_steps`` steps or a step whose CG
-    failed (`Refiner`; the record's ``converged`` is then False).
+    failed in f64 too (`Refiner`; the record's ``converged`` is then
+    False).  The record counts the steps whose inner solve ran in f64.
 
     The defaults are the bench's settings.  ``cg_tol`` is unreachably
     tight on purpose: the refinement system is ill-conditioned, a
@@ -272,7 +325,9 @@ def converge(refiner: Refiner, lm_result, tolerance=1e-6, max_steps=15,
     there.  Returns (HiLoState, Convergence)."""
     state32, phase = lm_result
     s = hilo.from_f32(state32)
+    refiner.begin()
     history, its = [], []
+    f64_steps = 0
     t0 = time.perf_counter()
     for _ in range(max_steps):
         s, max_dx, _omega0, it = refiner.step(
@@ -280,10 +335,12 @@ def converge(refiner: Refiner, lm_result, tolerance=1e-6, max_steps=15,
             stall_limit=stall_limit)
         history.append(float(max_dx))  # a host read: the step has ended
         its.append(it)
+        f64_steps += refiner.inner64
         if history[-1] <= tolerance or math.isinf(history[-1]):
             break
     seconds = time.perf_counter() - t0
     return s, Convergence(f32_steps=phase.steps, f32_seconds=phase.seconds,
                           refine_steps=len(history), refine_seconds=seconds,
                           max_dx=history, cg_iterations=its,
-                          converged=history[-1] <= tolerance)
+                          converged=history[-1] <= tolerance,
+                          f64_steps=f64_steps)

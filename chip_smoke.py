@@ -145,17 +145,23 @@ Phases (any failed check exits non-zero, before the result line):
      compact step twice, bit for bit; (b) `solver.solve` (f32, plain,
      tolerance 1e-3, at most 30 steps), the definiteness of the coupled
      preconditioner's global Schur complement there, then
-     `refine.converge` undamped (at most 5 steps each, with the Refiner's
-     default coupled preconditioner and with block Jacobi), each followed
-     by one f64 Gauss-Newton step that shows how far its end lies from
-     the optimum: the f32 inner solve does not see the rig's weakest mode,
-     so the refinement does not converge there, and a run that reports
-     convergence must lie within 1e-5 of the optimum (gated); the route a
-     rig takes, and the gate, is `solver.solve` in f64 from the f32 end
-     (Gauss-Newton, cg_tol 1e-10) to max|dx| <= 1e-6, sigma0 within 1% of
-     5e-4, the f64 Omega not above the f32 end's, each camera's principal
-     distance closest to its own true value; time_to_converged_s = both
-     solves' seconds; one f64 step's device-idle share; (c) `cov_all` in
+     `refine.converge` undamped with the Refiner's own route
+     (``use_kernels=None``: the plain compact rows), with block Jacobi (at
+     most 15 steps: the rig's route, gated) and with the default coupled
+     preconditioner (at most 5 steps, recorded), each followed by one f64
+     Gauss-Newton step that shows how far its end lies from the optimum:
+     the f32 inner solve does not hold the rig's weakest mode, so the
+     Refiner runs a rig's inner solve in f64; the block-Jacobi run must
+     converge with at least one f64 step, and a run that reports
+     convergence must lie within 1e-5 of the optimum (gated); its
+     cross-check is `solver.solve` in f64 from
+     the f32 end (Gauss-Newton, cg_tol 1e-10) to max|dx| <= 1e-6, sigma0
+     within 1% of 5e-4, the f64 Omega not above the f32 end's, each
+     camera's principal distance closest to its own true value, and the
+     refined state within 1e-5 of its end (gated; on the refinement's
+     f32-rounded observations); time_to_converged_s =
+     the f32 solve's and the block-Jacobi refinement's seconds; one f64
+     step's device-idle share; (c) `cov_all` in
      f64 (u = 3,040): S against the second assembly route within a
      Jacobi-scaled 1e-9, residual <= 1e-8; (d) `parallel/covariance.py`'s
      point, pair and camera blocks (4 each, f64, PCG tol 1e-10, the
@@ -429,7 +435,8 @@ RIG_CG_MAXITER = 3000
 # tests/test_multi_camera.py::test_compact_step_matches_rcs_16cam_rig
 RIG_STEP_RTOL, RIG_STEP_ATOL = 3e-4, 1e-6      # atol of max|reference|
 RIG_GN_CG_TOL = 1e-10    # CG of the f64 Gauss-Newton steps of (b)
-RIG_REFINE_STEPS = 5     # steps of each refinement run
+RIG_REFINE_STEPS = 15    # steps of the rig's refinement (block Jacobi)
+RIG_COUPLED_STEPS = 5    # steps of the recorded coupled refinement
 RIG_FALSE_END = 10 * REFINE_TOL  # a converged refinement's f64 step, at most
 RIG_COV_TOL = 1e-5       # on-demand blocks vs cov_all / Qred, of each max
 RIG_COV_PCG_TOL = 1e-10
@@ -1559,63 +1566,82 @@ def multi_camera_phase(dev):
         f"Sghat eigenvalues {float(eig_sh[0]):.3e} .. "
         f"{float(eig_sh[-1]):.3e}, {n_neg} negative of {G}")
     del Mc, Sh
-    # the mixed-precision refinement: its f32 inner solve does not see the
-    # rig's weakest mode, so it does not converge there; it must say so
-    # (gated: a run that reports convergence lies at the optimum, one f64
-    # Gauss-Newton step at its end moves <= RIG_FALSE_END)
-    fmp_r = engine.fm_problem(refine.upcast_problem(prob32))
+    # the mixed-precision refinement, the rig's route: its f32 inner solve
+    # does not hold the rig's weakest mode, so the Refiner runs a rig's
+    # inner solve in f64 (gated: the block-Jacobi run converges with an
+    # f64 step; a run that reports convergence lies at
+    # the optimum, one f64 Gauss-Newton step at its end moves <=
+    # RIG_FALSE_END)
+    prob_r = refine.upcast_problem(prob32)    # the refinement's problem
+    fmp_r = engine.fm_problem(prob_r)
     phase = lm.LMPhase(steps=res.iterations, max_dx=res.max_abs_dx,
                        cg_iterations=[h["cg_it"] for h in hist],
                        seconds=t_f32)
-    refined = {}
-    for label, kw in (("default", {}),
-                      ("block_jacobi", dict(couple_global=False))):
+    refined, ends = {}, {}
+    for label, kw, steps in (
+            ("block_jacobi", dict(couple_global=False), RIG_REFINE_STEPS),
+            ("default", {}, RIG_COUPLED_STEPS)):
         torch.cuda.synchronize()
-        s_ref, rec = refine.converge(refine.Refiner(prob32, spec, **kw),
-                                     (res.state, phase),
+        refiner = refine.Refiner(prob32, spec, use_kernels=None, **kw)
+        if refiner.use_kernels:
+            fail("rig (b): the Refiner's own route took the kernels")
+        s_ref, rec = refine.converge(refiner, (res.state, phase),
                                      tolerance=REFINE_TOL, damping=0.0,
-                                     max_steps=RIG_REFINE_STEPS)
-        full = hilo.to_f64(s_ref)
+                                     max_steps=steps)
+        full = ends[label] = hilo.to_f64(s_ref)
         gn = gauss_newton(fmp_r, full)
         refined[label] = dict(steps=rec.refine_steps,
                               seconds=rec.refine_seconds,
                               max_dx=rec.max_dx, cg=rec.cg_iterations,
+                              f64_steps=rec.f64_steps,
                               converged=rec.converged, f64_step=gn[0])
         log(f"(b) refine.converge undamped, {label} "
             f"({kw or 'coupled'}): converged {rec.converged}, "
-            f"{rec.refine_steps} steps in {rec.refine_seconds:.3f} s; "
-            f"max|dx| " + ", ".join(f"{x:.3e}" for x in rec.max_dx)
-            + (" (inf: the step's CG returned its zero start)"
+            f"{rec.refine_steps} steps ({rec.f64_steps} in f64) in "
+            f"{rec.refine_seconds:.3f} s; max|dx| "
+            + ", ".join(f"{x:.3e}" for x in rec.max_dx)
+            + (" (inf: the step's f64 CG returned its zero start)"
                if math.isinf(rec.max_dx[-1]) else "")
             + f"; CG iterations {rec.cg_iterations}; one f64 Gauss-Newton "
             f"step at its end moves {gn[0]:.3e} ({gn[1]} CG iterations)")
         if rec.converged and not gn[0] <= RIG_FALSE_END:
             fail(f"rig (b): refine.converge ({label}) reports convergence "
                  f"where one f64 Gauss-Newton step still moves {gn[0]:.3e}")
-    # the gate: Gauss-Newton in f64 (plain path) from the f32 end
+    bj = refined["block_jacobi"]
+    if not (bj["converged"] and bj["f64_steps"] >= 1):
+        fail(f"rig (b): the block-Jacobi refinement did not converge through "
+             f"an f64 step (converged {bj['converged']}, f64 steps "
+             f"{bj['f64_steps']}, max|dx| {bj['max_dx']})")
+    # the cross-check: Gauss-Newton in f64 (plain path) from the f32 end,
+    # on the refinement's f32-rounded observations (its optimum lies
+    # ~5e-5 from that of the unrounded ones)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res64 = solver.solve(prob64, st_f32, spec, damping=0.0, max_iterations=10,
+    res64 = solver.solve(prob_r, st_f32, spec, damping=0.0, max_iterations=10,
                          tolerance=REFINE_TOL, cg_tol=RIG_GN_CG_TOL,
                          cg_maxiter=RIG_CG_MAXITER)
     torch.cuda.synchronize()
     t_f64 = time.perf_counter() - t
     full = res64.state
-    om_f32, om_end = omega64(fmp64, st_f32), omega64(fmp64, full)
+    om_f32, om_end = omega64(fmp_r, st_f32), omega64(fmp_r, full)
     sigma0 = (om_end / dof) ** 0.5
     io_true = np.asarray(state_h.io)[:, 2]
     io_est = full.io[:, 2].cpu().numpy()
     own = [int(np.argmin(np.abs(io_true - x))) for x in io_est]
     prof = measure.device_profile(lambda: gauss_newton(fmp64, full))
-    ttc = t_f32 + t_f64
-    log(f"(b) solve (f64, plain, Gauss-Newton from the f32 end): "
+    ttc = t_f32 + bj["seconds"]
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(ends["block_jacobi"], full))
+    log(f"(b) solve (f64, plain, Gauss-Newton from the f32 end, the "
+        f"refinement's problem): "
         f"{res64.status.name} after {res64.iterations} steps in {t_f64:.3f} "
         f"s; max|dx| " + ", ".join(f"{h['max_dx']:.3e}"
                                    for h in res64.history)
         + f"; CG iterations {[h['cg_it'] for h in res64.history]}; "
         f"preconditioner {preconds(res64.history)}")
-    log(f"(b) time_to_converged_s {ttc:.3f} (f32 {t_f32:.3f} + f64 "
-        f"{t_f64:.3f}); f64 Omega {om_f32:.10e} -> {om_end:.10e}; sigma0 "
+    log(f"(b) time_to_converged_s {ttc:.3f} (f32 {t_f32:.3f} + refinement "
+        f"{bj['seconds']:.3f}); the refined state against the f64 solve's "
+        f"end: {gap:.3e}; f64 Omega {om_f32:.10e} -> {om_end:.10e}; sigma0 "
         f"{sigma0:.6e} (dof {dof}); principal distances {io_est.tolist()} "
         f"(true {io_true.tolist()}); one f64 step under the profiler: "
         f"device busy {prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
@@ -1631,6 +1657,9 @@ def multi_camera_phase(dev):
     if own != list(range(C)):
         problems.append(f"principal distances {io_est.tolist()} lie "
                         f"closest to cameras {own}")
+    if not gap <= RIG_FALSE_END:
+        problems.append(f"the refined state lies {gap:.3e} from the f64 "
+                        f"solve's end")
     if problems:
         fail("rig (b): " + "; ".join(problems))
 
@@ -1755,7 +1784,8 @@ def multi_camera_phase(dev):
         rig_solve_f64_cg=[h["cg_it"] for h in res64.history],
         rig_solve_f64_precond=preconds(res64.history),
         rig_time_to_converged_s=ttc, rig_sigma0=sigma0,
-        rig_sghat_negative=n_neg, rig_refine_recorded=refined,
+        rig_sghat_negative=n_neg, rig_refine=refined,
+        rig_refine_vs_f64_solve=gap,
         rig_f64_step_idle_share=prof["idle_share"],
         rig_cov_all_s=s_cov, rig_cov_residual=resid, rig_cov_s_err=s_err,
         rig_on_demand=on_demand, rig_api_xyz_err=xyz_err,

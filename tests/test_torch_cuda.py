@@ -40,8 +40,10 @@ on CUDA by default against the same code on the CPU: status and
 iterations equal, sigma0 within 1e-9, coordinates within 1e-9 of the
 field, the cofactor matrix within 1e-7 of its largest entry.  A 4-camera
 rig (the compact rows, plain path): one f64 step on the card against the
-CPU (rtol 3e-4, atol 1e-6 of max), the f32 step twice bit for bit, and
-``use_kernels=True`` refused before any launch.  The file route: a
+CPU (rtol 3e-4, atol 1e-6 of max), the f32 step twice bit for bit,
+``use_kernels=True`` refused before any launch, and the Refiner's default
+route: the kernels for one camera in f32, the plain compact rows for the
+rig, whose refinement converges with no launch.  The file route: a
 2,048-point network written as flat files and read by
 `io.columnar.build_rcs_problem` on the card equals its in-memory control
 bit for bit, and `solve` on it runs through K1, K2 and K3 (launches > 0)
@@ -800,6 +802,32 @@ def test_kernels_refuse_a_rig_on_the_card(rig):
     res = solver.solve(prob, st, rig["spec"], max_iterations=2,
                        tolerance=1e-3)
     assert res.iterations == 2
+    assert not any(kernels.launch_counts().values())
+
+
+def test_refiner_route_follows_the_problem(rig):
+    """`Refiner(use_kernels=None)` takes `solve`'s rule: the kernels for a
+    single-camera f32 problem on the card (not in f64), the plain compact
+    rows for a rig; the rig's refinement (block Jacobi, undamped) from the
+    f32 solve's end converges there and launches no kernel."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (kernels, lm, refine,
+                                                      solver)
+
+    ph, _, spec1 = synthetic.build_problem(512, 12, 6, seed=1)
+    for dt, takes in ((torch.float32, True), (torch.float64, False)):
+        r = refine.Refiner(convert.problem_to_torch(ph, "cuda", dt), spec1)
+        assert r.use_kernels is takes
+    prob, st = rig["cuda", torch.float32]
+    kernels.reset_launch_counts()
+    res = solver.solve(prob, st, rig["spec"], damping=1e-2,
+                       max_iterations=30, tolerance=1e-3)
+    r = refine.Refiner(prob, rig["spec"], couple_global=False)
+    assert r.use_kernels is False
+    phase = lm.LMPhase(steps=res.iterations, max_dx=res.max_abs_dx,
+                       cg_iterations=[], seconds=0.0)
+    _, rec = refine.converge(r, (res.state, phase), damping=0.0)
+    assert rec.converged, rec.max_dx
     assert not any(kernels.launch_counts().values())
 
 

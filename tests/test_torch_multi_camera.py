@@ -410,10 +410,12 @@ def test_converge_on_a_rig_matches_jax(jax_side):
 
 
 def test_converge_on_a_16cam_rig_reports_no_convergence(jax_side):
-    """On the 16-camera rig the f32 inner solve does not contract (the
-    rig's weakest mode, ROADMAP Queue 3): neither the port nor the JAX
-    Refiner reaches max|dx| <= 1e-6 in 12 steps, and the port's record
-    says so, whether it ran out of steps or a step's CG failed."""
+    """On the 16-camera rig neither the JAX Refiner (its f32 inner solve
+    does not contract: the rig's weakest mode) nor the port (a rig's
+    inner solve runs in f64, `refine.Refiner`) reaches max|dx| <= 1e-6 in
+    12 steps at this CG budget (300 iterations, where the rig's f64 steps
+    need ~3,000), and the port's record says so, whether it ran out of
+    steps or a step's CG failed."""
     r = jax_side["rig16_f32"]
     rt = refine.Refiner(r["p32"], r["spec"], couple_global=False)
     phase = lm.LMPhase(steps=0, max_dx=0.0, cg_iterations=[], seconds=0.0)
@@ -427,8 +429,9 @@ def test_converge_on_a_16cam_rig_reports_no_convergence(jax_side):
 
 def test_a_failed_cg_is_no_convergence(jax_side):
     """A refinement step whose CG returns its zero start on a nonzero
-    right-hand side (here: no iteration allowed) solved nothing: max|dx|
-    reads inf, the cameras and globals do not move (the points take their
+    right-hand side (here: no iteration allowed; on a rig the inner solve
+    is f64's, `refine.Refiner`) solved nothing: max|dx| reads inf, the
+    cameras and globals do not move (the points take their
     back-substituted step), and `converge` stops unconverged."""
     r = jax_side["rig2_f32"]
     rt = refine.Refiner(r["p32"], r["spec"], couple_global=False)
@@ -436,7 +439,7 @@ def test_a_failed_cg_is_no_convergence(jax_side):
     s, rec = refine.converge(rt, (r["st32"], phase),
                              **dict(REFINE_KW, cg_maxiter=0))
     assert rec.max_dx == [float("inf")] and rec.cg_iterations == [0]
-    assert not rec.converged
+    assert not rec.converged and rec.f64_steps == 1
     end = hilo.to_f64(s)
     for name in ("eo", "io", "dist"):
         assert torch.equal(getattr(end, name),
