@@ -338,43 +338,64 @@ inline int block_sum_lanes(int fs4) {
   return e;
 }
 
+// 16-byte columns of the pass: float4 for f32 rows, double2 for f64 rows
+// (csrc/image_sum.cu takes both), added component by component.
+__device__ __forceinline__ void vec_zero(float4& a) {
+  a = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void vec_zero(double2& a) {
+  a = make_double2(0.0, 0.0);
+}
+__device__ __forceinline__ void vec_add(float4& a, const float4& o) {
+  a.x += o.x;
+  a.y += o.y;
+  a.z += o.z;
+  a.w += o.w;
+}
+__device__ __forceinline__ void vec_add(double2& a, const double2& o) {
+  a.x += o.x;
+  a.y += o.y;
+}
+
+// The sum of one 512-entry block: *out = sum over the entries e < n of
+// load(e) (one 16-byte column per thread).  Block (fsv, lanes), lanes a
+// power of two with fsv * lanes <= kSumThreads; sh holds kSumThreads
+// columns.  Thread (q, j) adds the entries j, j + lanes, ... in order, then
+// a fixed tree over j; thread (q, 0) writes out[q].
+template <typename V, typename Load>
+__device__ __forceinline__ void block_sum(Load load, int n, V* __restrict__ out,
+                                          V* sh) {
+  const int q = threadIdx.x, j = threadIdx.y, fsv = blockDim.x;
+  const int lanes = blockDim.y;
+  V acc;
+  vec_zero(acc);
+#pragma unroll 4
+  for (int e = j; e < n; e += lanes) vec_add(acc, load(e));
+  sh[j * fsv + q] = acc;
+  __syncthreads();
+  for (int s = lanes / 2; s > 0; s >>= 1) {
+    if (j < s) {
+      V a = sh[j * fsv + q];
+      vec_add(a, sh[(j + s) * fsv + q]);
+      sh[j * fsv + q] = a;
+    }
+    __syncthreads();
+  }
+  if (j == 0) out[q] = sh[q];
+}
+
 // bsum[b, :] = sum of the first valid[b] rows of block b of feat
-// [nb * 512, fs4] (float4 columns).  Grid nb; block (fs4, lanes), lanes a
-// power of two with fs4 * lanes <= kSumThreads.  Thread (q, j) adds the rows
-// j, j + lanes, ... in order (consecutive threads read consecutive float4:
-// the block is one contiguous run of memory), then a fixed tree over j.
+// [nb * 512, fs4] (float4 columns).  Grid nb; block (fs4, lanes) as
+// `block_sum`: consecutive threads read consecutive float4 (the block is one
+// contiguous run of memory).
 static __global__ void __launch_bounds__(kSumThreads)
 block_sum_kernel(const float4* __restrict__ feat, int fs4,
                  const int* __restrict__ valid, float4* __restrict__ bsum) {
   __shared__ float4 sh[kSumThreads];
-  const int q = threadIdx.x, j = threadIdx.y, lanes = blockDim.y;
   const int b = blockIdx.x;
-  const int n = valid[b];
-  const float4* base = feat + (long long)b * kImgBlock * fs4 + q;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int e = j; e < n; e += lanes) {
-    const float4 v = base[(long long)e * fs4];
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
-  }
-  sh[j * fs4 + q] = acc;
-  __syncthreads();
-  for (int s = lanes / 2; s > 0; s >>= 1) {
-    if (j < s) {
-      const float4 o = sh[(j + s) * fs4 + q];
-      float4 a = sh[j * fs4 + q];
-      a.x += o.x;
-      a.y += o.y;
-      a.z += o.z;
-      a.w += o.w;
-      sh[j * fs4 + q] = a;
-    }
-    __syncthreads();
-  }
-  if (j == 0) bsum[(long long)b * fs4 + q] = sh[q];
+  const float4* base = feat + (long long)b * kImgBlock * fs4 + threadIdx.x;
+  block_sum([&](int e) { return base[(long long)e * fs4]; }, valid[b],
+            bsum + (long long)b * fs4, sh);
 }
 
 // The last launch of K1 and K2, two jobs in one grid of kReduceThreads:

@@ -52,6 +52,10 @@ SIGNATURES = {
         _c_int, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,  # st pk N P V pb G
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,                    # img hpp xc xg
         _c_ptr, _c_ptr, _c_ptr],                           # part out stream
+    "ba_image_sum": [
+        _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ll,     # s rows lead F L N
+        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,            # M pos valid bstarts nb
+        _c_ptr, _c_ptr, _c_int, _c_ptr],                   # scr out ldo stream
 }
 
 

@@ -6,7 +6,8 @@ Every per-observation quantity is a feature row of length N.  Reductions:
   per point : uniform point-major reshape [P, V] (or the view-major blocked
               order [P/pb, V, pb]) -> sum over views
   per image : static permutation to image-sorted order (pad row N), 512-row
-              block sums, cumsum-diff over block boundaries
+              block sums, cumsum-diff over block boundaries; on the card
+              one kernel in a fixed two-level order (`_image_sum_stack`)
   per camera: the per-image sums times the [C, M] image -> camera one-hot
               (a fixed-order product: no atomics)
   global    : plain row sums / small matrix products
@@ -370,9 +371,20 @@ def to_view_major(p: FMProblem, pb: int) -> FMProblem:
 
 
 def _image_sum_stack(p: FMProblem, rows):
-    """Per-image sums of F feature rows [..., N]: returns [..., M, F].  One
-    row gather into image-sorted order + 512-block sums + cumsum-diff (the
-    numerics of the reference's blocked image reduction)."""
+    """Per-image sums of F feature rows [..., N]: returns [..., M, F].  CUDA
+    rows go to one hand-written kernel (`kernels.image_sum_rows`, a fixed
+    two-level order), CPU rows to `_image_sum_plain`."""
+    if rows[0].is_cuda:
+        from . import kernels
+
+        return kernels.image_sum_rows(p, rows)
+    return _image_sum_plain(p, rows)
+
+
+def _image_sum_plain(p: FMProblem, rows):
+    """`_image_sum_stack` in plain PyTorch on any device: one row gather
+    into image-sorted order + 512-block sums + cumsum-diff (the numerics of
+    the reference's blocked image reduction)."""
     x = torch.stack(rows, dim=-1)  # [..., N, F]
     lead = x.shape[:-2]
     xp = torch.cat([x, x.new_zeros((*lead, 1, x.shape[-1]))], dim=-2)

@@ -1,5 +1,5 @@
-"""Packed-row contract, the three solve kernels (K1-K3) and the two
-matvec probes (K4 read floor, K1 stages).
+"""Packed-row contract, the three solve kernels (K1-K3), the per-image sum
+of feature rows and the two matvec probes (K4 read floor, K1 stages).
 
 Port of `bundle_adjustment_tpu/parallel/kernels.py`.  Every
 per-observation quantity is a row of length N in the view-major blocked
@@ -22,17 +22,21 @@ Each kernel has
   K2 `prepare_reduction`    csrc/prepare_reduction.cu fused assembly
   K4 `read_floor`           csrc/read_floor.cu        pure-read floor
      `matvec_stage`         csrc/schur_matvec.cu      K1 cut into stages
+     `image_sum_rows`       csrc/image_sum.cu         per-image row sums
 
 K1, K2 and K4 share one pipeline (csrc/common.cuh): a persistent grid of
 one CTA per SM, tiles of one view-major block brought into a shared-memory
 ring by asynchronous bulk copies.  K1 and K2 take their per-image sums by
 writing each observation's values at its image-sorted position
-(`PackedFM.img_pos`) and streaming over them (`image_sum_sorted_plain` is
-the plain model of that pass).
+(`PackedFM.img_pos`) and streaming over them; `image_sum_rows`, the card's
+route of `engine._image_sum_stack` for every other caller, sums any F rows
+in the same two-level order (`image_sum_sorted_plain` is the plain model of
+that order).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -302,27 +306,169 @@ def make_cam_gather(p):
 
 
 # ---------------------------------------------------------------------------
-# the streaming per-image pass of K1 and K2
+# per-image sums of feature rows (csrc/image_sum.cu), the two-level order
+# they share with the streaming per-image pass of K1 and K2
 # ---------------------------------------------------------------------------
 
-def image_sum_sorted_plain(pp: PackedFM, x):
-    """Per-image sums [M, F] of x [N, F] the way K1 and K2 take them on the
-    card: row n is written at entry img_pos[n] of the image-sorted blocked
-    layout, every 512-entry block sums its valid prefix, and each image
-    adds its blocks in order.  Equals `engine._image_sum_stack` up to the
-    order of the sums."""
+#: feature rows one launch of the image-sum kernel takes (csrc/image_sum.cu
+#: kMaxRows: its table of row pointers is a kernel parameter); the compact
+#: rows' most is 99 (`engine.reduce_blocks`, coupled, Gp = 10)
+MAX_IMAGE_SUM_ROWS = 128
+#: bytes that an entry of the image-sum kernel's scratch spans a multiple
+#: of (csrc/image_sum.cu kSector): the L2 never holds a partly written sector
+IMAGE_SUM_SECTOR = 32
+#: threads of one block sum and the most entry lanes it takes
+#: (csrc/common.cuh kSumThreads, kSumMaxLanes)
+SUM_THREADS = 512
+SUM_MAX_LANES = 64
+
+
+def block_sum_lanes(columns: int) -> int:
+    """Entry lanes of a block sum over ``columns`` 16-byte columns
+    (csrc/common.cuh `block_sum_lanes`)."""
+    e = 1
+    while 2 * e * columns <= SUM_THREADS and 2 * e <= SUM_MAX_LANES:
+        e *= 2
+    return e
+
+
+def image_sum_columns(F: int, dtype) -> int:
+    """F rounded up to whole `IMAGE_SUM_SECTOR`-byte sectors of ``dtype``:
+    the width of an entry of `image_sum_rows`'s image-sorted scratch and of
+    its block sums."""
+    w = IMAGE_SUM_SECTOR * 8 // torch.finfo(dtype).bits
+    return -(-F // w) * w
+
+
+def image_sum_sorted_plain(p, x):
+    """Per-image sums [..., M, F] of x [..., N, F] in the order the card
+    takes them (`image_sum_rows`, whose bits this repeats; K1 and K2 take
+    the same order at their own widths): row n goes to entry img_pos[n] of
+    the image-sorted blocked layout; each 512-entry block sums its valid
+    prefix, entry lane j adding the entries j, j + lanes, ... in order and
+    the lanes then joined by a fixed tree (csrc/common.cuh `block_sum`;
+    `block_sum_lanes` of the entry's 16-byte columns, per group of
+    `MAX_IMAGE_SUM_ROWS` columns); each image adds its blocks in ascending
+    order.  Equals `engine._image_sum_plain` up to the order of the
+    sums."""
     blk = engine.rcs.IMG_BLOCK
-    nb = pp.img_block_valid.shape[0]
-    scratch = x.new_full((nb * blk, x.shape[1]), float("nan"))
-    scratch[pp.img_pos.long()] = x
-    live = torch.arange(blk, device=x.device)[None, :] \
-        < pp.img_block_valid[:, None]
-    bsum = torch.where(live[:, :, None], scratch.reshape(nb, blk, -1),
-                       scratch.new_zeros(())).sum(dim=1)
-    cs = torch.cat([bsum.new_zeros((1, bsum.shape[1])),
-                    torch.cumsum(bsum, dim=0)])
-    bs = pp.img_block_starts.long()
-    return cs[bs[1:]] - cs[bs[:-1]]
+    nb = p.img_block_valid.shape[0]
+    *lead, _, F = x.shape
+    if F > MAX_IMAGE_SUM_ROWS:   # one launch per group
+        return torch.cat([
+            image_sum_sorted_plain(p, x[..., f0:f0 + MAX_IMAGE_SUM_ROWS])
+            for f0 in range(0, F, MAX_IMAGE_SUM_ROWS)], dim=-1)
+    lanes = block_sum_lanes(
+        image_sum_columns(F, x.dtype) * x.element_size() // 16)
+    scratch = x.new_zeros((*lead, nb * blk, F))  # padding entries add 0
+    scratch[..., p.img_pos.long(), :] = x
+    sc = scratch.reshape(*lead, nb, blk // lanes, lanes, F)
+    acc = torch.zeros_like(sc[..., 0, :, :])
+    for r in range(blk // lanes):
+        acc = acc + sc[..., r, :, :]
+    s = lanes // 2
+    while s:
+        acc = acc[..., :s, :] + acc[..., s:2 * s, :]
+        s //= 2
+    bsum = acc[..., 0, :]                                # [..., nb, F]
+    bs = p.img_block_starts.long()
+    count = bs[1:] - bs[:-1]
+    out = x.new_zeros((*lead, p.num_images, F))
+    for k in range(int(count.max()) if count.numel() else 0):
+        term = bsum[..., (bs[:-1] + k).clamp(max=max(nb - 1, 0)), :]
+        out = out + torch.where((k < count)[:, None], term, 0.0)
+    return out
+
+
+def _refuse_row(f, r, shape, dtype, device):
+    """Raise ValueError for row ``f`` of an `image_sum_rows` call that is
+    not on ``device``, not of ``dtype`` and ``shape``, or strided."""
+    name = f"rows[{f}]"
+    if r.device != device:
+        raise ValueError(f"{name}: on {r.device}, expected {device}")
+    if r.dtype != dtype:
+        raise ValueError(f"{name}: dtype {r.dtype}, expected {dtype}")
+    if r.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(r.shape)}, expected "
+                         f"{tuple(shape)}")
+    raise ValueError(f"{name}: last-dimension stride {r.stride(-1)}, "
+                     "expected 1")
+
+
+def _lead_stride(f, r, L, N) -> int:
+    """The stride between the L leading slices of row ``f`` flattened (N
+    for one slice); ValueError where they do not flatten to one stride."""
+    if L == 1:
+        return N
+    try:
+        return r.view(L, N).stride(0)
+    except RuntimeError as exc:
+        raise ValueError(f"rows[{f}]: leading dimensions of strides "
+                         f"{r.stride()[:-1]} do not flatten to one "
+                         "stride") from exc
+
+
+def image_sum_rows(p, rows):
+    """Per-image sums [..., M, F] of the F feature rows ``rows`` (one shape
+    [..., N], one dtype) over the image-sorted blocked layout of ``p`` (an
+    FMProblem or a PackedFM with ``img_pos``, ``img_block_valid`` and
+    ``img_block_starts``): `engine._image_sum_plain` for CPU tensors; for
+    CUDA tensors csrc/image_sum.cu, in f32 or f64, on the rows where they lie
+    (each with a last-dimension stride of 1 and leading dimensions that
+    flatten to one stride), in `image_sum_sorted_plain`'s order, one launch
+    per `MAX_IMAGE_SUM_ROWS` rows (the rows of a rig's materialized global
+    columns exceed it: 21 + 6G in `cov_direct`).  Allocates its scratch and
+    output with ``torch.empty`` and reads nothing back, so a CUDA graph may
+    capture it."""
+    x0 = rows[0]
+    if _is_cpu(x0):
+        return engine._image_sum_plain(p, rows)
+    F = len(rows)
+    dev, dt, shape = x0.device, x0.dtype, x0.shape
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"image_sum: dtype {dt}, expected float32 or "
+                         "float64")
+    N = shape[-1]
+    lead = shape[:-1]
+    L = 1
+    for d in lead:
+        L *= d
+    ptrs, strides = [], []
+    for f, r in enumerate(rows):
+        if (r.shape != shape or r.dtype != dt or r.device != dev
+                or (N > 1 and r.stride(-1) != 1)):
+            _refuse_row(f, r, shape, dt, dev)
+        ptrs.append(r.data_ptr())
+        strides.append(_lead_stride(f, r, L, N))
+    if p.img_pos is None or p.img_block_valid is None:
+        raise ValueError("image_sum needs img_pos and img_block_valid "
+                         "(engine.image_positions)")
+    i32 = torch.int32
+    M = p.num_images
+    nb = p.img_block_valid.shape[0]
+    nip = nb * engine.rcs.IMG_BLOCK
+    _check("img_pos", p.img_pos, i32, (N,), dev)
+    _check("img_block_valid", p.img_block_valid, i32, (nb,), dev)
+    _check("img_block_starts", p.img_block_starts, i32, (M + 1,), dev)
+    fs = image_sum_columns(min(F, MAX_IMAGE_SUM_ROWS), dt)
+    scratch = torch.empty((L * (nip + nb) * fs,), dtype=dt, device=dev)
+    out = torch.empty((*lead, M, F), dtype=dt, device=dev)
+    for f0 in range(0, F, MAX_IMAGE_SUM_ROWS):
+        fc = min(F - f0, MAX_IMAGE_SUM_ROWS)
+        _launch("ba_image_sum", x0.element_size(),
+                (ctypes.c_void_p * fc)(*ptrs[f0:f0 + fc]),
+                (ctypes.c_longlong * fc)(*strides[f0:f0 + fc]), fc, L, N, M,
+                _ptr(p.img_pos), _ptr(p.img_block_valid),
+                _ptr(p.img_block_starts), nb, _ptr(scratch),
+                _ptr(out) + f0 * out.element_size(), F,
+                shape=f"{fc} rows, leading slices {L}, N={N}, M={M}, {nb} "
+                      f"blocks: at most {MAX_IMAGE_SUM_ROWS} rows and 65535 "
+                      "slices per launch")
+        image_sum_rows.launches += 1
+    return out
+
+
+image_sum_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +519,7 @@ def schur_matvec_plain(pp: PackedFM, extra_c, extra_g, xc, xg):
     """S @ [xc; xg] from the lean packed prefix (see csrc/schur_matvec.cu);
     returns ([M, 6], [G])."""
     qc, qg = _matvec_terms(pp, xc[pp.obs_img.long()].T, xg)
-    oc = engine._image_sum_stack(pp, list(qc))
+    oc = engine._image_sum_plain(pp, list(qc))
     og = qg.sum(1)
     return oc + extra_c * xc, og + extra_g * xg
 
@@ -496,7 +642,7 @@ def prepare_reduction_plain(pp: PackedFM):
             hcg = Jc[e] * PJg[g] + Jc[6 + e] * PJg[G + g]
             corr = sum(hp[a][e] * Wobs[a * G + g] for a in range(3))
             rows.append(hcg - corr)
-    red = engine._image_sum_stack(pp, rows)
+    red = engine._image_sum_plain(pp, rows)
     rg_corr = (Jg[:G] * u0 + Jg[G:] * u1).sum(1)
     T2 = Jg @ PJg.T
     T3 = W_blk @ hpg.T
@@ -674,7 +820,8 @@ _WRAPPERS = {"cam_gather": cam_gather_rows,
              "schur_matvec": schur_matvec_rows,
              "prepare_reduction": prepare_reduction,
              "read_floor": read_floor,
-             "matvec_stage": matvec_stage}
+             "matvec_stage": matvec_stage,
+             "image_sum": image_sum_rows}
 
 
 #: the CUDA kernels (names in csrc/) that one launch of each wrapper
@@ -688,6 +835,7 @@ DEVICE_KERNELS = {
                           "column_sum_kernel"),
     "read_floor": ("read_floor_kernel", "column_sum_kernel"),
     "matvec_stage": ("matvec_kernel", "finish_kernel"),
+    "image_sum": ("image_sum_scatter", "image_sum_blocks", "image_sum_finish"),
 }
 
 

@@ -117,7 +117,8 @@ Phases (any failed check exits non-zero, before the result line):
      wrap_precond, CUDA events), and the launches and device time of one
      CG iteration with and without the extras (torch.profiler, 16 against
      8 iterations).
-  9. the reference API in float64 (no kernel launch: the kernels take f32):
+  9. the reference API in float64 (no launch of K1 to K4: they take f32;
+     the scale class's per-image sums go through the image-sum kernel):
      testing.make_synthetic_scene(1000 points, 200 images, noise = sigma =
      5e-4, perturb 0.01, seed 0) with its distortion model and one scale
      bar, through `BundleAdjustment` on its default device (CUDA) in
@@ -137,10 +138,18 @@ Phases (any failed check exits non-zero, before the result line):
      reduction, reduced and full inverse; CUDA events, 3 warm calls).
   10. the multi-camera rig: synthetic.build_problem(100,000, 500, 12,
      num_cameras=4) (image m on camera m % 4; G = 40), the compact layout
-     on the plain path (the kernels take one camera; no kernel launches,
-     gated).  (a) one f64 `lm_step` (damping 1e-4, cg_tol 1e-13) with the
-     compact rows against the same step on the masked rows of
-     `materialize_global_rows` through the single-camera code path, rtol
+     on the plain path (K1 to K4 take one camera: none launched, and the
+     image-sum kernel launched, gated).  (i) the image-sum kernel at the
+     rig's product call (16 f64 rows of N on the rig's layout) against its
+     plain model bit for bit and twice, and against the stack path it
+     replaced within 1e-12 of the largest sum (gated); printed: its device
+     time and time per call between CUDA events, its byte bound
+     (measure.image_sum_work) and share, the plain model's and the stack
+     path's (library_ms) times between CUDA events; the phase's launch
+     counts start after (i).  (a) one f64 `lm_step`
+     (damping 1e-4, cg_tol 1e-13) with the compact rows against the same
+     step on the masked rows of `materialize_global_rows` through the
+     single-camera code path, rtol
      3e-4 / atol 1e-6 of max (tests/test_multi_camera.py's), and the f32
      compact step twice, bit for bit; (b) `solver.solve` (f32, plain,
      tolerance 1e-3, at most 30 steps), the definiteness of the coupled
@@ -352,7 +361,9 @@ Phases (any failed check exits non-zero, before the result line):
      schur_gflops_per_chip_nr4096_m1024 with a positive rate.
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7, 8, 11, 13 (e), 15 and 16, each between a reset and a
-read of the counters;
+read of the counters; for the image-sum kernel, which is timed at the
+rig's product call in phase 10 (i), over every phase's counts in
+``launches_by_phase``, which leave out the check (i) itself;
 ``ms`` the device time, ``events_ms`` the time per call between CUDA events;
 ``bound_ms`` the least time an H100 SXM could take for the bytes and
 operations of the call, measure.py, and ``share_of_bound`` = bound_ms / ms;
@@ -387,6 +398,8 @@ TPU_SITES = {  # pallas_call of the TPU kernel each CUDA kernel replaces
     "matvec_stage": "tools/exp_tpu1.py:168, tools/exp_tpu2.py:158, "
                     "tools/exp_tpu2.py:238, tools/exp_tpu3.py:137, "
                     "tools/exp_tpu4.py:116",
+    "image_sum": "none: XLA fuses the sum "
+                 "(bundle_adjustment_tpu/parallel/engine.py:300)",
 }
 SOURCES = {
     "cam_gather": "bundle_adjustment_tpu_torch/csrc/cam_gather.cu",
@@ -394,6 +407,7 @@ SOURCES = {
     "schur_matvec": "bundle_adjustment_tpu_torch/csrc/schur_matvec.cu",
     "read_floor": "bundle_adjustment_tpu_torch/csrc/read_floor.cu",
     "matvec_stage": "bundle_adjustment_tpu_torch/csrc/schur_matvec.cu",
+    "image_sum": "bundle_adjustment_tpu_torch/csrc/image_sum.cu",
 }
 SOLVE_KERNELS = ("cam_gather", "prepare_reduction", "schur_matvec")
 COV_S_TOL = 1e-9         # Jacobi-scaled max|S - S_ref|, f64 (two assemblies)
@@ -444,6 +458,8 @@ RIG_COV_K = 4            # points, pairs and images of the on-demand blocks
 RIG_API = (5000, 50)     # BASELINE config 3: 5k points / 50 images
 RIG_API_CUT = (300, 10)  # its cut for the CPU-against-card check
 RIG_API_XYZ = 1e-10      # scale class vs dense, of the field's extent
+RIG_IMAGE_SUM_F = 16     # the rows of the rig's product call: 6 + Gp
+RIG_IMAGE_SUM_TOL = 1e-12  # image-sum kernel vs the stack path, f64
 # phases 11-12: the file-driven entry points
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".chipwork"  # listed in .gitignore
@@ -1385,8 +1401,8 @@ def reference_api_phase(dev):
         fail("the reference API on the card differs from the CPU's by "
              f"{max(s_rel, x_rel):.2e} (> {API_CPU_TOL})")
     launches = kernels.launch_counts()
-    if any(launches.values()):
-        fail(f"the float64 reference API launched a CUDA kernel: {launches}")
+    if any(solve_kernel_launches(launches).values()):
+        fail(f"the float64 reference API launched K1 to K4: {launches}")
     summary = dict(
         api_n=n, api_u=u, api_d=d, api_dof=bp.dof,
         api_image_points=bp.num_image_obs, api_scene_s=scene_s,
@@ -1437,10 +1453,71 @@ def two_camera_scene(points, images, seed=0):
     return cams, bars, truth
 
 
+def solve_kernel_launches(launches) -> dict:
+    """``launches`` (a `kernels.launch_counts`) without the image-sum
+    kernel, which the plain path's per-image sums take on the card: the
+    launches of K1-K4 and the stage probes."""
+    return {k: v for k, v in launches.items() if k != "image_sum"}
+
+
+def rig_image_sum(fmp64, dev):
+    """The image-sum kernel at the rig's product call (F = 16 f64 rows of
+    N on the rig's point-major layout): the plain model's bits, the stack
+    path within `RIG_IMAGE_SUM_TOL`, and the times (ms): the kernel's
+    device time and per call between CUDA events, its byte bound, the
+    plain model's and the stack path's (``library_ms``) per call between
+    CUDA events; ``check_launches`` the kernel's launches here (checks
+    and timing)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch import measure
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    F, N = RIG_IMAGE_SUM_F, fmp64.obs_x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((F, N), generator=gen, dtype=torch.float64, device=dev)
+    rows = list(x.unbind(0))
+    before = kernels.image_sum_rows.launches
+    out = kernels.image_sum_rows(fmp64, rows)
+    model = kernels.image_sum_sorted_plain(fmp64, x.T)
+    same = same_bits(out, model) \
+        and same_bits(out, kernels.image_sum_rows(fmp64, rows))
+    err = scaled_err(out, engine._image_sum_plain(fmp64, rows))
+    M = fmp64.num_images
+    bound, _ = measure.bound_ms(measure.image_sum_work(
+        N, M, F, x.element_size()))
+    res = dict(shape=dict(F=F, N=N, M=M, dtype="float64"), same_bits=same,
+               max_abs_err=float((out - model).abs().max()), stack_err=err,
+               bound_ms=bound)
+    res["ms"] = measure.device_ms(
+        lambda: kernels.image_sum_rows(fmp64, rows), reps=20)[0]
+    res["events_ms"] = measure.time_ms(
+        lambda: kernels.image_sum_rows(fmp64, rows), reps=50)
+    res["share_of_bound"] = bound / res["ms"]
+    res["plain_ms"] = measure.time_ms(
+        lambda: kernels.image_sum_sorted_plain(fmp64, x.T), reps=3, warm=1)
+    res["library_ms"] = measure.time_ms(
+        lambda: engine._image_sum_plain(fmp64, rows), reps=20)
+    res["check_launches"] = kernels.image_sum_rows.launches - before
+    log(f"(i) image-sum kernel at the rig's product call (F={F} f64, "
+        f"N={N}): {res['ms']:.4f} ms device [{res['events_ms']:.4f} ms "
+        f"events], bound {bound:.4f} ms (share {res['share_of_bound']:.2f});"
+        f" plain model {res['plain_ms']:.3f} ms, the stack path (library_ms)"
+        f" {res['library_ms']:.4f} ms; the plain model's bits {same}, the "
+        f"stack path within {err:.2e}")
+    if not same:
+        fail("rig (i): the image-sum kernel differs from its plain model or "
+             "from itself")
+    if not err <= RIG_IMAGE_SUM_TOL:
+        fail(f"rig (i): the image-sum kernel differs from the stack path by "
+             f"{err:.3e} > {RIG_IMAGE_SUM_TOL}")
+    return res
+
+
 def multi_camera_phase(dev):
     """Phase 10 (see the module docstring).  Returns (summary dict, the
-    launch counts of the phase: none, the compact rows run the plain
-    path)."""
+    launch counts of the phase: no K1 to K4, the compact rows run the
+    plain path; their per-image sums go through the image-sum kernel)."""
     import numpy as np
     import torch
 
@@ -1464,6 +1541,8 @@ def multi_camera_phase(dev):
     log(f"rig: C={C}, P={fmp64.num_points} M={fmp64.num_images} "
         f"V={fmp64.views} G={G}; built in {time.time() - t_phase:.1f} s; "
         f"route: plain (the kernels take one camera)")
+    image_sum = rig_image_sum(fmp64, dev)
+    kernels.reset_launch_counts()  # from here the phase's own launches
 
     def events(fn):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1771,10 +1850,12 @@ def multi_camera_phase(dev):
 
     launches = kernels.launch_counts()
     seconds = time.time() - t_phase
-    log(f"phase 10: {seconds:.1f} s; K1 / K2 / K3 launches {launches} "
-        "(route: plain, by design)")
-    if any(launches.values()):
-        fail(f"the rig launched a CUDA kernel: {launches}")
+    log(f"phase 10: {seconds:.1f} s; launches {launches} (route: plain, "
+        "by design; the per-image sums through the image-sum kernel)")
+    if any(solve_kernel_launches(launches).values()) \
+            or not launches["image_sum"]:
+        fail(f"the rig launched K1 to K4, or its per-image sums missed the "
+             f"image-sum kernel: {launches}")
     return dict(
         rig_step_err=errs, rig_step_cg=cg_a,
         rig_solve_f32_steps=res.iterations, rig_solve_f32_s=t_f32,
@@ -1789,7 +1870,8 @@ def multi_camera_phase(dev):
         rig_f64_step_idle_share=prof["idle_share"],
         rig_cov_all_s=s_cov, rig_cov_residual=resid, rig_cov_s_err=s_err,
         rig_on_demand=on_demand, rig_api_xyz_err=xyz_err,
-        rig_api_cpu_vs_card=cut_err, rig_phase_s=seconds), launches
+        rig_api_cpu_vs_card=cut_err, rig_image_sum=image_sum,
+        rig_phase_s=seconds), launches
 
 
 def same_bits(a, b) -> bool:
@@ -2233,8 +2315,8 @@ def cli_phase(dev):
             and len(tg.names) > 0):
         fail(f"transform: card vs CPU {tr_pts:.2e} / {tr_cov:.2e}")
     launches = kernels.launch_counts()
-    if any(launches.values()):
-        fail(f"the float64 CLI phase launched a CUDA kernel: {launches}")
+    if any(solve_kernel_launches(launches).values()):
+        fail(f"the float64 CLI phase launched K1 to K4: {launches}")
     return dict(cli=out, cli_cpu_wall_s=wall_cpu, cli_cpu_xyz_rel=cpu_xyz,
                 dlt_card_vs_cpu=dlt_err, dlt_truth=eo_err, dlt_s=dlt_s,
                 transform_card_vs_cpu=[tr_pts, tr_cov]), launches
@@ -2701,8 +2783,8 @@ def sharded_phase(shape=(NUM_POINTS, NUM_IMAGES, VIEWS),
         for r in runs[D]:
             for k, v in r["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-    if any(launches.values()):
-        problems.append(f"kernel launches in the plain sharded path: "
+    if any(solve_kernel_launches(launches).values()):
+        problems.append(f"K1 to K4 launches in the plain sharded path: "
                         f"{launches}")
     if problems:
         fail("phase 13: " + "; ".join(problems))
@@ -2750,8 +2832,8 @@ def fleet_phase(dev, fleet=FLEET, thin_fleet=THIN_FLEET):
         summary[name].update(rows=N, padded_rows=padded)
     launches = kernels.launch_counts()
     log(f"phase 14 launches {launches}")
-    if any(launches.values()):
-        fail(f"phase 14: kernel launches {launches}")
+    if any(solve_kernel_launches(launches).values()):
+        fail(f"phase 14: K1 to K4 launches {launches}")
     return {"fleet": summary}, launches
 
 
@@ -4236,6 +4318,14 @@ def main(profile_refinement=False):
              "schur_matvec": measure.k1_work(c5["N"], c5["P"], c5["M"], G,
                                              VIEWS),
              "read_floor": measure.k4_work(c5["N"], G)}
+    # the image-sum kernel at the rig's product call (phase 10 (i)); its
+    # launches are every phase's own, its check's not
+    ris = rig["rig_image_sum"]
+    work["image_sum"] = measure.image_sum_work(
+        ris["shape"]["N"], ris["shape"]["M"], ris["shape"]["F"], 8)
+    results["image_sum"] = ris
+    total["image_sum"] = sum(c.get("image_sum", 0)
+                             for c in by_phase.values())
     kernel_rows = []
     for n in SOURCES:
         b_ms, b_by = measure.bound_ms(work[n])
@@ -4248,7 +4338,7 @@ def main(profile_refinement=False):
                    library_ms=results[n].get("library_ms"),
                    work_bytes=work[n][0])
         for extra in ("events_ms", "ms_l2_flushed", "by_kernel_ms",
-                      "stages"):
+                      "stages", "shape", "stack_err", "check_launches"):
             if extra in results[n]:
                 row[extra] = results[n][extra]
         if n in kernels5:

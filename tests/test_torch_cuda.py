@@ -52,7 +52,15 @@ prints what its ``--cpu`` run prints (1e-9 relative).  The file-order
 layout (a 1,000-point network of uneven visibility, `synthetic.thin_views`):
 K3 equal to its plain version bit for bit, one f32 step of the
 block-layout engine through K3 twice to the same bits, and `solve`'s
-default there launching K3 and not K1.
+default there launching K3 and not K1.  The image-sum kernel (f32 and f64,
+every caller's F, rows with a leading dimension, an image over several
+512-entry blocks, images without observations): its plain model's bits,
+the stack path within 1e-12 (f64) / 1e-5 (f32) of the largest sum, the
+same bits twice and in a CUDA-graph replay, one launch counted per call,
+279 rows in three launches of at most 128, ValueError for mixed devices,
+another dtype and a strided row, and the entry point refusing 129 rows;
+an f64 `solve` and the rig's `solve` and refinement launch it and no K1,
+K2 or K3.
 """
 
 import pytest
@@ -220,13 +228,14 @@ def test_prepare_reduction_kernel_shapes(case, P, V, M, G):
 
 def test_image_pass_layout_on_the_card(case):
     """The scatter to image-sorted positions and the two-level sum, as the
-    kernels take it, against `engine._image_sum_stack` on CUDA tensors."""
+    kernels take it, against the stack path (`engine._image_sum_plain`) on
+    CUDA tensors."""
     from bundle_adjustment_tpu_torch.parallel import engine, kernels
 
     pp = _random_packed(960, 12, 130, 3, seed=9)
     x = torch.randn((960 * 12, 6), generator=torch.Generator().manual_seed(1))
     x = x.cuda()
-    ref = engine._image_sum_stack(pp, list(x.T))
+    ref = engine._image_sum_plain(pp, list(x.T))
     assert _scaled(kernels.image_sum_sorted_plain(pp, x), ref) < 1e-5
 
 
@@ -557,8 +566,9 @@ def test_wrappers_refuse_f64_on_cuda(case):
 
 
 def test_f64_solve_runs_without_the_kernels(case):
-    """An f64 `solve` on CUDA tensors takes the plain path by default (the
-    kernels take f32 only) and converges."""
+    """An f64 `solve` on CUDA tensors takes the plain path by default (K1,
+    K2 and K3 take f32 only) and converges; its per-image sums go through
+    the image-sum kernel, which takes f64."""
     from bundle_adjustment_tpu_torch import convert, synthetic
     from bundle_adjustment_tpu_torch.parallel import kernels, solver
 
@@ -569,7 +579,9 @@ def test_f64_solve_runs_without_the_kernels(case):
     kernels.reset_launch_counts()
     res = solver.solve(prob, st, spec, damping=1e-2, max_iterations=20,
                        cg_tol=1e-12, cg_maxiter=500)
-    assert all(v == 0 for v in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("image_sum") > 0
+    assert all(v == 0 for v in counts.values()), counts
     assert res.converged and res.state.points.dtype == torch.float64
 
 
@@ -737,6 +749,146 @@ def test_reference_api_on_the_card_matches_the_cpu(case, cls_name):
     assert np.abs(q1 - q2).max() <= 1e-7 * np.abs(q2).max()
 
 
+# ---- the per-image sum of feature rows (csrc/image_sum.cu) ----------------
+
+#: every F the port's callers sum per image (tests/test_torch_image_sum.py)
+IMAGE_SUM_F = (6, 10, 16, 20, 39, 81, 99)
+
+
+@pytest.fixture(scope="module")
+def image_layout():
+    """An image-sorted blocked layout on the card: 130 images of skewed
+    sizes, image 3 over several 512-entry blocks, images 100-129 without
+    an observation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    import numpy as np
+
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
+
+    rng = np.random.default_rng(4)
+    img = np.concatenate([np.minimum(rng.integers(0, 100, 6000),
+                                     rng.integers(0, 100, 6000)),
+                          np.full(1500, 3)])
+    img = rng.permutation(img).astype(np.int32)
+    M, dev = 130, torch.device("cuda", 0)
+    perm, bstarts = rcs.build_image_block_layout(img, M)
+    perm_t = torch.as_tensor(perm, device=dev)
+    pos, valid = engine.image_positions(perm_t, img.shape[0])
+    assert int((torch.as_tensor(bstarts[1:] - bstarts[:-1])).max()) > 2
+    return kernels.PackedFM(
+        packed=None, obs_img=None, hppinv=None, img_perm=perm_t,
+        img_block_starts=torch.as_tensor(bstarts, device=dev),
+        num_points=img.shape[0], views=1, num_images=M, g=1, f_pad=0, pb=32,
+        img_pos=pos, img_block_valid=valid)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["rows", "lead3"])
+@pytest.mark.parametrize("F", IMAGE_SUM_F)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_image_sum_kernel_matches_its_plain_versions(image_layout, dtype, F,
+                                                     lead):
+    """The kernel on F rows (views of one [*lead, F, N] array: unit last
+    stride, a leading stride of F N) against its plain model of the
+    two-level order (`image_sum_sorted_plain`: the same bits) and against
+    the stack path that the card took before it (`engine._image_sum_plain`:
+    f64 within 1e-12, f32 within 1e-5 of the largest sum, other orders of
+    the sums); a second call gives the same bits, an image without
+    observations sums to 0, and each call counts one launch."""
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    p = image_layout
+    gen = torch.Generator().manual_seed(F)
+    x = torch.randn((*lead, F, p.num_points), generator=gen,
+                    dtype=dtype).cuda()
+    rows = list(x.unbind(-2))
+    before = kernels.image_sum_rows.launches
+    out = kernels.image_sum_rows(p, rows)
+    again = kernels.image_sum_rows(p, rows)
+    assert kernels.image_sum_rows.launches == before + 2
+    assert out.shape == (*lead, p.num_images, F) and out.dtype == dtype
+    assert _bits(out, again)
+    assert _bits(out, kernels.image_sum_sorted_plain(p, x.transpose(-1, -2)))
+    ref = engine._image_sum_plain(p, rows)
+    assert _scaled(out, ref) < (1e-12 if dtype == torch.float64 else 1e-5)
+    assert bool((out[..., 100:, :] == 0).all())
+
+
+def test_image_sum_kernel_replays_in_a_cuda_graph(image_layout):
+    """Captured into a CUDA graph (the rig's f32 CG product captures it),
+    a replay on new row values equals the eager call on them bit for bit;
+    the capture counts one launch."""
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    p = image_layout
+    x = torch.randn((16, p.num_points), dtype=torch.float64, device="cuda")
+    rows = list(x.unbind(0))
+    kernels.image_sum_rows(p, rows)            # warm: library, module
+    torch.cuda.synchronize()
+    before = kernels.image_sum_rows.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernels.image_sum_rows(p, rows)
+    assert kernels.image_sum_rows.launches == before + 1
+    for _ in range(3):
+        x.copy_(torch.randn_like(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits(captured, kernels.image_sum_rows(p, rows))
+
+
+def test_image_sum_wrapper_refuses_what_the_kernel_does_not_take(
+        image_layout):
+    """CPU and CUDA rows mixed, rows of another or an unsupported dtype and
+    a last-dimension stride other than 1: each raises ValueError before
+    any launch; the kernel's entry point refuses more rows than its table
+    holds (the wrapper never asks it to)."""
+    import ctypes
+
+    from bundle_adjustment_tpu_torch.parallel import kernels
+
+    p = image_layout
+    N = p.num_points
+    x = torch.randn((2, N), device="cuda")
+    strided = torch.randn((N, 2), device="cuda")
+    cases = [([x[0], x[1].cpu()], "on cpu"),
+             ([x[0], x[1].double()], "dtype"),
+             ([x[0].half(), x[1].half()], "dtype"),
+             ([strided[:, 0], strided[:, 1]], "stride")]
+    before = kernels.image_sum_rows.launches
+    for rows, match in cases:
+        with pytest.raises(ValueError, match=match):
+            kernels.image_sum_rows(p, rows)
+    assert kernels.image_sum_rows.launches == before
+    F = kernels.MAX_IMAGE_SUM_ROWS + 1
+    out = torch.empty((p.num_images, F), device="cuda")
+    with pytest.raises(RuntimeError, match="ba_image_sum: CUDA error"):
+        kernels._launch(
+            "ba_image_sum", 4, (ctypes.c_void_p * F)(*[x.data_ptr()] * F),
+            (ctypes.c_longlong * F)(*[N] * F), F, 1, N, p.num_images,
+            p.img_pos.data_ptr(), p.img_block_valid.data_ptr(),
+            p.img_block_starts.data_ptr(), p.img_block_valid.shape[0],
+            out.data_ptr(), out.data_ptr(), F)
+
+
+def test_image_sum_kernel_takes_more_rows_in_groups(image_layout):
+    """279 f64 rows (the coupled reduction of a 4-camera rig's materialized
+    global columns, 39 + 6 G): three launches of at most 128 rows, written
+    into one [M, 279] output, equal to the plain model bit for bit and to
+    the stack path within 1e-12."""
+    from bundle_adjustment_tpu_torch.parallel import engine, kernels
+
+    p = image_layout
+    x = torch.randn((279, p.num_points), dtype=torch.float64, device="cuda")
+    rows = list(x.unbind(0))
+    before = kernels.image_sum_rows.launches
+    out = kernels.image_sum_rows(p, rows)
+    assert kernels.image_sum_rows.launches == before + 3
+    assert _bits(out, kernels.image_sum_sorted_plain(p, x.T))
+    assert _scaled(out, engine._image_sum_plain(p, rows)) < 1e-12
+
+
 # ---- multi-camera rigs: the compact layout on the plain path ----------------
 
 
@@ -788,7 +940,8 @@ def test_rig_step_repeats_bit_for_bit(rig):
 
 def test_kernels_refuse_a_rig_on_the_card(rig):
     """`use_kernels=True` on compact blocks raises, before any launch; the
-    default route of `solve` for a rig is the plain path."""
+    default route of `solve` for a rig is the plain path (no K1, K2 or K3
+    launch; its per-image sums through the image-sum kernel)."""
     from bundle_adjustment_tpu_torch.parallel import (engine, kernels,
                                                       refine, solver)
 
@@ -802,14 +955,17 @@ def test_kernels_refuse_a_rig_on_the_card(rig):
     res = solver.solve(prob, st, rig["spec"], max_iterations=2,
                        tolerance=1e-3)
     assert res.iterations == 2
-    assert not any(kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("image_sum") > 0
+    assert not any(counts.values()), counts
 
 
 def test_refiner_route_follows_the_problem(rig):
     """`Refiner(use_kernels=None)` takes `solve`'s rule: the kernels for a
     single-camera f32 problem on the card (not in f64), the plain compact
     rows for a rig; the rig's refinement (block Jacobi, undamped) from the
-    f32 solve's end converges there and launches no kernel."""
+    f32 solve's end converges there and launches no K1, K2 or K3 (its
+    per-image sums go through the image-sum kernel)."""
     from bundle_adjustment_tpu_torch import convert, synthetic
     from bundle_adjustment_tpu_torch.parallel import (kernels, lm, refine,
                                                       solver)
@@ -828,7 +984,9 @@ def test_refiner_route_follows_the_problem(rig):
                        cg_iterations=[], seconds=0.0)
     _, rec = refine.converge(r, (res.state, phase), damping=0.0)
     assert rec.converged, rec.max_dx
-    assert not any(kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("image_sum") > 0
+    assert not any(counts.values()), counts
 
 
 def _bits(a, b):
