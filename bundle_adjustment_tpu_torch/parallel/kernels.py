@@ -130,6 +130,58 @@ def choose_pb(P: int, V: int, G: int) -> int:
     return best
 
 
+#: the CUDA kernels each layout's route runs (``use_kernels``)
+ROUTE_KERNELS = {"point_major": ("K1", "K2", "K3"), "file": ("K3",)}
+
+
+def runs_kernels(problem, use_kernels, dtype: torch.dtype,
+                 device: torch.device) -> bool:
+    """Whether the route of a tensor `rcs.RCSProblem` runs its CUDA kernels
+    (`ROUTE_KERNELS`), on tensors of ``dtype`` on ``device``, for
+    ``use_kernels`` as `solver.solve`, `refine.Refiner` and
+    `spmd.make_spmd_lm_step` take it: None, a bool, or kernel names.
+
+    None runs them for f32 tensors on a card: in file order on any number
+    of cameras (K3 gathers any camera's EO), point-major on one camera
+    only (K1 and K2 do not read a rig's compact rows).  Names the route
+    does not run, or not all of those it runs, raise ValueError that names
+    the layout; the kernels on a point-major rig raise ValueError
+    (`engine.refuse_kernels`)."""
+    layout = "file" if problem.point_uniform is None else "point_major"
+    if use_kernels is None:
+        on = (device.type == "cuda" and dtype == torch.float32
+              and (layout == "file" or engine.num_cameras(problem) == 1))
+    elif isinstance(use_kernels, bool):
+        on = use_kernels
+    else:
+        names = set(use_kernels)
+        takes = set(ROUTE_KERNELS[layout])
+        if names - takes:
+            raise ValueError(
+                f"{sorted(names - takes)} cannot run on a problem in the "
+                f"{layout!r} layout: K1 and K2 read the packed rows of the "
+                f"uniform point-major layout, and the file-order route runs "
+                f"{ROUTE_KERNELS['file']} only (rcs.to_point_major re-lays "
+                f"a network on request)")
+        if names and names != takes:
+            raise ValueError(f"the {layout!r} route runs {sorted(takes)} "
+                             f"together, not {sorted(names)}")
+        on = bool(names)
+    if on and layout == "point_major":
+        engine.refuse_kernels(problem)
+    return on
+
+
+def kernel_layout(p: engine.FMProblem) -> engine.FMProblem:
+    """The layout K1 and K2 read, from a single-camera FMProblem: its
+    view-major blocked order (`engine.to_view_major`) at the largest block
+    the kernels take (`choose_pb`).  A rig raises ValueError
+    (`engine.refuse_kernels`)."""
+    engine.refuse_kernels(p)
+    return engine.to_view_major(p, choose_pb(p.num_points, p.views,
+                                             p.free_global.shape[0]))
+
+
 def pack_fm(b, p, dtype=torch.float32, with_pw: bool = False,
             lean_only: bool = False) -> PackedFM:
     """Pack engine.FMBlocks rows into the kernel layout (one [F, N] array).

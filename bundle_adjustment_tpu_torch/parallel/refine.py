@@ -36,7 +36,7 @@ import torch
 from .. import convert
 from ..models.problem import ParamState
 from ..solver import tracing
-from . import engine, freenet, hilo, rcs
+from . import engine, freenet, hilo, kernels, rcs
 
 
 def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
@@ -47,15 +47,6 @@ def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
         return x
 
     return rcs.RCSProblem(*(up(x) for x in problem))
-
-
-def kernels_by_default(problem32: rcs.RCSProblem) -> bool:
-    """`solver.solve`'s rule for ``use_kernels=None`` on the point-major
-    layout: the kernels for an f32 problem on a card with one camera (they
-    do not read the compact rows of a rig)."""
-    x = problem32.obs_xy
-    return bool(x.is_cuda and x.dtype == torch.float32
-                and engine.num_cameras(problem32) == 1)
 
 
 class Refiner:
@@ -86,8 +77,9 @@ class Refiner:
     the wrappers take their plain versions.  The kernels take one camera:
     a multi-camera problem (the compact rows) refines on the plain path,
     and ``use_kernels=True`` raises ValueError for it.  None (the
-    default) takes `solver.solve`'s rule: the kernels for a single-camera
-    f32 problem on a card, else the plain path (a rig's compact rows).
+    default) takes `solver.solve`'s rule (`kernels.runs_kernels`): the
+    kernels for a single-camera f32 problem on a card, else the plain path
+    (a rig's compact rows); kernel names as `solve` takes them.
 
     ``couple_global`` (the JAX Refiner's option): precondition the f32 CG
     with the exact camera-global blocks (default), or with the camera and
@@ -112,8 +104,9 @@ class Refiner:
     def __init__(self, problem32: rcs.RCSProblem, spec,
                  use_kernels: bool | None = None, couple_global: bool = True):
         convert.refuse_unsupported(problem32)
-        if use_kernels is None:
-            use_kernels = kernels_by_default(problem32)
+        x = problem32.obs_xy
+        use_kernels = kernels.runs_kernels(problem32, use_kernels, x.dtype,
+                                           x.device)
         self.problem32 = problem32
         self.spec = spec
         self.use_kernels = use_kernels
@@ -121,13 +114,7 @@ class Refiner:
         self.begin()
         self.fmp32 = engine.fm_problem(problem32)
         if use_kernels:
-            from . import kernels
-
-            engine.refuse_kernels(self.fmp32)
-            f = self.fmp32
-            self.fmp32 = engine.to_view_major(
-                f, kernels.choose_pb(f.num_points, f.views,
-                                     f.free_global.shape[0]))
+            self.fmp32 = kernels.kernel_layout(self.fmp32)
         # the f64 problem also holds the bar and group geometry of the f64
         # misclosures (tiny)
         self.problem64 = upcast_problem(problem32)
@@ -184,8 +171,6 @@ class Refiner:
             state, state_lo = s.hi, s.lo
         cam_gather = None
         if kern:
-            from . import kernels
-
             cam_gather = kernels.make_cam_gather(p)
             b, _rc, _rg, Minv, pp = kernels.prepare_kernels(
                 p, state, self.spec, damping,

@@ -42,7 +42,7 @@ from ..solver.checkpoint import LMCheckpoint
 from ..solver.adjustment import BundleAdjustment as _DenseBundleAdjustment
 from ..solver.adjustment import (SQRT_EPS, EstimationState, EstimationType,
                                  _Kernels, lm_gain_update)
-from . import engine, rcs
+from . import engine, kernels, rcs
 
 __all__ = ["SQRT_EPS", "EstimationState", "RCSResult", "ScaleBundleAdjustment",
            "lm_gain_update", "solve"]
@@ -63,44 +63,6 @@ class RCSResult:
             self.status = (EstimationState.ERROR_FREE_ESTIMATION
                            if self.converged
                            else EstimationState.NO_CONVERGENCE)
-
-
-#: the CUDA kernels each layout's route runs (``use_kernels``)
-ROUTE_KERNELS = {"point_major": ("K1", "K2", "K3"), "file": ("K3",)}
-
-
-def route_kernels(layout: str, use_kernels, default: bool) -> bool:
-    """``use_kernels`` (None, a bool, or kernel names) as a bool for the
-    route of ``layout``: None takes ``default``; names the route does not
-    run raise ValueError that names the layout."""
-    if use_kernels is None:
-        return default
-    if isinstance(use_kernels, bool):
-        return use_kernels
-    names = set(use_kernels)
-    takes = set(ROUTE_KERNELS[layout])
-    if names - takes:
-        raise ValueError(
-            f"{sorted(names - takes)} cannot run on a problem in the "
-            f"{layout!r} layout: K1 and K2 read the packed rows of the "
-            f"uniform point-major layout, and the file-order route runs "
-            f"{ROUTE_KERNELS['file']} only (rcs.to_point_major re-lays a "
-            f"network on request)")
-    if names and names != takes:
-        raise ValueError(f"the {layout!r} route runs {sorted(takes)} "
-                         f"together, not {sorted(names)}")
-    return bool(names)
-
-
-def _use_kernels(problem: rcs.RCSProblem, state: ParamState,
-                 use_kernels) -> bool:
-    """``solve``'s ``use_kernels`` as a bool for the problem's route
-    (`route_kernels`)."""
-    layout = "file" if problem.point_uniform is None else "point_major"
-    f32_cuda = state.points.is_cuda and state.points.dtype == torch.float32
-    # the FM kernels take one camera; K3 gathers any camera's EO
-    return route_kernels(layout, use_kernels, f32_cuda and (
-        layout == "file" or state.io.shape[0] == 1))
 
 
 @tracing.traced("solve")
@@ -124,8 +86,9 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     The layout picks the engine (module docstring); a file-order problem
     is never padded.
 
-    ``use_kernels``: True runs the route's CUDA kernels (`ROUTE_KERNELS`),
-    also given as their names.  Point-major: every step through K3 / K2
+    ``use_kernels``: True runs the route's CUDA kernels
+    (`kernels.ROUTE_KERNELS`), also given as their names; the rule is
+    `kernels.runs_kernels`.  Point-major: every step through K3 / K2
     / K1 (`engine.lm_step_full`); the default is True for a single-camera
     problem in f32 CUDA tensors and False otherwise: those kernels take
     f32 and one camera only, so an f64 solve and a multi-camera (compact)
@@ -157,7 +120,8 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     dtype = state.points.dtype
     if tolerance is None:
         tolerance = math.sqrt(torch.finfo(dtype).eps)
-    use_kernels = _use_kernels(problem, state, use_kernels)
+    use_kernels = kernels.runs_kernels(problem, use_kernels, dtype,
+                                       state.points.device)
 
     def fire(name, old, new):
         for fn in (listeners or ()):
@@ -170,11 +134,7 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
 
     if problem.point_uniform is None:
         # file order: the block-layout engine, as the JAX solve steps
-        cgf = None
-        if use_kernels:
-            from . import kernels
-
-            cgf = kernels.make_cam_gather(problem)
+        cgf = kernels.make_cam_gather(problem) if use_kernels else None
 
         def step(st, lam, maxiter):
             return rcs.lm_step_full(problem, st, spec, lam, cg_tol=cg_tol,
@@ -188,15 +148,10 @@ def solve(problem: rcs.RCSProblem, state: ParamState, spec,
     else:
         with tracing.span("solve.layout"):
             if use_kernels:
-                from . import kernels
-
-                engine.refuse_kernels(problem)
                 problem, state, _ = engine.pad_problem(problem, state, 128)
             fmp = engine.fm_problem(problem)
             if use_kernels:
-                fmp = engine.to_view_major(
-                    fmp, kernels.choose_pb(fmp.num_points, fmp.views,
-                                           fmp.free_global.shape[0]))
+                fmp = kernels.kernel_layout(fmp)
 
         taken = []
 

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.problem import ParamState
-from . import kernels, rcs, solver
+from . import kernels, rcs
 from .sharding import pad_to_multiple
 
 
@@ -98,12 +98,12 @@ def make_spmd_lm_step(sp: ShardedProblem, spec, comm, cg_tol=1e-8,
     replicated on ``comm.device`` in the problem's dtype (the same on
     every rank in and out; max_dx and omega0 0-d tensors, cg_it an int).
     ``use_kernels``: as `solver.solve`'s on the file order
-    (`solver.ROUTE_KERNELS["file"]`): None runs K3 for f32 CUDA tensors,
-    a bool says so, naming K1 or K2 raises ValueError."""
+    (`kernels.runs_kernels`): None runs K3 for f32 CUDA tensors, a bool
+    says so, naming K1 or K2 raises ValueError."""
     lp = sp.problem
-    f32_cuda = lp.obs_xy.is_cuda and lp.obs_xy.dtype == torch.float32
+    x = lp.obs_xy
     cg = kernels.make_cam_gather(lp) \
-        if solver.route_kernels("file", use_kernels, f32_cuda) else None
+        if kernels.runs_kernels(lp, use_kernels, x.dtype, x.device) else None
     P, M = lp.num_points, lp.num_images
     extra_c = 1.0 - lp.free_eo
     extra_g = 1.0 - lp.free_global

@@ -349,16 +349,6 @@ Phases (any failed check exits non-zero, before the result line):
      network of `synthetic.thin_views` through the f32 and f64 `solve`
      and blocks on demand): exit 0, both parts at max|dx| <= 1e-6 with
      sigma0 within 1% of 5e-4.
-  18. the port's benchmark as a user runs it: `python bench_torch.py
-     100000 500 12` as a process on the card (given arguments, it skips
-     config 5, as bench.py does): exit 0; its last line holds every key of
-     `BENCH_r05.json`'s ``parsed`` but ``config5_1m_points``, no
-     ``*_error`` key, converged_max_dx <= 1e-6, matvec_hbm_sol_fraction
-     and matvec_vs_read_floor <= 1.05, K1 / K2 / K3 launched in its (a)
-     and (b) and K1 / K4 in its (c), and its K1 chain time ((T36 - T4) /
-     32 between CUDA events) within 10% of phase 6's K1 time; then `python
-     bench_schur_torch.py`: exit 0, one JSON line under
-     schur_gflops_per_chip_nr4096_m1024 with a positive rate.
 Then one JSON line with the kernels (``launches`` summed over the runs of
 phases 3, 5, 6, 7, 8, 11, 13 (e), 15 and 16, each between a reset and a
 read of the counters; for the image-sum kernel, which is timed at the
@@ -560,16 +550,6 @@ C5_SELF_TOL = 1e-10        # (p, p) pair + Hpp^-1 against the point's block
 EXAMPLE = ROOT / "examples" / "example_scale_torch.py"
 EXAMPLE_SHAPE = (20_000, 100, 8)
 EXAMPLE_TIMEOUT = 600      # s
-# phase 18: the port's benchmark as a user runs it
-BENCH = ROOT / "bench_torch.py"
-BENCH_ARGS = ("100000", "500", "12")
-BENCH_SCHUR = ROOT / "bench_schur_torch.py"
-BENCH_SCHUR_METRIC = "schur_gflops_per_chip_nr4096_m1024"
-BENCH_REFERENCE = ROOT / "BENCH_r05.json"  # bench.py's record on the TPU
-BENCH_NOT_HERE = ("config5_1m_points",)    # config 5 runs without arguments
-BENCH_TIMEOUT = 300        # s, each process
-BENCH_FRACTION_MAX = 1.05  # K1 against the memory rate and the read floor
-BENCH_K1_TOL = 0.10        # its chain time against phase 6's K1 time
 
 
 def fail(msg: str):
@@ -1024,9 +1004,7 @@ def free_network_phase(prob_h, state_h, spec, dev):
 
     def layouts(prob):
         fmp = engine.fm_problem(prob)
-        return fmp, engine.to_view_major(
-            fmp, kernels.choose_pb(fmp.num_points, fmp.views,
-                                   fmp.free_global.shape[0]))
+        return fmp, kernels.kernel_layout(fmp)
 
     def one_step(label, net_h):
         """One LM step at the start state: f32 kernels against f32 plain,
@@ -3238,75 +3216,6 @@ def example_phase():
     return dict(example=dict(out, process_s=seconds))
 
 
-def bench_phase(k1_ms):
-    """Phase 18 (see the module docstring); ``k1_ms`` is phase 6's K1 time
-    between CUDA events.  Returns a summary dict."""
-    import torch
-
-    torch.cuda.empty_cache()  # the process runs beside this one
-
-    def run(script, args=()):
-        t = time.time()
-        r = subprocess.run([sys.executable, str(script), *args], cwd=ROOT,
-                           capture_output=True, text=True,
-                           timeout=BENCH_TIMEOUT)
-        seconds = time.time() - t
-        for line in r.stderr.strip().splitlines():
-            if "Warning" not in line and "return func" not in line:
-                log(f"  | {line}")
-        if r.returncode != 0:
-            fail(f"phase 18: {script.name} exited {r.returncode}: "
-                 f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
-        return json.loads(r.stdout.strip().splitlines()[-1]), seconds
-
-    rec, seconds = run(BENCH, BENCH_ARGS)
-    ref = json.loads(BENCH_REFERENCE.read_text())["parsed"]
-    problems = []
-    missing = sorted(set(ref) - set(rec) - set(BENCH_NOT_HERE))
-    if missing:
-        problems.append(f"keys of {BENCH_REFERENCE.name} missing: {missing}")
-    errors = sorted(k for k in rec if k.endswith("_error"))
-    if errors:
-        problems.append(f"failed phases: {errors}")
-    if not rec.get("converged_max_dx", math.inf) <= REFINE_TOL:
-        problems.append(f"converged_max_dx {rec.get('converged_max_dx')}")
-    for key in ("matvec_hbm_sol_fraction", "matvec_vs_read_floor"):
-        if not rec.get(key, math.inf) <= BENCH_FRACTION_MAX:
-            problems.append(f"{key} {rec.get(key)} > {BENCH_FRACTION_MAX}")
-    launches = rec.get("launches", {})
-    for part, names in (("converge", SOLVE_KERNELS),
-                        ("fixed_cg8", SOLVE_KERNELS),
-                        ("matvec", ("schur_matvec", "read_floor"))):
-        if min(launches.get(part, {}).get(n, 0) for n in names) <= 0:
-            problems.append(f"a kernel of its {part} phase was never "
-                            f"launched: {launches.get(part)}")
-    mv = rec.get("matvec_ms", {})
-    chain = mv.get("pallas", math.inf)
-    got = {k: rec.get(k, math.nan) for k in (
-        "value", "time_to_converged_s", "matvec_hbm_sol_fraction",
-        "matvec_vs_read_floor", "cov_all_points_s")}
-    log(f"bench_torch.py {' '.join(BENCH_ARGS)}: {seconds:.1f} s as a "
-        f"process; {rec['metric']} {got['value']:.3f}; time_to_converged_s "
-        f"{got['time_to_converged_s']:.3f}; K1 {chain:.4f} ms in chains, "
-        f"{mv.get('pallas_back_to_back', math.nan):.4f} ms back to back in "
-        f"its process, phase 6 {k1_ms:.4f} ms; matvec_hbm_sol_fraction "
-        f"{got['matvec_hbm_sol_fraction']:.3f}, matvec_vs_read_floor "
-        f"{got['matvec_vs_read_floor']:.3f}; cov_all_points_s "
-        f"{got['cov_all_points_s']:.4f}")
-    if not abs(chain / k1_ms - 1.0) <= BENCH_K1_TOL:
-        problems.append(f"K1 in chains {chain:.4f} ms against phase 6's "
-                        f"{k1_ms:.4f} ms")
-    schur, schur_s = run(BENCH_SCHUR)
-    log(f"bench_schur_torch.py: {schur_s:.1f} s as a process; "
-        f"{schur['metric']} {schur['value']:.1f} {schur['unit']}")
-    if schur["metric"] != BENCH_SCHUR_METRIC or not schur["value"] > 0:
-        problems.append(f"bench_schur_torch.py printed {schur}")
-    if problems:
-        fail("phase 18: " + "; ".join(problems))
-    return dict(bench=dict(rec, process_s=seconds),
-                bench_schur=dict(schur, process_s=schur_s))
-
-
 def config5_kernels(fv, state0, spec, dev):
     """K3, K2, K1 and K4 against their plain versions at the config-5
     shapes, with phase 2's gates (K3 exact; K1, K2 and K2 through
@@ -3636,8 +3545,8 @@ def config5_phase(dev, shape=C5_SHAPE):
     fmp = engine.fm_problem(prob)
     t = lap("fm_problem", t)
     G = 3 + spec.num_coefficients
-    pb = kernels.choose_pb(fmp.num_points, fmp.views, G)
-    fv = engine.to_view_major(fmp, pb)
+    fv = kernels.kernel_layout(fmp)
+    pb = fv.vm_pb
     t = lap("to_view_major", t)
     del fmp
     P, M = fv.num_points, fv.num_images
@@ -3669,7 +3578,7 @@ def config5_phase(dev, shape=C5_SHAPE):
         for n, r in results.items()))
 
     # the LM phase through the kernels
-    fv64 = engine.to_view_major(engine.fm_problem(prob64), pb)
+    fv64 = kernels.kernel_layout(engine.fm_problem(prob64))
     del prob64
 
     def omega(s):
@@ -3819,8 +3728,8 @@ def main(profile_refinement=False):
     state0 = convert.state_to_torch(state_h, dev, torch.float32)
     fmp = engine.fm_problem(prob)
     G = 3 + spec.num_coefficients
-    pb = kernels.choose_pb(fmp.num_points, fmp.views, G)
-    fv = engine.to_view_major(fmp, pb)
+    fv = kernels.kernel_layout(fmp)
+    pb = fv.vm_pb
     N = fv.num_points * fv.views
     log(f"problem: P={fv.num_points} M={fv.num_images} V={fv.views} G={G} "
         f"N={N} pb={pb}; built in {time.time() - t0:.1f} s; digest "
@@ -3955,7 +3864,7 @@ def main(profile_refinement=False):
     # ---- 3. the LM phase through the kernels -------------------------------
     log(f"-- phase 3 at {time.time() - t_start:.1f} s")
     prob64 = convert.problem_to_torch(prob_h, dev, torch.float64)
-    fv64 = engine.to_view_major(engine.fm_problem(prob64), pb)
+    fv64 = kernels.kernel_layout(engine.fm_problem(prob64))
     n_obs = 2 * int((prob64.obs_weight[:, 0, 0] > 0).sum())
     u = int(prob64.free_point.sum() + prob64.free_eo.sum()
             + prob64.free_global.sum())
@@ -4279,10 +4188,6 @@ def main(profile_refinement=False):
     log(f"-- phase 17 at {time.time() - t_start:.1f} s")
     example_res = example_phase()
 
-    # ---- 18. the port's benchmark as a user runs it ----------------------
-    log(f"-- phase 18 at {time.time() - t_start:.1f} s")
-    bench_res = bench_phase(sm["full"])
-
     log(json.dumps({
         "lm_phase_steps": ph.steps, "lm_phase_s": t_lm, "sigma0": s0,
         "fixed_cg8_step_ms": step_kern,
@@ -4301,7 +4206,7 @@ def main(profile_refinement=False):
         "profile_fixed_cg8_3_steps": prof_step,
         "profile_refine_undamped": prof_ref, **cov, **free, **api,
         **rig, **files, **cli_res, "sharded": shard_res, **fleet_res,
-        **uneven, **config5, **example_res, **bench_res}))
+        **uneven, **config5, **example_res}))
     # the least time the card could take for each kernel's work at these
     # shapes (measure.py: bytes over 3.35 TB/s, f32 flops over 67 TFLOP/s)
     P_, M_ = fv.num_points, fv.num_images

@@ -45,8 +45,7 @@ def main(seconds=240.0):
     prob = convert.problem_to_torch(ph, dev, torch.float32)
     st = convert.state_to_torch(sh, dev, torch.float32)
     fmp = engine.fm_problem(prob)
-    fv = engine.to_view_major(fmp, kernels.choose_pb(
-        fmp.num_points, fmp.views, fmp.free_global.shape[0]))
+    fv = kernels.kernel_layout(fmp)
     b = engine.linearize(fv, st, spec, 1e-2)
     pp = kernels.pack_fm(b, fv, with_pw=True)
     fin = engine.finish_reduction(fv, b, st, 1e-2,

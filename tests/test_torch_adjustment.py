@@ -32,6 +32,7 @@ from bundle_adjustment_tpu_torch import (BundleAdjustment, EstimationState,
 from bundle_adjustment_tpu_torch.ops.assembly import make_assembler
 from bundle_adjustment_tpu_torch.solver import adjustment as TA
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 MODES = ("FULL", "REDUCED", "PRE_ELIMINATION", "NONE")

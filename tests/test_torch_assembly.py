@@ -37,6 +37,7 @@ from bundle_adjustment_tpu_torch.ops import analytic as TAn
 from bundle_adjustment_tpu_torch.ops import assembly as TA
 from bundle_adjustment_tpu_torch.ops import linalg as TL
 from bundle_adjustment_tpu_torch.ops import schur as TS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SCENES = {"direct_groups": direct_group_scene, "zernike": zernike_scene,

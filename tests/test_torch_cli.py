@@ -36,6 +36,7 @@ from bundle_adjustment_tpu_torch.__main__ import main as t_main
 from bundle_adjustment_tpu_torch.io import scene_files
 from bundle_adjustment_tpu_torch.solver.checkpoint import LMCheckpoint
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXES = ["x0", "y0", "c", "A1", "A2", "A3", "Bx", "By", "Cx", "Cy"]

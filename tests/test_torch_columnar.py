@@ -32,6 +32,7 @@ from bundle_adjustment_tpu_torch.parallel import rcs
 from bundle_adjustment_tpu_torch.parallel import solver as TS
 from bundle_adjustment_tpu_torch.solver.checkpoint import LMCheckpoint as TCk
 from bundle_adjustment_tpu_torch.testing import look_at_wpk
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 P, M = 40, 6

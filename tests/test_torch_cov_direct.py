@@ -37,6 +37,7 @@ from bundle_adjustment_tpu.parallel import engine as E
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.parallel import cov_direct as CT
 from bundle_adjustment_tpu_torch.parallel import engine as TE
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P_REAL = 180
 IDS = np.arange(0, 192, 7)

@@ -27,21 +27,12 @@ from bundle_adjustment_tpu.parallel import rcs as JR
 from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import cov_direct, covariance
 from bundle_adjustment_tpu_torch.parallel import engine, rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 POINTS = np.array([3, 7, 20], np.int32)
 IMAGES = np.array([0, 4], np.int32)
 PAIRS = np.array([[3, 7], [20, 5]])
 TOL = dict(tol=1e-12, maxiter=2000)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite's workers
-    share the cores, and a thread pool in each oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -81,8 +81,7 @@ def case():
     prob = convert.problem_to_torch(prob_h, dev, torch.float32)
     state = convert.state_to_torch(state_h, dev, torch.float32)
     fmp = engine.fm_problem(prob)
-    fv = engine.to_view_major(fmp, kernels.choose_pb(
-        fmp.num_points, fmp.views, fmp.free_global.shape[0]))
+    fv = kernels.kernel_layout(fmp)
     b = engine.linearize(fv, state, spec, 1e-3)
     pp = kernels.pack_fm(b, fv, with_pw=True)
     return dict(prob=prob, fv=fv, state=state, spec=spec, b=b, pp=pp)
@@ -430,8 +429,7 @@ def test_lm_step_full_through_kernels_matches_plain(case, G):
     st = convert.state_to_torch(state_h, dev, torch.float32)
     assert prob.free_global.shape[0] == G and prob.has_extras
     fmp = engine.fm_problem(prob)
-    fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
-                                                     fmp.views, G))
+    fv = kernels.kernel_layout(fmp)
     kw = dict(cg_tol=1e-8, cg_maxiter=300)
     kernels.reset_launch_counts()
     out = engine.lm_step_full(fv, prob, st, spec, 1e-2, use_kernels=True,
@@ -690,8 +688,7 @@ def test_zernike_rows_through_k1_and_k2(case):
     prob = convert.problem_to_torch(prob_h, dev, torch.float32)
     st = convert.state_to_torch(state_h, dev, torch.float32)
     fmp = engine.fm_problem(prob)
-    fv = engine.to_view_major(fmp, kernels.choose_pb(fmp.num_points,
-                                                     fmp.views, G))
+    fv = kernels.kernel_layout(fmp)
     b = engine.linearize(fv, st, spec, 1e-3)
     pp = kernels.pack_fm(b, fv, with_pw=True)
     out = kernels.prepare_reduction(pp)

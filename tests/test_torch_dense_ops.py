@@ -29,6 +29,7 @@ from bundle_adjustment_tpu_torch.ops import collinearity as TC
 from bundle_adjustment_tpu_torch.ops import distortion as TD
 from bundle_adjustment_tpu_torch.ops import residuals as TR
 from bundle_adjustment_tpu_torch.ops import rotation as TRot
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B = 64
 R0 = 8.0

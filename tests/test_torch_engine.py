@@ -14,6 +14,7 @@ import torch
 from test_torch_parity import build_pair, np_
 from bundle_adjustment_tpu.parallel import engine as E
 from bundle_adjustment_tpu_torch.parallel import engine as TE
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

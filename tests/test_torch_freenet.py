@@ -35,6 +35,7 @@ from bundle_adjustment_tpu.parallel import rcs as R
 from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import engine as TE
 from bundle_adjustment_tpu_torch.parallel import freenet, rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ALL_DEFECTS = (True,) * 7
 

@@ -16,6 +16,7 @@ from bundle_adjustment_tpu.models.problem import ParamState as JParamState
 from bundle_adjustment_tpu.parallel import hilo as JH
 from bundle_adjustment_tpu_torch.models.problem import ParamState
 from bundle_adjustment_tpu_torch.parallel import hilo
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _state(rng, dtype, scale=1.0):

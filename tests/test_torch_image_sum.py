@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: every F the port's callers sum per image: the refinement's gradient (6),
 #: the compact rows' rhs (10, 20 with the diagonal), the rig's product (16),

@@ -28,6 +28,7 @@ from bundle_adjustment_tpu_torch.solver.tracing import (TRACE_FILE,
                                                         PhaseTimer,
                                                         device_trace)
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 TOL = 1e-10

@@ -38,6 +38,7 @@ from bundle_adjustment_tpu_torch.io import readers as TR
 from bundle_adjustment_tpu_torch.io import scene_files
 from bundle_adjustment_tpu_torch.io import writers as TW
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -34,6 +34,7 @@ from test_torch_parity import (blocks_to_torch, build_pair, inverse_err, np_,
 from bundle_adjustment_tpu.parallel import engine as E
 from bundle_adjustment_tpu.parallel import kernels as K
 from bundle_adjustment_tpu_torch.parallel import kernels as TK
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from bundle_adjustment_tpu.parallel import kernels as JK
 from bundle_adjustment_tpu_torch import measure
 from bundle_adjustment_tpu_torch.parallel import kernels as TK
 from bundle_adjustment_tpu_torch.parallel import rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 G = 10
 F_LEAN = 21 + 2 * G

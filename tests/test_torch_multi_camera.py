@@ -59,6 +59,7 @@ from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.parallel import (cov_direct, engine, hilo,
                                                   kernels, lm, rcs, refine,
                                                   solver)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 DAMPING = 1e-3
 # the 16-camera step: the JAX test's damping (at 10,000 points); at 2,000
@@ -96,16 +97,6 @@ def close(a, ref, rtol, atol_of_max=0.0, name=""):
     np.testing.assert_allclose(np_(a), ref, rtol=rtol,
                                atol=atol_of_max * np.max(np.abs(ref)),
                                err_msg=name)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for these small tensors: the suite's workers
-    share the cores, and a thread pool in each oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fix_last_slot(problem, C, Gp):

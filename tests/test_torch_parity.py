@@ -20,6 +20,7 @@ from bundle_adjustment_tpu.parallel import engine as E
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.parallel import engine as TE
 from bundle_adjustment_tpu_torch.parallel import kernels as TK
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -26,6 +26,7 @@ import torch
 from bundle_adjustment_tpu.parallel import rcs as JR
 from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import engine, rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: case: (dtype, zero rhs, tol, maxiter, stall_limit)
 CASES = {

@@ -34,6 +34,7 @@ from bundle_adjustment_tpu_torch.models.problem import ParamState
 from bundle_adjustment_tpu_torch.models.problem import compile_problem
 from bundle_adjustment_tpu_torch.parallel import engine, rcs
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 RAGGED_SEED = 3

@@ -43,6 +43,7 @@ from bundle_adjustment_tpu_torch.io import columnar as TCol
 from bundle_adjustment_tpu_torch.io import scene_files
 from bundle_adjustment_tpu_torch.parallel import covariance, engine, rcs
 from bundle_adjustment_tpu_torch.parallel import solver
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(damping=1e-2, max_iterations=40)
 # the self-calibrating scene to a CG tolerance whose steps resolve its

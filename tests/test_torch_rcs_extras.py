@@ -39,6 +39,7 @@ from bundle_adjustment_tpu.testing import make_synthetic_scene as j_scene
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.models.problem import compile_problem
 from bundle_adjustment_tpu_torch.parallel import freenet, rcs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 DAMPING = 1e-3
 CG = dict(cg_tol=1e-12, cg_maxiter=1000)

@@ -52,6 +52,7 @@ from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.models.problem import ParamState
 from bundle_adjustment_tpu_torch.parallel import engine as TE
 from bundle_adjustment_tpu_torch.parallel import hilo, kernels, lm, rcs, refine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -166,8 +167,7 @@ def test_converge_from_synthetic_reaches_tolerance():
     prob = convert.problem_to_torch(prob_h, CPU, torch.float32)
     st = convert.state_to_torch(state_h, CPU, torch.float32)
     fmp = TE.fm_problem(prob)
-    fv = TE.to_view_major(fmp, kernels.choose_pb(
-        fmp.num_points, fmp.views, fmp.free_global.shape[0]))
+    fv = kernels.kernel_layout(fmp)
     lm_result = lm.run(fv, st, spec)
     refiner = refine.Refiner(prob, spec, use_kernels=True)
     prob64 = convert.problem_to_torch(prob_h, CPU, torch.float64)

@@ -23,7 +23,9 @@ fail (a stand-in `rcs.pcg` returns the zero start for f32), through the
 f64 redo of that step and f64 steps after it.  CG budget: the
 refinement's cg_tol with maxiter 300 and stall 100, as
 `test_torch_refine.py` shortens it; one torch thread (the suite's
-workers share the cores).  ~20 s."""
+workers share the cores).  The route of `solve` and of the Refiner, one
+camera or the rig, is `kernels.runs_kernels`'s answer, and their kernel
+layout `kernels.kernel_layout`'s.  ~20 s."""
 
 import numpy as np
 import pytest
@@ -32,9 +34,10 @@ import torch
 from benchmark.reference import bundle as ref_bundle
 from benchmark.reference import rig as ref_rig
 from bundle_adjustment_tpu_torch import convert, synthetic
-from bundle_adjustment_tpu_torch.parallel import (engine, hilo, lm, rcs,
-                                                  refine, solver)
+from bundle_adjustment_tpu_torch.parallel import (engine, hilo, kernels, lm,
+                                                  rcs, refine, solver)
 from bundle_adjustment_tpu_torch.solver import tracing
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P, M, V = 1000, 20, 12
 SOLVE = dict(damping=1e-2, max_iterations=30, tolerance=1e-3)
@@ -44,14 +47,6 @@ CONVERGE = dict(tolerance=1e-6, damping=0.0, max_steps=15, cg_maxiter=300,
 #: the reference's optimum, the float32 reference ~1e-3
 STATE_TOL = 1e-6
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _solve(C):
@@ -85,7 +80,6 @@ def _adjust(C):
 
 @pytest.fixture(scope="module")
 def rig4():
-    torch.set_num_threads(1)
     return _adjust(4)
 
 
@@ -151,7 +145,6 @@ def _within(spans, name):
 
 @pytest.fixture(scope="module")
 def one_camera():
-    torch.set_num_threads(1)
     return _solve(1)
 
 
@@ -182,22 +175,67 @@ def test_a_failed_f32_cg_is_redone_in_f64(one_camera, monkeypatch):
     assert _gap(x, x32) <= 1e-5
 
 
-def test_refiner_route_by_default():
-    """`Refiner(use_kernels=None)` takes `solve`'s rule: the kernels only
-    for a single-camera f32 problem on a card; a rig takes the plain
-    compact rows (point-major, not the kernels' view-major layout), and
-    ``use_kernels=True`` still refuses it."""
-    ph, _, spec = synthetic.build_problem(256, 12, 6, seed=1, num_cameras=4)
+#: (cameras, use_kernels, on a card, the rule's answer or its error)
+ROUTES = [
+    (1, None, False, False), (1, None, True, True), (1, False, True, False),
+    (1, True, False, True), (1, ("K1", "K2", "K3"), False, True),
+    (1, ("K3",), False, "together"), (1, ("K1", "K2"), True, "together"),
+    (4, None, False, False), (4, None, True, False), (4, False, True, False),
+    (4, True, False, "single-camera"),
+    (4, ("K1", "K2", "K3"), True, "single-camera"),
+]
+
+
+@pytest.mark.parametrize("cameras, use_kernels, on_card, answer", ROUTES)
+def test_one_rule_routes_solve_and_the_refiner(cameras, use_kernels, on_card,
+                                               answer, monkeypatch):
+    """`kernels.runs_kernels` decides the point-major route of `solve` and
+    of `Refiner`: the kernels by default only for a single-camera f32
+    problem on a card, never on a rig (its compact rows), and kernel names
+    only all three together.  Both take its answer or raise its error, and
+    where they run the kernels both hold the one layout of
+    `kernels.kernel_layout`, view-major at `choose_pb`'s block.  "On a
+    card": the CPU tensors are handed to the rule as a card's, so the
+    routes run the kernels' plain versions."""
+    ph, sh, spec = synthetic.build_problem(256, 12, 6, seed=1,
+                                           num_cameras=cameras)
     p32 = convert.problem_to_torch(ph, CPU, torch.float32)
-    r = refine.Refiner(p32, spec, use_kernels=None)
-    assert r.use_kernels is False and r.fmp32.vm_pb is None
-    with pytest.raises(ValueError, match="single-camera"):
-        refine.Refiner(p32, spec, use_kernels=True)
+    s32 = convert.state_to_torch(sh, CPU, torch.float32)
+    device = torch.device("cuda" if on_card else "cpu")
+    rule, layout = kernels.runs_kernels, kernels.kernel_layout
+    asked, layouts = [], []
 
-    class _OnCard:
-        is_cuda, dtype = True, torch.float32
+    def runs_kernels(problem, use, dtype, dev):
+        assert problem is p32 and use == use_kernels and dev == CPU
+        asked.append(rule(problem, use, dtype, device))
+        return asked[-1]
 
-    for C, takes in ((1, True), (4, False)):
-        fake = p32._replace(obs_xy=_OnCard(), r0=torch.zeros(C))
-        assert refine.kernels_by_default(fake) is takes
-    assert refine.kernels_by_default(p32) is False
+    def kernel_layout(fmp):
+        layouts.append(layout(fmp))
+        return layouts[-1]
+
+    monkeypatch.setattr(kernels, "runs_kernels", runs_kernels)
+    monkeypatch.setattr(kernels, "kernel_layout", kernel_layout)
+    routes = (lambda: solver.solve(p32, s32, spec, max_iterations=1,
+                                   use_kernels=use_kernels),
+              lambda: refine.Refiner(p32, spec, use_kernels=use_kernels))
+    if isinstance(answer, str):
+        for route in routes:
+            with pytest.raises(ValueError, match=answer):
+                route()
+        assert not layouts
+        return
+    routes[0]()
+    r = routes[1]()
+    assert asked == [answer, answer] and r.use_kernels is answer
+    assert len(layouts) == 2 * answer
+    if not answer:
+        assert r.fmp32.vm_pb is None
+        return
+    fv, fr = layouts
+    assert r.fmp32 is fr and fv.vm_pb == fr.vm_pb == kernels.choose_pb(
+        256, 6, 3 + spec.num_coefficients)
+    for name, x in fv._asdict().items():
+        y = getattr(fr, name)
+        assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y), name

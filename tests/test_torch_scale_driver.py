@@ -27,6 +27,7 @@ from bundle_adjustment_tpu_torch.parallel import engine, rcs, solver
 from bundle_adjustment_tpu_torch.solver.adjustment import (
     BundleAdjustment, EstimationState, EstimationType, MatrixInversion)
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

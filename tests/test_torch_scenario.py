@@ -45,6 +45,7 @@ from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.models.problem import ParamState
 from bundle_adjustment_tpu_torch.parallel import rcs, scenario
 from test_torch_rcs_engine import SCENE, drop_views, fixed_datum
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FLEET = (3, 300, 12, 6)
 # the file-order fleet: 12 views cut to 4, every 10th point keeps 12
@@ -190,14 +191,6 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.fixture
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _own_steps(prob, xy, w, states, spec):
     """Each scenario's step against `rcs.lm_step` on its own network; no
     vmap fallback warning fires."""
@@ -220,14 +213,14 @@ def _own_steps(prob, xy, w, states, spec):
     assert len(set(it.tolist())) > 1  # the first to stop were frozen
 
 
-def test_each_scenario_is_its_own_engine_step(fleet, one_thread):
+def test_each_scenario_is_its_own_engine_step(fleet):
     """Each scenario's step is the block-layout engine's `rcs.lm_step` on
     its own network (uniform point-major fleet)."""
     assert fleet[0].point_uniform == FLEET[3]
     _own_steps(*fleet)
 
 
-def test_file_order_fleet_runs_unpadded(one_thread):
+def test_file_order_fleet_runs_unpadded():
     """The same on the file-order fleet of `synthetic.thin_scenarios`:
     N rows, no padding, the layout rule's choice."""
     prob, xy, w, states, spec = _fleet(True)

@@ -31,6 +31,7 @@ from bundle_adjustment_tpu.testing import make_synthetic_scene as j_scene
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.models.problem import compile_problem
 from bundle_adjustment_tpu_torch.testing import make_synthetic_scene
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

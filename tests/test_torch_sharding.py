@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from bundle_adjustment_tpu_torch.parallel import multihost, sharding
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FORMS = (sharding.DIRECT, sharding.ALL_REDUCE)
 TIMEOUT = 90

@@ -33,6 +33,7 @@ from bundle_adjustment_tpu.parallel import solver as JS
 from bundle_adjustment_tpu.solver import adjustment as JA
 from bundle_adjustment_tpu_torch.parallel import engine as TE
 from bundle_adjustment_tpu_torch.parallel import rcs, solver
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(damping=1e-2, max_iterations=40, cg_tol=1e-13, cg_maxiter=3000)
 

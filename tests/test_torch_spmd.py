@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from bundle_adjustment_tpu_torch.parallel import multihost, rcs, spmd
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RANKS = (1, 2, 5)
 TIMEOUT = 120

@@ -21,6 +21,7 @@ import torch
 from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import engine, multihost, rcs, \
     spmd_fm
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (512, 24, 8)
 DAMPING, CG_TOL, CG_MAXITER = 1e-4, 1e-12, 500
@@ -182,16 +183,12 @@ def test_cam_shard_ragged_images(ranks):
 
 def test_world_size_one_is_the_engine_step(ranks):
     """At one rank the sharded step sums in the engine's order: the same
-    bits as engine.lm_step computed with one thread, as the rank runs."""
+    bits as engine.lm_step computed with one thread (`_torch_threads`), as
+    the rank runs."""
     prob, st, spec = _problem()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        dxp, dxc, dxg, b, it = engine.lm_step(
-            engine.fm_problem(prob), st, spec, DAMPING, cg_tol=CG_TOL,
-            cg_maxiter=CG_MAXITER)
-    finally:
-        torch.set_num_threads(threads)
+    dxp, dxc, dxg, b, it = engine.lm_step(
+        engine.fm_problem(prob), st, spec, DAMPING, cg_tol=CG_TOL,
+        cg_maxiter=CG_MAXITER)
     for mode in MODES:
         got = ranks[1][0][mode]
         assert got["it"] == it
@@ -208,21 +205,17 @@ LM_STEP_DIGEST = \
 
 
 def test_comm_none_keeps_the_engine_step_bits():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """On the module's one thread (`_torch_threads`), as the digest was
+    taken."""
     h = hashlib.sha256()
-    try:
-        for C, couple in ((1, True), (2, True), (1, False)):
-            ph, sh, spec = synthetic.build_problem(*SHAPE, seed=3,
-                                                   num_cameras=C)
-            prob = convert.problem_to_torch(ph, "cpu", torch.float64)
-            st = convert.state_to_torch(sh, "cpu", torch.float64)
-            out = engine.lm_step(engine.fm_problem(prob), st, spec, DAMPING,
-                                 cg_tol=CG_TOL, cg_maxiter=CG_MAXITER,
-                                 couple_global=couple)
-            for t in (out[0], out[1], out[2], out[3].omega0):
-                h.update(t.contiguous().numpy().tobytes())
-            h.update(str(out[4]).encode())
-    finally:
-        torch.set_num_threads(threads)
+    for C, couple in ((1, True), (2, True), (1, False)):
+        ph, sh, spec = synthetic.build_problem(*SHAPE, seed=3, num_cameras=C)
+        prob = convert.problem_to_torch(ph, "cpu", torch.float64)
+        st = convert.state_to_torch(sh, "cpu", torch.float64)
+        out = engine.lm_step(engine.fm_problem(prob), st, spec, DAMPING,
+                             cg_tol=CG_TOL, cg_maxiter=CG_MAXITER,
+                             couple_global=couple)
+        for t in (out[0], out[1], out[2], out[3].omega0):
+            h.update(t.contiguous().numpy().tobytes())
+        h.update(str(out[4]).encode())
     assert h.hexdigest() == LM_STEP_DIGEST

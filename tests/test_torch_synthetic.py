@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from bundle_adjustment_tpu_torch import synthetic
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -18,6 +18,7 @@ import torch
 
 from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import engine, multihost, rcs, tp
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RANKS = (1, 2)
 TIMEOUT = 120

@@ -17,6 +17,7 @@ from bundle_adjustment_tpu_torch import convert, synthetic
 from bundle_adjustment_tpu_torch.parallel import (cov_direct, engine, hilo,
                                                   lm, refine, solver)
 from bundle_adjustment_tpu_torch.solver import tracing
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SOLVE = dict(damping=1e-2, max_iterations=12, tolerance=1e-3)
 COV_STAGES = ["linearize", "cov.assemble_base", "cov.corrections",
