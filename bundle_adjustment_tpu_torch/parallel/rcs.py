@@ -667,7 +667,9 @@ def _cg_graph(c: _CG, k: _Loop):
 def _graph_route(rc, Minv, matvec, comm_cam) -> bool:
     """Whether `pcg` replays its loop body as a CUDA graph: CUDA tensors,
     no collectives, a `Precond`, and a matvec that its builder marked
-    ``capturable``."""
+    ``capturable`` (`kernels.make_matvec`, and the plain products of
+    `engine.lm_step` and `refine.Refiner`; a product wrapped by
+    `freenet.wrap_matvec` carries no mark)."""
     return (rc.is_cuda and comm_cam is None and isinstance(Minv, Precond)
             and getattr(matvec, "capturable", False))
 
@@ -689,8 +691,9 @@ def pcg(rc, rg, Minv, matvec, tol=1e-10, maxiter=200, stall_limit=None,
     stopping test live on the device (`_CG`), compared in the residual's
     dtype.  On the card, where ``rc`` is a CUDA tensor, ``comm_cam`` is
     None, ``Minv`` a `Precond` and ``matvec`` marked ``capturable`` (an
-    attribute that `kernels.make_matvec` and `engine.lm_step` set on the
-    single-device products), one masked iteration is captured as a CUDA
+    attribute that `kernels.make_matvec`, `engine.lm_step` and the
+    `refine.Refiner` step, in f32 and in f64, set on the single-device
+    products they build), one masked iteration is captured as a CUDA
     graph, replayed `CG_CHUNK` times per host read of the stop
     (`_cg_graph`); up to `CG_CHUNK` - 1 replays may run past the stop,
     masked, which change nothing.  Every other call runs the same body

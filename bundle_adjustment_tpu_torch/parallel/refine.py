@@ -81,6 +81,11 @@ class Refiner:
     kernels for a single-camera f32 problem on a card, else the plain path
     (a rig's compact rows); kernel names as `solve` takes them.
 
+    The plain product, in f32 or in f64, is marked ``capturable`` as
+    `engine.lm_step` marks its own: on a card `rcs.pcg` replays its CG
+    iteration as a CUDA graph.  The extras' wrapped product and
+    preconditioner (`freenet`) keep the eager route.
+
     ``couple_global`` (the JAX Refiner's option): precondition the f32 CG
     with the exact camera-global blocks (default), or with the camera and
     global blocks alone (block Jacobi).
@@ -192,6 +197,8 @@ class Refiner:
         else:
             def matvec(c, g):
                 return engine.schur_matvec(p, b, c, g)
+
+            matvec.capturable = True
         ext = None
         if problem.has_extras:
             # the exact low-rank corrections around the f64 gradient: the

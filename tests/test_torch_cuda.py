@@ -23,7 +23,11 @@ terms): dxp, dxc, dxg within a scaled 2e-4, |B dxp| <= 1e-5 max|dxp|, and
 the same bits when run again.  `rcs.pcg`'s CUDA-graph route (through K1
 and through the plain product) against its eager route: the same bits
 and count, one capture per call, K1's launches its runs, and no more
-device memory than one K1 workspace over the eager route's.  The
+device memory than one K1 workspace over the eager route's; so does the
+4-camera rig's f64 product as the Refiner marks it (a 2,000-point rig,
+block Jacobi, undamped), at the refinement's CG settings and where the
+stall rule ends the loop, with no more memory than the eager route's
+but the start carry `rcs.pcg` holds while the graph runs.  The
 covariance (`cov_all`)
 on the GPU against the CPU's f64 blocks: f64 within a scaled 1e-9, f32
 (through K3) within kappa x 2^-24 of each block's largest entry; the
@@ -266,37 +270,95 @@ def test_lm_step_through_kernels_contracts(case):
     assert om < 1.05 * om_ref
 
 
-@pytest.mark.parametrize("route", ["k1", "plain"])
-def test_pcg_graph_route_matches_the_eager_route(case, route, monkeypatch):
-    """`rcs.pcg` on the card: the CUDA-graph route (K1 through
-    `kernels.make_matvec`, or the plain product marked ``capturable``)
-    against the eager route of the same product (an unmarked wrapper), at
-    maxiter 13 and 29 (tol 0, no stall stop) and to tol 1e-6 under the
-    f32 stall window: the same iterate bits and count; one capture per
-    call; `rcs.CG_CHUNK` replays per read of the stop, the warm-up
-    outside them, the rest masked; K1's launches = iterations + masked (the eager warm-up is
-    one of the iterations); the call's device memory peak no higher than
-    the eager route's by more than one K1 workspace."""
-    from bundle_adjustment_tpu_torch.parallel import engine, kernels, rcs
-    from bundle_adjustment_tpu_torch.solver import tracing
+#: `test_pcg_graph_route_matches_the_eager_route`'s calls: maxiter 13 and
+#: 29 at tol 0 with no stall stop, then each route's own stop: f32 to tol
+#: 1e-6 under the f32 stall window; the rig's f64 solve at the
+#: refinement's settings (`refine.converge`: tol 1e-12, maxiter 800, stall
+#: 300; on this rig the tolerance ends it, at ~370 iterations), and with
+#: a window of 40 that its plateaus (up to ~50 iterations) exceed, so that
+#: the stall rule ends it (checked against the same call without one)
+GRAPH_CALLS = [dict(tol=0.0, maxiter=13, stall_limit=14),
+               dict(tol=0.0, maxiter=29, stall_limit=30)]
+STALL_STOP = dict(tol=1e-12, maxiter=800, stall_limit=40)
+GRAPH_STOPS = {
+    "k1": [dict(tol=1e-6, maxiter=300)],
+    "plain": [dict(tol=1e-6, maxiter=300)],
+    "rig_f64": [dict(tol=1e-12, maxiter=800, stall_limit=300),
+                STALL_STOP],
+}
 
-    fv, pp = case["fv"], case["pp"]
-    b, rc, rg, Minv = engine.finish_reduction(
-        fv, case["b"], case["state"], 1e-3, *kernels.prepare_reduction(pp),
-        True)
-    work = sum(t.numel() * t.element_size()
-               for t in kernels.matvec_workspace(pp))
+
+def _graph_route_system(case, route):
+    """(rc, rg, Minv, a function that builds the route's marked product,
+    the name of the kernel wrapper each product call launches once, the
+    bytes the graph route's peak may exceed the eager route's by) for
+    `test_pcg_graph_route_matches_the_eager_route`.  ``rig_f64``: the
+    compact rows of a 4-camera rig (`synthetic.build_problem(2000, 40,
+    12, seed=0, num_cameras=4)`) upcast to f64 as `refine.Refiner` upcasts
+    them, undamped, with the block-Jacobi `Precond` the rig's refinement
+    takes, and the plain product its step marks; its excess is the start
+    carry (`rcs._cg_start`, in the allocator's 512-byte blocks), which
+    `rcs.pcg` holds while `_cg_graph` runs (13,312 bytes here, on the
+    H100).  K1 and the one-camera plain product: one K1 workspace."""
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.models.problem import ParamState
+    from bundle_adjustment_tpu_torch.parallel import (engine, kernels, rcs,
+                                                      refine)
+
+    if route == "rig_f64":
+        dev = torch.device("cuda", 0)
+        ph, sh, spec = synthetic.build_problem(2000, 40, 12, seed=0,
+                                               num_cameras=4)
+        p = engine.fm_problem(refine.upcast_problem(
+            convert.problem_to_torch(ph, dev, torch.float32)))
+        st = convert.state_to_torch(sh, dev, torch.float32)
+        b, rc, rg, Minv = engine.prepare(
+            p, ParamState(*(a.double() for a in st)), spec, 0.0,
+            couple_global=False)
+        assert b.Jg is None and rc.dtype == torch.float64
+        start, _ = rcs._cg_start(rc, rg, Minv, None, 0.0, 1, 1, None)
+        slack = sum(-(-t.untyped_storage().nbytes() // 512) * 512
+                    for t in start)
+    else:
+        p, pp = case["fv"], case["pp"]
+        b, rc, rg, Minv = engine.finish_reduction(
+            p, case["b"], case["state"], 1e-3,
+            *kernels.prepare_reduction(pp), True)
+        slack = sum(t.numel() * t.element_size()
+                    for t in kernels.matvec_workspace(pp))
 
     def product():
         if route == "k1":
             return kernels.make_matvec(pp, b.extra_c, b.extra_g)
 
         def matvec(c, g):
-            return engine.schur_matvec(fv, b, c, g)
+            return engine.schur_matvec(p, b, c, g)
 
         matvec.capturable = True
         return matvec
 
+    launched = "schur_matvec" if route == "k1" else "image_sum"
+    return rc, rg, Minv, product, launched, slack
+
+
+@pytest.mark.parametrize("route", ["k1", "plain", "rig_f64"])
+def test_pcg_graph_route_matches_the_eager_route(case, route, monkeypatch):
+    """`rcs.pcg` on the card: the CUDA-graph route (K1 through
+    `kernels.make_matvec`, the plain product marked ``capturable``, or the
+    rig's f64 plain product as the Refiner marks it) against the eager
+    route of the same product (an unmarked wrapper), at the calls of
+    `GRAPH_CALLS` and `GRAPH_STOPS`: the same iterate bits and count; one
+    capture per call; `rcs.CG_CHUNK` replays per read of the stop, the
+    warm-up outside them, the rest masked; the product's kernel (K1, or
+    the image-sum kernel of the plain products) launched = iterations +
+    masked (the eager warm-up is one of the iterations); the call's device
+    memory peak no higher than the eager route's by more than one K1
+    workspace (on the rig: than the start carry `rcs.pcg` holds)."""
+    from bundle_adjustment_tpu_torch.parallel import kernels, rcs
+    from bundle_adjustment_tpu_torch.solver import tracing
+
+    rc, rg, Minv, product, launched, slack = _graph_route_system(case,
+                                                                 route)
     captures = []
     begin = torch.cuda.CUDAGraph.capture_begin
 
@@ -316,17 +378,19 @@ def test_pcg_graph_route_matches_the_eager_route(case, route, monkeypatch):
         torch.cuda.synchronize()
         pcg = [s.counts for s in spans if s.name == "pcg"]
         return (out, torch.cuda.max_memory_allocated() - base, pcg[0],
-                kernels.launch_counts()["schur_matvec"])
+                kernels.launch_counts()[launched])
 
-    for kw in (dict(tol=0.0, maxiter=13, stall_limit=14),
-               dict(tol=0.0, maxiter=29, stall_limit=30),
-               dict(tol=1e-6, maxiter=300)):
+    for kw in GRAPH_CALLS + GRAPH_STOPS[route]:
         eager = product()
         (ex, eg, eit), epeak, ecounts, _ = run(
             lambda c, g, mv=eager: mv(c, g), kw)
         assert ecounts["replays"] == 0 and ecounts["masked"] == 0
+        if kw is STALL_STOP:
+            longer = rcs.pcg(rc, rg, Minv, lambda c, g, mv=eager: mv(c, g),
+                             **dict(kw, stall_limit=kw["maxiter"] + 1))[2]
+            assert eit < longer, (eit, longer)
         del captures[:]
-        (gx, gg, git), gpeak, gcounts, k1 = run(product(), kw)
+        (gx, gg, git), gpeak, gcounts, runs = run(product(), kw)
         assert git == eit > 1, kw
         assert torch.equal(gx, ex) and torch.equal(gg, eg), kw
         chunks = -(-(git - 1) // rcs.CG_CHUNK)
@@ -335,9 +399,8 @@ def test_pcg_graph_route_matches_the_eager_route(case, route, monkeypatch):
         assert gcounts["graph_iterations"] == git - 1
         masked = rcs.CG_CHUNK * chunks - (git - 1)
         assert gcounts["masked"] == masked
-        if route == "k1":
-            assert k1 == git + masked
-        assert gpeak <= epeak + work, (gpeak, epeak, work)
+        assert runs == git + masked, (launched, runs, git, masked)
+        assert gpeak <= epeak + slack, (kw, gpeak, epeak, slack)
 
 
 def _probe_inputs(case):

@@ -25,7 +25,10 @@ refinement's cg_tol with maxiter 300 and stall 100, as
 `test_torch_refine.py` shortens it; one torch thread (the suite's
 workers share the cores).  The route of `solve` and of the Refiner, one
 camera or the rig, is `kernels.runs_kernels`'s answer, and their kernel
-layout `kernels.kernel_layout`'s.  ~20 s."""
+layout `kernels.kernel_layout`'s.  A Refiner step's plain product, one
+camera or the rig, f32, f64 or the f64 redo, reaches `rcs.pcg` marked
+``capturable`` (its CUDA-graph route on a card), and the extras' wrapped
+product unmarked.  ~25 s."""
 
 import numpy as np
 import pytest
@@ -173,6 +176,49 @@ def test_a_failed_f32_cg_is_redone_in_f64(one_camera, monkeypatch):
     assert len([s for s in spans if s.name == "refine.step64"]) \
         == rec.refine_steps
     assert _gap(x, x32) <= 1e-5
+
+
+#: (cameras, scale bars and datum, f32 CG made to fail, the (dtype,
+#: ``capturable``) of each product the step hands `rcs.pcg`)
+MARKS = {
+    "rig_f64": (4, False, False, [(torch.float64, True)]),
+    "one_camera_f32": (1, False, False, [(torch.float32, True)]),
+    "one_camera_f64_redo": (1, False, True,
+                            [(torch.float32, True), (torch.float64, True)]),
+    "one_camera_extras": (1, True, False, [(torch.float32, False)]),
+    "rig_extras": (4, True, False, [(torch.float64, False)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARKS))
+def test_the_refiners_plain_product_is_capturable(case, monkeypatch):
+    """The plain product a Refiner step hands `rcs.pcg` is marked
+    ``capturable`` (on a card its CG replays as a CUDA graph), in f32 and
+    in f64: a rig's inner solve and the f64 redo of a step whose f32 CG
+    failed (forced as in `test_a_failed_f32_cg_is_redone_in_f64`).  The
+    product `freenet.wrap_matvec` wraps for the extras (scale bars, the
+    inner-constraint datum) carries no mark."""
+    cameras, extras, fail32, want = MARKS[case]
+    ph, sh, spec = synthetic.build_problem(256, 12, 6, seed=1,
+                                           num_cameras=cameras)
+    if extras:
+        ph = synthetic.free_network(ph, sh, bars=2, seed=2)
+    p32 = convert.problem_to_torch(ph, CPU, torch.float32)
+    s32 = convert.state_to_torch(sh, CPU, torch.float32)
+    assert p32.has_extras is extras
+    pcg, marks = rcs.pcg, []
+
+    def recorded(rc, rg, Minv, matvec, **kw):
+        marks.append((rc.dtype, getattr(matvec, "capturable", False)))
+        if fail32 and rc.dtype == torch.float32:
+            return torch.zeros_like(rc), torch.zeros_like(rg), 0
+        return pcg(rc, rg, Minv, matvec, **kw)
+
+    monkeypatch.setattr(rcs, "pcg", recorded)
+    r = refine.Refiner(p32, spec, couple_global=False)
+    assert r.use_kernels is False
+    r.step(hilo.from_f32(s32), cg_maxiter=20)
+    assert marks == want
 
 
 #: (cameras, use_kernels, on a card, the rule's answer or its error)
