@@ -32,6 +32,13 @@ gathers of `linearize` and `back_substitute_points` can go through the
 K3 kernel (``cam_gather=``, `kernels.make_cam_gather`).  JAX's dense
 visibility tables (``point2obs`` / ``img2obs``) are not ported: they
 bring back P x Vmax index memory.
+
+Spans (`solver.tracing`, no-ops outside a recording): the engine's
+entry points carry the feature-major engine's names (``linearize``,
+``prepare``, ``lm_step``, ``back_substitute``), its per-point and
+per-image sums ``rcs.point_sum`` / ``rcs.image_sum`` (run on every CG
+iteration: `tracing.traced` tests ``tracing.ACTIVE`` before anything
+else).
 """
 
 from __future__ import annotations
@@ -870,6 +877,7 @@ def _sum_rows(x):
     return _per_item(lambda a: a.sum(dim=0), x)
 
 
+@tracing.traced("rcs.point_sum")
 def _seg_point(p: RCSProblem, x):
     """Sum per point of x [N, ...]: a reshape in the uniform point-major
     layout, else the point-sorted segment sums."""
@@ -895,6 +903,7 @@ def _block_prefix(xi):
                       torch.cumsum(bl, dim=0)])
 
 
+@tracing.traced("rcs.image_sum")
 def _seg_image(p: RCSProblem, x):
     """Sum per image of x [N, ...]: the blocked image layout (one row
     gather into image-sorted order, 512-row block sums, a cumsum
@@ -958,6 +967,7 @@ def _cameras(p: RCSProblem):
                        device=p.obs_image.device)
 
 
+@tracing.traced("linearize")
 def linearize(problem: RCSProblem, state: ParamState, spec, damping,
               skip_image_reductions: bool = False,
               cam_gather=None) -> Blocks:
@@ -1134,6 +1144,7 @@ def global_block_preconditioner(p: RCSProblem, b: Blocks):
     return _per_item(block, b.Jg, b.PJg, b.Jp, b.Hpp_inv, b.extra_g)
 
 
+@tracing.traced("back_substitute")
 def back_substitute_points(p: RCSProblem, b: Blocks, xc, xg,
                            cam_gather=None):
     """dx_p = Hpp^{-1} (bp - Hpx x): [P, 3]."""
@@ -1148,6 +1159,7 @@ def omega_at(p: RCSProblem, b: Blocks, dxp, dxc, dxg):
     return torch.sum(v * (b.P2 * v[:, None, :]).sum(dim=2))
 
 
+@tracing.traced("prepare")
 def prepare(problem: RCSProblem, state: ParamState, spec, damping,
             cam_gather=None):
     """Linearise and build what the PCG needs, with every per-image
@@ -1220,6 +1232,7 @@ def omega_at_full(p: RCSProblem, b: Blocks, ext, dxp, dxc, dxg):
     return om
 
 
+@tracing.traced("lm_step")
 def lm_step_full(problem: RCSProblem, state: ParamState, spec, damping,
                  cg_tol=1e-10, cg_maxiter=200, matvec_factory=None,
                  cam_gather=None, stall_limit=None):
@@ -1257,6 +1270,7 @@ def lm_step_full(problem: RCSProblem, state: ParamState, spec, damping,
     return dxp, xc, xg, b, it, ext
 
 
+@tracing.traced("lm_step")
 def lm_step(problem: RCSProblem, state: ParamState, spec, damping,
             cg_tol=1e-10, cg_maxiter=200, matvec=None, stall_limit=None,
             cam_gather=None):

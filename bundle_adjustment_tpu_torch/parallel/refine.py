@@ -50,14 +50,26 @@ def upcast_problem(problem: rcs.RCSProblem) -> rcs.RCSProblem:
 
 
 class Refiner:
-    """Engine-path (feature-major) mixed-precision refiner.
+    """Mixed-precision refiner of a tensor RCSProblem in either layout
+    (`rcs.LAYOUTS`); the layout picks the engine, once, here:
 
-    Takes the extras of the scale path: scale bars, the Helmert
-    inner-constraint datum and populated direct groups (the low-rank
-    corrections of `freenet`, their coefficients in f32, the cancelling
-    bar and group misclosures from the f64 pass) and diagonal direct
-    observations (folded by the f64 lineariser; the EO term of the camera
-    rhs is added in `gradient64`).
+    * uniform point-major (``point_uniform`` set): the feature-major
+      engine (`engine.py`) with the CUDA kernels K1, K2 and K3;
+    * file order (``point_uniform`` None, any number of views per point,
+      the point order of `convert.problem_to_torch`): the block-layout
+      engine (`rcs.linearize` .. `rcs.back_substitute_points`), in that
+      layout, never padded, with K3 for the EO gathers.  Its CG takes
+      block Jacobi whatever ``couple_global`` says, as `solver.solve`'s
+      file route does, and its Jacobian is taken at the hi part of the
+      state (the right-hand side is the f64 gradient).
+
+    Takes the extras of the scale path on the point-major layout: scale
+    bars, the Helmert inner-constraint datum and populated direct groups
+    (the low-rank corrections of `freenet`, their coefficients in f32, the
+    cancelling bar and group misclosures from the f64 pass); on the file
+    order they raise ValueError.  Diagonal direct observations are folded
+    by the f64 lineariser on both (on the point-major layout the EO term
+    of the camera rhs is added in `gradient64`).
 
     Usage:
         r = Refiner(problem32, spec, use_kernels=True)
@@ -66,38 +78,43 @@ class Refiner:
 
     ``problem32``: the port's tensor RCSProblem in f32 (`convert`), on the
     device that runs the solve.  The f64 problem is its upcast (the same
-    f32-rounded observations), on the same device, in the point-major
-    layout; the f32 one is view-major when ``use_kernels``.  Both reduce
-    per point and per image, so the gradient blocks do not depend on the
-    lane order.
+    f32-rounded observations), on the same device, in the same layout;
+    on the point-major layout the f32 one is view-major when
+    ``use_kernels``.  Both reduce per point and per image, so the
+    gradient blocks do not depend on the lane order.  ``fmp32`` /
+    ``fmp64`` are the problems the engine reads: FMProblems on the
+    point-major layout, the RCSProblems themselves on the file order.
 
-    ``use_kernels``: each step runs K3 in linearise and back-substitution,
-    K2 for the assembly and K1 on every CG iteration
-    (`kernels.prepare_kernels` + `kernels.make_matvec`); for CPU tensors
-    the wrappers take their plain versions.  The kernels take one camera:
-    a multi-camera problem (the compact rows) refines on the plain path,
+    ``use_kernels``: on the point-major layout each step runs K3 in
+    linearise and back-substitution, K2 for the assembly and K1 on every
+    CG iteration (`kernels.prepare_kernels` + `kernels.make_matvec`); on
+    the file order K3 alone; for CPU tensors the wrappers take their
+    plain versions.  K1 and K2 take one camera: a point-major
+    multi-camera problem (the compact rows) refines on the plain path,
     and ``use_kernels=True`` raises ValueError for it.  None (the
     default) takes `solver.solve`'s rule (`kernels.runs_kernels`): the
-    kernels for a single-camera f32 problem on a card, else the plain path
-    (a rig's compact rows); kernel names as `solve` takes them.
+    route's kernels for an f32 problem on a card (point-major: one camera
+    only), else the plain path; kernel names as `solve` takes them.
 
-    The plain product, in f32 or in f64, is marked ``capturable`` as
-    `engine.lm_step` marks its own: on a card `rcs.pcg` replays its CG
-    iteration as a CUDA graph.  The extras' wrapped product and
-    preconditioner (`freenet`) keep the eager route.
+    The point-major plain product, in f32 or in f64, is marked
+    ``capturable`` as `engine.lm_step` marks its own: on a card `rcs.pcg`
+    replays its CG iteration as a CUDA graph.  The extras' wrapped product
+    and preconditioner (`freenet`) and the block layout's product keep the
+    eager route.
 
     ``couple_global`` (the JAX Refiner's option): precondition the f32 CG
     with the exact camera-global blocks (default), or with the camera and
-    global blocks alone (block Jacobi).
+    global blocks alone (block Jacobi); the file order takes block Jacobi.
 
-    The inner solve in f64 (``inner64``): the step's `engine.prepare`,
-    preconditioner, plain product and CG on the f64 problem the gradient
-    pass holds, in a span ``refine.step64``.  A camera rig takes it from
-    the first step of each refinement (`begin`): its f32 operator does not
-    hold the rig's weakest mode, each camera's calibration against its
-    images' EO, and on the 4-camera 100k rig the f32 steps moved the
-    state by 1e-3 .. 1e-1 where the correction was 0.3 .. 1.1, for one to
-    five steps, until a CG returned its zero start (PERF.md).  On one
+    The inner solve in f64 (``inner64``): the step's `engine.prepare`
+    (`rcs.prepare`), preconditioner, plain product and CG on the f64
+    problem the gradient pass holds, in a span ``refine.step64``.  A
+    camera rig takes it from the first step of each refinement (`begin`):
+    its f32 operator does not hold the rig's weakest mode, each camera's
+    calibration against its images' EO, and on the 4-camera 100k rig the
+    f32 steps moved the state by 1e-3 .. 1e-1 where the correction was
+    0.3 .. 1.1, for one to five steps, until a CG returned its zero start
+    (PERF.md).  On one
     camera a step whose f32 CG returns its zero start on a nonzero
     right-hand side (no iterate lowered |r|_2) solved nothing: it is
     redone in f64, and the rest of the refinement solves in f64.  A step
@@ -109,6 +126,12 @@ class Refiner:
     def __init__(self, problem32: rcs.RCSProblem, spec,
                  use_kernels: bool | None = None, couple_global: bool = True):
         convert.refuse_unsupported(problem32)
+        self.file_order = problem32.point_uniform is None
+        if self.file_order and problem32.has_extras:
+            raise ValueError(
+                "the refinement of a problem in the 'file' layout takes no "
+                "scale bars, inner-constraint datum or populated direct "
+                "groups (the point-major layout does: rcs.to_point_major)")
         x = problem32.obs_xy
         use_kernels = kernels.runs_kernels(problem32, use_kernels, x.dtype,
                                            x.device)
@@ -117,13 +140,18 @@ class Refiner:
         self.use_kernels = use_kernels
         self.couple_global = couple_global
         self.begin()
-        self.fmp32 = engine.fm_problem(problem32)
-        if use_kernels:
-            self.fmp32 = kernels.kernel_layout(self.fmp32)
+        tracing.count("rows", int(problem32.obs_point.shape[0]))
         # the f64 problem also holds the bar and group geometry of the f64
         # misclosures (tiny)
         self.problem64 = upcast_problem(problem32)
-        self.fmp64 = engine.fm_problem(self.problem64)
+        if self.file_order:
+            # the block-layout engine reads the problems as they are
+            self.fmp32, self.fmp64 = problem32, self.problem64
+        else:
+            self.fmp32 = engine.fm_problem(problem32)
+            if use_kernels:
+                self.fmp32 = kernels.kernel_layout(self.fmp32)
+            self.fmp64 = engine.fm_problem(self.problem64)
 
     def begin(self):
         """Start a refinement (`refine`, `converge`): its inner solve in
@@ -139,12 +167,19 @@ class Refiner:
         bar and group rows, and the misclosures of the scale bars and of
         the populated direct group (empty without them)."""
         p64 = self.problem64
-        b = engine.linearize(fmp64, state64, self.spec, 0.0)
-        bc = engine._image_sum_stack(
-            fmp64,
-            [b.Jc[a] * b.Pw[0] + b.Jc[6 + a] * b.Pw[1] for a in range(6)])
-        if fmp64.de_w is not None:
-            bc = bc + fmp64.de_w * fmp64.free_eo * (fmp64.de_val - state64.eo)
+        if self.file_order:
+            # the block layout's sums; bc holds the de term
+            b = rcs.linearize(fmp64, state64, self.spec, 0.0)
+            bp, bc = b.bp, b.bc
+        else:
+            b = engine.linearize(fmp64, state64, self.spec, 0.0)
+            bp = torch.stack(b.bp, dim=1)
+            bc = engine._image_sum_stack(
+                fmp64,
+                [b.Jc[a] * b.Pw[0] + b.Jc[6 + a] * b.Pw[1] for a in range(6)])
+            if fmp64.de_w is not None:
+                bc = bc + fmp64.de_w * fmp64.free_eo * (fmp64.de_val
+                                                        - state64.eo)
         omega0 = b.omega0
         wsb = wdpg = state64.points.new_zeros((0,))
         if freenet.has_rows(p64.sb_a):
@@ -158,7 +193,7 @@ class Refiner:
             wdpg = p64.dpg_val - cur
             omega0 = omega0 + torch.dot(
                 wdpg, freenet.solve_vec(p64.dpg_cov, wdpg))
-        out = torch.stack(b.bp, dim=1), bc, b.bg, omega0, wsb, wdpg
+        out = bp, bc, b.bg, omega0, wsb, wdpg
         del b  # the f64 rows (~80 per observation) go before the f32 step
         return out
 
@@ -174,31 +209,42 @@ class Refiner:
         else:
             p, problem, kern = self.fmp32, self.problem32, self.use_kernels
             state, state_lo = s.hi, s.lo
-        cam_gather = None
-        if kern:
-            cam_gather = kernels.make_cam_gather(p)
-            b, _rc, _rg, Minv, pp = kernels.prepare_kernels(
-                p, state, self.spec, damping,
-                couple_global=self.couple_global, state_lo=state_lo,
-                cam_gather=cam_gather)
+        cam_gather = kernels.make_cam_gather(p) if kern else None
+        if self.file_order:
+            b, _rc, _rg, Minv = rcs.prepare(p, state, self.spec, damping,
+                                            cam_gather=cam_gather)
+            ops = rcs.point_ops(p, b, cam_gather=cam_gather)
         else:
-            b, _rc, _rg, Minv = engine.prepare(
-                p, state, self.spec, damping,
-                couple_global=self.couple_global, state_lo=state_lo)
-        ops = engine.point_ops(p, b, cam_gather=cam_gather)
+            if kern:
+                b, _rc, _rg, Minv, pp = kernels.prepare_kernels(
+                    p, state, self.spec, damping,
+                    couple_global=self.couple_global, state_lo=state_lo,
+                    cam_gather=cam_gather)
+            else:
+                b, _rc, _rg, Minv = engine.prepare(
+                    p, state, self.spec, damping,
+                    couple_global=self.couple_global, state_lo=state_lo)
+            ops = engine.point_ops(p, b, cam_gather=cam_gather)
         z0 = ops.hinv(bp)
         dc, dg = ops.hxp(z0)
         rc = bc - dc
         rg = bg - dg
-        b = b._replace(bp=tuple(bp[:, a] for a in range(3)), bc=bc, bg=bg)
-        if kern:
-            # the rows packed once by prepare_kernels above
-            matvec = kernels.make_matvec(pp, b.extra_c, b.extra_g)
-        else:
-            def matvec(c, g):
-                return engine.schur_matvec(p, b, c, g)
+        if self.file_order:
+            b = b._replace(bp=bp, bc=bc, bg=bg)
 
-            matvec.capturable = True
+            def matvec(c, g):
+                return rcs.schur_matvec(p, b, c, g)
+        else:
+            b = b._replace(bp=tuple(bp[:, a] for a in range(3)), bc=bc,
+                           bg=bg)
+            if kern:
+                # the rows packed once by prepare_kernels above
+                matvec = kernels.make_matvec(pp, b.extra_c, b.extra_g)
+            else:
+                def matvec(c, g):
+                    return engine.schur_matvec(p, b, c, g)
+
+                matvec.capturable = True
         ext = None
         if problem.has_extras:
             # the exact low-rank corrections around the f64 gradient: the
@@ -217,6 +263,9 @@ class Refiner:
             and (bool(rc.any()) or bool(rg.any()))
         if ext is not None:
             dxp, _lam = freenet.back_substitute(problem, ext, ops, xc, xg)
+        elif self.file_order:
+            dxp = rcs.back_substitute_points(p, b, xc, xg,
+                                             cam_gather=cam_gather)
         else:
             dxp = engine.back_substitute_points(p, b, xc, xg,
                                                 cam_gather=cam_gather)

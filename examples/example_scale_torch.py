@@ -13,11 +13,10 @@ system is indefinite at scale).
 
 Then the same network with uneven visibility (`synthetic.thin_views`:
 every 10th point keeps all its views, the others half of them) in file
-order, the block-layout engine's route: the f32 `solve`, then `solve` in
-f64 from its end to max|dx| <= 1e-6 (the refinement takes the
-point-major layout only, as in the JAX package), and the covariance
-blocks of a few points on demand (`parallel.covariance`; `cov_direct`
-takes the point-major layout only).
+order, the block-layout engine's route: the f32 `solve`, then the same
+refinement to max|dx| <= 1e-6 on that order, never padded, and the
+covariance blocks of a few points on demand (`parallel.covariance`;
+`cov_direct` takes the point-major layout only).
 
 Runs on the GPU unless given --cpu.  Usage:
 
@@ -123,21 +122,24 @@ def file_order(dev, P, M, V):
     print(f"f32 solve: {r32.status.name} after {r32.iterations} steps in "
           f"{time.perf_counter() - t:.2f} s, max|dx| {r32.max_abs_dx:.2e}")
 
-    p64 = convert.problem_to_torch(fh, dev, torch.float64)
-    t = time.perf_counter()
-    r64 = solver.solve(p64, type(r32.state)(*(a.double() for a in r32.state)),
-                       spec, tolerance=REFINE_TOL, cg_tol=1e-10,
-                       cg_maxiter=500)
-    print(f"f64 solve from there: {r64.status.name} after {r64.iterations} "
-          f"steps in {time.perf_counter() - t:.2f} s, max|dx| "
-          f"{r64.max_abs_dx:.2e}")
+    refiner = refine.Refiner(p32, spec)
+    phase = lm.LMPhase(steps=r32.iterations, max_dx=r32.max_abs_dx,
+                       cg_iterations=[h["cg_it"] for h in r32.history],
+                       seconds=0.0)
+    s_ref, rec = refine.converge(refiner, (r32.state, phase),
+                                 tolerance=REFINE_TOL, damping=0.0)
+    st64 = hilo.to_f64(s_ref)
+    print(f"refinement on the file order: {rec.refine_steps} steps in "
+          f"{rec.refine_seconds:.2f} s, max|dx| "
+          + ", ".join(f"{x:.2e}" for x in rec.max_dx))
 
-    omega = float(rcs.linearize(p64, r64.state, spec, 0.0).omega0)
+    p64 = convert.problem_to_torch(fh, dev, torch.float64)
+    omega = float(rcs.linearize(p64, st64, spec, 0.0).omega0)
     sigma0 = math.sqrt(omega / dof_of(p64))
     # free points, one in all its views and one in half of them
     ids = np.array([THIN_EVERY, 3], np.int32)
     t = time.perf_counter()
-    b, Minv = covariance.prepare(p64, r64.state, spec)
+    b, Minv = covariance.prepare(p64, st64, spec)
     Q = covariance.point_covariance_blocks(p64, b, Minv, ids)
     sig = (torch.sqrt(torch.diagonal(Q, dim1=1, dim2=2)) * sigma0).tolist()
     print(f"sigma0 {sigma0:.6e}; point blocks on demand "
@@ -145,8 +147,8 @@ def file_order(dev, P, M, V):
           f"{ids.tolist()}: " + "; ".join(
               ", ".join(f"{x:.3e}" for x in s) for s in sig))
     return dict(sigma0=sigma0, f32_steps=r32.iterations,
-                f64_steps=r64.iterations, max_dx=r64.max_abs_dx,
-                converged=r64.converged, point_sigmas=sig)
+                refine_steps=rec.refine_steps, max_dx=rec.max_dx[-1],
+                converged=rec.converged, point_sigmas=sig)
 
 
 def main(argv=None):

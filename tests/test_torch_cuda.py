@@ -55,8 +55,10 @@ to the control's bits and steps; the CLI as a subprocess on the card
 prints what its ``--cpu`` run prints (1e-9 relative).  The file-order
 layout (a 1,000-point network of uneven visibility, `synthetic.thin_views`):
 K3 equal to its plain version bit for bit, one f32 step of the
-block-layout engine through K3 twice to the same bits, and `solve`'s
-default there launching K3 and not K1.  The image-sum kernel (f32 and f64,
+block-layout engine through K3 twice to the same bits, `solve`'s
+default there launching K3 and not K1, and the Refiner there through K3
+converging to its own plain route's optimum (1e-8, Omega rtol 1e-9)
+with no K1 or K2 launch.  The image-sum kernel (f32 and f64,
 every caller's F, rows with a leading dimension, an image over several
 512-entry blocks, images without observations): its plain model's bits,
 the stack path within 1e-12 (f64) / 1e-5 (f32) of the largest sum, the
@@ -1344,3 +1346,51 @@ def test_file_order_step_repeats_bit_for_bit(file_order):
     solver.solve(prob, state, spec, damping=1e-2, max_iterations=1)
     counts = kernels.launch_counts()
     assert counts["cam_gather"] > 0 and counts["schur_matvec"] == 0
+
+
+def test_file_order_refiner_runs_k3_and_matches_its_plain_route():
+    """The Refiner on the file order, the port's normal path (`solve` ->
+    `Refiner` -> `converge`, undamped, block Jacobi), on the network of
+    tests/test_torch_refine_file.py (`thin_views(build_problem(800, 24,
+    16, seed=3), views=6, every=10)`: the undamped refinement needs no
+    point in fewer than ~6 views, where a repeated image leaves it
+    singular): with the card's
+    default (`use_kernels=None`, f32: K3 for the EO gathers) it converges
+    and agrees with its own plain route (``use_kernels=False``) within the
+    tolerance of tests/test_torch_refine_file.py's (b): both refined to
+    max|dx| <= 1e-8, every parameter within 1e-8 and the f64 Omega at rtol
+    1e-9; the default launches K3 and no K1 or K2, the plain route
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    from bundle_adjustment_tpu_torch import convert, synthetic
+    from bundle_adjustment_tpu_torch.parallel import (hilo, kernels, lm,
+                                                      refine, solver)
+
+    dev = torch.device("cuda", 0)
+    ph, sh, spec = synthetic.build_problem(800, 24, 16, seed=3)
+    ph, sh = synthetic.thin_views(ph, sh, views=6, every=10)
+    prob = convert.problem_to_torch(ph, dev, torch.float32)
+    state = convert.state_to_torch(sh, dev, torch.float32)
+    res = solver.solve(prob, state, spec, damping=1e-2, max_iterations=30,
+                       tolerance=1e-3)
+    phase = lm.LMPhase(steps=res.iterations, max_dx=res.max_abs_dx,
+                       cg_iterations=[], seconds=0.0)
+    out = {}
+    for use in (None, False):
+        kernels.reset_launch_counts()
+        r = refine.Refiner(prob, spec, use_kernels=use, couple_global=False)
+        s, rec = refine.converge(r, (res.state, phase), tolerance=1e-8,
+                                 damping=0.0)
+        assert rec.converged, (use, rec.max_dx)
+        x = hilo.to_f64(s)
+        out[use] = (x, float(r.gradient64(r.fmp64, x)[3]),
+                    kernels.launch_counts(), r.use_kernels)
+    (x, om, counts, on), (y, om_plain, plain, off) = out[None], out[False]
+    assert on and not off
+    assert counts["cam_gather"] > 0
+    assert counts["schur_matvec"] == counts["prepare_reduction"] == 0
+    assert set(plain.values()) == {0}
+    for a, b in zip(x, y):
+        assert float((a - b).abs().max()) <= 1e-8
+    assert abs(om / om_plain - 1.0) <= 1e-9

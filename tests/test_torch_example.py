@@ -1,7 +1,8 @@
 """The port's scale example (examples/example_scale_torch.py) end to end on
 the CPU at 2,000 points / 40 images / 6 views: the point-major part (f32
 `solve`, `refine.converge`, f64 `cov_all`) and the file-order part (f32
-and f64 `solve` on `synthetic.thin_views`, blocks on demand) both reach
+`solve` and `refine.converge` on `synthetic.thin_views` in its file
+order, blocks on demand) both reach
 max|dx| <= 1e-6, with sigma0 within 2% of the injected 5e-4: three
 standard deviations of its estimate at ~1.8e4 degrees of freedom are
 1.6%.  Without a GPU and without --cpu it exits 2."""

@@ -1,6 +1,7 @@
 """The port's program spans (`solver.tracing.span` / `recording`) on the
 CPU: off by default, nested as the layers call each other, one job id,
-the PCG iteration counts equal to the solver's own records, `cov_all`'s
+the PCG iteration counts equal to the solver's own records (the only
+other count: the Refiner's ``rows``), `cov_all`'s
 stages in order, the answers bit-equal with recording on and off, and
 `device_trace` writing the spans into its Chrome trace on the clock of
 the operators it records.  A 500-point network (padded to 512) of 12
@@ -110,7 +111,11 @@ def test_pcg_iterations_are_the_solvers_counts(traced):
     assert counted == (sum(h["cg_it"] for h in res.history)
                        + sum(rec.cg_iterations))
     assert all("iterations" in s.counts for s in spans if s.name == "pcg")
-    assert not [s for s in spans if s.counts and s.name != "pcg"]
+    assert not [s for s in spans
+                if s.counts and s.name not in ("pcg", "refine.build")]
+    # the Refiner counts the observation rows its problems hold: P x V
+    assert [s.counts for s in spans if s.name == "refine.build"] \
+        == [{"rows": 512 * 6}]
 
 
 def test_cov_all_stage_spans_in_order(net, traced):
